@@ -1,0 +1,22 @@
+"""dgp_tpu_torch -- the PyTorch/CUDA port of dgp_tpu.
+
+The same model code as the JAX package (`dgp_tpu`), on tensors, with the
+JAX package's Pallas kernels replaced by hand-written CUDA kernels for
+NVIDIA Hopper (ops/cuda_vecchia.py, csrc/).  This first slice covers the
+serving path of a Vecchia DGP: construction with the initial imputation,
+the emulator's imputation draws and its mean/variance prediction.
+Training is not ported yet (see ROADMAP.md).
+
+Every entry point takes an explicit ``device``; float64 is the default
+working dtype and TF32 is off (see config.py).  The package never imports
+jax.
+"""
+from . import config  # noqa: F401  (sets the TF32 switches)
+from .config import set_default_dtype, default_dtype  # noqa: F401
+from .rng import nb_seed  # noqa: F401
+from .models.node import kernel, combine  # noqa: F401
+from .models.dgp import dgp  # noqa: F401
+from .models.emulation import emulator  # noqa: F401
+from .interop import layers_from_numpy  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,175 @@
+"""Multi-imputation ensemble prediction on the Vecchia path; the counterpart
+of `dgp_tpu/models/ensemble.py`.
+
+The N imputations' latent layers are stacked on a leading axis and the
+whole ensemble propagation -- per-layer prediction-NN search, Vecchia GP and
+linked-GP moments, for every imputation -- runs in plain torch per query
+chunk of `_CHUNK` points on the engine's device.  Layer-0 inputs are shared
+across imputations (the global X), so its NN search runs once per chunk;
+deeper layers search each imputation's own latent inputs.
+
+Not ported yet: dense GP nodes (O1), likelihood nodes (O2) and the IVF
+approximate search (O5).
+"""
+import numpy as np
+import torch
+
+from .. import config
+from ..vecchia import core as vcore
+from ..vecchia import nn as vnn
+
+_CHUNK = 2048
+#: extra block diagonals tried, in order, for chunks whose factorisation
+#: comes out non-finite (prediction blocks can be larger than the training m)
+_JITTER_RUNGS = (3e-4, 3e-3)
+
+
+def supported(all_layer_set):
+    """None if the ensemble can predict this structure, else a reason."""
+    for layer in all_layer_set[0]:
+        for node in layer:
+            if node.type != 'gp':
+                return 'likelihood nodes are not ported (ROADMAP.md, O2)'
+            if not node.vecch:
+                return 'dense GP nodes are not ported (ROADMAP.md, O1)'
+    return None
+
+
+class CompiledEnsemble:
+    """Chunked ensemble predictor for a trained Vecchia DGP."""
+
+    def __init__(self, all_layer_set, device=None):
+        why = supported(all_layer_set)
+        if why is not None:
+            raise NotImplementedError(why)
+        self.device = config.resolve_device(device)
+        self.set0 = all_layer_set[0]
+        self.N = len(all_layer_set)
+        self.n_layer = len(self.set0)
+        self.dtype = config.default_dtype()
+        dt = config.np_dtype()
+
+        def t(a):
+            return torch.tensor(np.asarray(a, dt), device=self.device)
+
+        d_global = 0
+        for layer in self.set0:
+            for node in layer:
+                if node.connect is not None:
+                    d_global = max(d_global, int(np.max(node.connect)) + 1)
+        for node in self.set0[0]:
+            d_global = max(d_global, int(np.max(node.input_dim)) + 1)
+        n0 = self.set0[0][0].input.shape[0]
+        Xg = np.zeros((n0, d_global), dt)
+        for node in self.set0[0]:
+            Xg[:, list(np.asarray(node.input_dim))] = node.input
+        for layer in self.set0:
+            for node in layer:
+                if node.connect is not None and node.global_input is not None:
+                    Xg[:, list(np.asarray(node.connect))] = node.global_input
+        self._X_global = t(Xg)
+        # stacked per-imputation node outputs y_stack[l][k]: (N, n)
+        self.y_stack, self.spec = [], []
+        for l in range(self.n_layer):
+            lay_y, lay_spec = [], []
+            for k, node in enumerate(self.set0[l]):
+                ys = t(np.stack([s[l][k].output[:, 0] for s in all_layer_set]))
+                lay_y.append(ys)
+                w_diag = getattr(node, 'W_diag', None)
+                lay_spec.append(dict(
+                    name=node.name,
+                    input_dim=tuple(int(i) for i in node.input_dim),
+                    connect=(None if node.connect is None
+                             else tuple(int(i) for i in node.connect)),
+                    length=t(node.length), scale=t(node.scale[0]),
+                    nugget=t(node.nugget[0]),
+                    nug_diag=(t(w_diag) if w_diag is not None
+                              else torch.ones(ys.shape[1], dtype=self.dtype,
+                                              device=self.device))))
+            self.y_stack.append(lay_y)
+            self.spec.append(lay_spec)
+        # F[l] (N, n, width_l): column-stacked gp-node outputs of layer l
+        self.F = [torch.stack(self.y_stack[l], dim=2) for l in range(self.n_layer - 1)]
+
+    def _node_train_inputs(self, l, nd):
+        """(W, shared): training inputs (n, d) shared across imputations
+        for layer 0, per imputation (N, n, d) deeper."""
+        if l == 0:
+            Xn = self._X_global[:, list(nd['input_dim'])]
+            if nd['connect'] is not None:
+                Xn = torch.cat([Xn, self._X_global[:, list(nd['connect'])]], dim=1)
+            return Xn, True
+        W = self.F[l - 1][:, :, list(nd['input_dim'])]
+        if nd['connect'] is not None:
+            Z = self._X_global[:, list(nd['connect'])]
+            W = torch.cat([W, torch.broadcast_to(Z[None], (self.N,) + Z.shape)], dim=2)
+        return W, False
+
+    def _chunk(self, x, m_pred, loo, extra_jit):
+        """One query chunk x (Mc, d_global) -> (means, vars): per layer an
+        (N, Mc, width) tensor."""
+        def nn_search(q, w, m_eff):
+            nn = vnn._pred_nn_impl(q, w, m_eff)
+            return nn[:, 1:] if loo else nn
+
+        in_mean = in_var = None
+        means, vars_ = [], []
+        for l in range(self.n_layer):
+            cols_m, cols_v = [], []
+            for k, nd in enumerate(self.spec[l]):
+                y = self.y_stack[l][k]                        # (N, n)
+                m_eff = min(m_pred, y.shape[1])
+                W, _ = self._node_train_inputs(l, nd)
+                z = x[:, list(nd['connect'])] if nd['connect'] is not None else None
+                if l == 0:
+                    xq = x[:, list(nd['input_dim'])]
+                    if z is not None:
+                        xq = torch.cat([xq, z], dim=1)
+                    NN = nn_search(xq / nd['length'], W / nd['length'], m_eff)
+                    out = [vcore.gp_vecch(xq, W, NN, y[i], nd['scale'], nd['length'],
+                                          nd['nugget'], nd['nug_diag'], nd['name'],
+                                          extra_jit) for i in range(self.N)]
+                else:
+                    dl = len(nd['input_dim'])
+                    full_len = torch.broadcast_to(nd['length'], (W.shape[2],))
+                    out = []
+                    for i in range(self.N):
+                        mi = in_mean[i][:, list(nd['input_dim'])]
+                        vi = in_var[i][:, list(nd['input_dim'])]
+                        xq = mi if z is None else torch.cat([mi, z], dim=1)
+                        NN = nn_search(xq / full_len, W[i] / full_len, m_eff)
+                        out.append(vcore.link_gp_vecch(
+                            mi, vi, z, W[i][:, :dl],
+                            W[i][:, dl:] if z is not None else None, NN, y[i],
+                            nd['scale'], nd['length'], nd['nugget'],
+                            nd['nug_diag'], nd['name'], extra_jit))
+                cols_m.append(torch.stack([o[0] for o in out]))
+                cols_v.append(torch.abs(torch.stack([o[1] for o in out])))
+            means.append(torch.stack(cols_m, dim=2))
+            vars_.append(torch.stack(cols_v, dim=2))
+            in_mean, in_var = means[l], vars_[l]
+        return means, vars_
+
+    def propagate(self, x, m_pred, loo=False):
+        """Run the ensemble through all layers.  Returns (means, vars): per
+        layer an (N, M, width) numpy array."""
+        x = torch.as_tensor(np.asarray(x, config.np_dtype()), device=self.device)
+        M = x.shape[0]
+        means = [[] for _ in range(self.n_layer)]
+        vars_ = [[] for _ in range(self.n_layer)]
+        for s in range(0, M, _CHUNK):
+            xc = x[s:s + _CHUNK]
+            mc, vc = self._chunk(xc, m_pred, loo, 0.0)
+            # jitter escalation for chunks that factorised non-finite; keep
+            # the healthy entries
+            for extra in _JITTER_RUNGS:
+                if all(bool(torch.isfinite(a).all()) for a in mc + vc):
+                    break
+                m2, v2 = self._chunk(xc, m_pred, loo, extra)
+                mc = [torch.where(torch.isfinite(a), a, b) for a, b in zip(mc, m2)]
+                vc = [torch.where(torch.isfinite(a), a, b) for a, b in zip(vc, v2)]
+            for l in range(self.n_layer):
+                means[l].append(mc[l])
+                vars_[l].append(vc[l])
+        return ([torch.cat(p, dim=1).cpu().numpy() for p in means],
+                [torch.cat(p, dim=1).cpu().numpy() for p in vars_])

@@ -1,0 +1,247 @@
+"""Vecchia-approximation compute as batched torch ops; the counterpart of
+`dgp_tpu/vecchia/core.py`.
+
+Every per-point (m+1)-block is gathered into one (n, m+1, m+1) tensor and
+factorised in one batched call.  Padded lanes (points with fewer than m
+predecessors, marked -1 in NNarray) are decoupled by masking their rows and
+columns to the identity, which leaves the final-element conditionals equal
+to the unpadded computation.
+
+The conditional weights of ancestral sampling go through the K3 kernel
+wrapper (`ops.cuda_vecchia.cond_weights_t`); `vecchia_llik` keeps the JAX
+package's batched (XLA) form as a reference for the K2/K4 pipelines.
+Prediction (`gp_vecch`, `link_gp_vecch`) is batched torch.linalg.
+"""
+import numpy as np
+import torch
+
+from ..ops import cuda_vecchia as cv
+from ..ops import kernels as kops
+from ..ops import linalg
+
+
+def _f32_jitter(dtype):
+    """Fixed diagonal jitter for float32 Vecchia blocks: near-ones
+    correlation blocks lose positive definiteness under float32 Cholesky; a
+    3e-5 floor (small against the usual 1e-4..1e-2 estimated nuggets,
+    invisible in float64) keeps the factorisations finite."""
+    return 3e-5 if dtype == torch.float32 else 0.0
+
+
+def _eye_like(K):
+    return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def _blocks(X, y, NNarray, length, nugget, name, nugget_diag):
+    """Masked (n, m+1, m+1) kernel blocks in ascending order (self last)
+    plus masked targets.  Returns (K, y_blk, valid)."""
+    rev = torch.flip(NNarray, dims=(1,))
+    valid = rev >= 0
+    safe = torch.where(valid, rev, 0)
+    Xi = X[safe]                                   # (n, m+1, d)
+    yi = torch.where(valid, y[safe], 0.0)
+    nug_i = nugget * nugget_diag[safe]
+    K = kops.k_cross(Xi, Xi, length, name)
+    both = valid[:, :, None] & valid[:, None, :]
+    K = torch.where(both, K, _eye_like(K))
+    diag = torch.where(valid, 1.0 + nug_i + _f32_jitter(K.dtype), 1.0)
+    return kops.set_diag(K, diag), yi, valid
+
+
+def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
+    """Vecchia log-likelihood at fixed parameters (reference vecchia_llik):
+    the scale enters only through quad/scale; the parameter-constant
+    normalisation is dropped.  Accumulated in float64."""
+    K, yi, _ = _blocks(X, y, NNarray, length, nugget, name, nugget_diag)
+    L = linalg.chol_small(K)
+    Ly = linalg.fwd_solve_small(L, yi)
+    quad = linalg.sum64(Ly[:, -1] ** 2)
+    logdet = linalg.sum64(2.0 * torch.log(torch.abs(L[:, -1, -1])))
+    scale64 = torch.as_tensor(scale, dtype=torch.float64, device=quad.device)
+    return -0.5 * (logdet + quad / scale64)
+
+
+def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None):
+    """Per-point conditional weights for ancestral Vecchia sampling.
+
+    For each ordered point i with ascending neighbour set N(i):
+        x_i | x_N(i) ~ N(w_i . x_N(i), scale * sigma_i^2)
+    Returns (w (n, m), sigma (n,), idx_asc (n, m), valid (n, m+1)).
+
+    ``pre`` optionally carries the parameter-independent gathered blocks
+    (Xg_raw (m1, d, n), nug_g (m1, n), validT (m1, n)) from
+    `CompiledDGP._chunk_static`."""
+    n = X.shape[0]
+    nd = (torch.ones(n, dtype=X.dtype, device=X.device) if nugget_diag is None
+          else nugget_diag)
+    rev = torch.flip(NNarray, dims=(1,))
+    valid = rev >= 0
+    jit = _f32_jitter(X.dtype)
+    if pre is not None:
+        Xg_raw, nug_g, validT = pre
+        Xg, diag, _ = cv.scale_blocks_t(Xg_raw, nug_g, validT, length, nugget, jit)
+    else:
+        Xg, _, diag = cv.gather_scale_t(X, torch.zeros_like(X[:, 0]), NNarray,
+                                        length, nugget, nd, jit)
+    w_t, sigma = cv.cond_weights_t(Xg, diag, name=name)
+    w = torch.where(valid[:, :-1], w_t.T, 0.0)
+    idx_asc = torch.where(valid, rev, 0)[:, :-1]
+    return w, sigma, idx_asc, valid
+
+
+def _unitri_inverse(W):
+    """(..., B, B) inverse of (I - W) for strictly-lower-triangular W by
+    Neumann doubling: (I-W)^{-1} = prod_k (I + W^{2^k}), exact after
+    ceil(log2 B) steps since W^B = 0."""
+    B = W.shape[-1]
+    M = _eye_like(W) + W
+    A = W
+    steps = max(1, int(np.ceil(np.log2(max(B, 2)))))
+    for _ in range(steps - 1):
+        A = A @ A
+        M = M + M @ A
+    return M
+
+
+def ancestral_sample(eps, w, idx_asc, block=512):
+    """Vecchia ancestral pass x_i = w_i . x_{N(i)} + eps_i in O(n/block)
+    sequential steps: the ordering is cut into blocks; cross-block terms are
+    gathers from finished entries, and within-block coupling is solved by a
+    precomputed dense per-block inverse (batched over blocks).
+
+    Args:
+        eps: (S, n) independent noise, already scaled by the conditional sd.
+        w: (n, m) conditional weights (0 on padded lanes).
+        idx_asc: (n, m) ascending neighbour indices (0 on padded lanes).
+    Returns:
+        (S, n) samples.
+    """
+    S, n = eps.shape
+    m = w.shape[1]
+    if n > 32768:
+        block = min(block, 256)
+    elif block == 512:
+        block = 128
+    B = min(block, max(64, 1 << int(np.ceil(np.log2(max(n, 2))))))
+    n_pad = ((n + B - 1) // B) * B
+    nb = n_pad // B
+    if n_pad != n:
+        eps = torch.nn.functional.pad(eps, (0, n_pad - n))
+        w = torch.nn.functional.pad(w, (0, 0, 0, n_pad - n))
+        idx_asc = torch.nn.functional.pad(idx_asc, (0, 0, 0, n_pad - n))
+
+    base = (torch.arange(n_pad, dtype=idx_asc.dtype, device=idx_asc.device)
+            // B) * B
+    rel = idx_asc - base[:, None]                        # (n_pad, m)
+    in_blk = (rel >= 0) & (w != 0)
+    rel_safe = torch.where(in_blk, rel, B)
+    cols_r = torch.arange(B, dtype=rel.dtype, device=rel.device)
+    w_in = torch.where(in_blk, w, 0.0)
+    Wflat = torch.sum(torch.where(rel_safe[:, :, None] == cols_r[None, None, :],
+                                  w_in[:, :, None], 0.0), dim=1)
+    M = _unitri_inverse(Wflat.reshape(nb, B, B))          # (nb, B, B)
+
+    w_cross = torch.where(in_blk, 0.0, w).reshape(nb, B, m)
+    idx_b = idx_asc.reshape(nb, B, m)
+    eps_b = eps.reshape(S, nb, B)
+    x = torch.zeros((S, n_pad), dtype=eps.dtype, device=eps.device)
+    for b in range(nb):
+        gathered = x[:, idx_b[b]]                         # (S, B, m)
+        c = eps_b[:, b] + torch.einsum('sbm,bm->sb', gathered, w_cross[b])
+        x[:, b * B:(b + 1) * B] = torch.einsum('ij,sj->si', M[b], c)
+    return x[:, :n]
+
+
+def fmvn_sp(gen, X, NNarray, scale, length, nugget, name, S=None):
+    """Draw S samples (default: one, shape (n,)) from the Vecchia-
+    approximated N(0, scale*K) by blocked ancestral sampling; ``gen`` is a
+    torch.Generator on X's device."""
+    n = X.shape[0]
+    squeeze = S is None
+    S_ = 1 if squeeze else S
+    w, sigma, idx_asc, _ = cond_weights(X, NNarray, length, nugget, name)
+    eps = (torch.randn((S_, n), generator=gen, dtype=X.dtype, device=X.device)
+           * torch.sqrt(torch.as_tensor(scale, dtype=X.dtype, device=X.device))
+           * sigma[None, :])
+    x = ancestral_sample(eps, w, idx_asc)
+    return x[0] if squeeze else x
+
+
+# ----------------------------------------------------------------------
+# predictions
+# ----------------------------------------------------------------------
+def _pred_blocks(x, w_train, NNarray, y, length, nugget, nugget_diag, name):
+    """(M, m+1, m+1) blocks: [train NN ascending..., test point last]."""
+    valid = NNarray >= 0
+    safe = torch.where(valid, NNarray, 0)
+    Xi = torch.cat([w_train[safe], x[:, None, :]], dim=1)
+    yi = torch.where(valid, y[safe], 0.0)
+    nug = torch.cat([nugget * nugget_diag[safe],
+                     torch.broadcast_to(torch.as_tensor(nugget, dtype=x.dtype,
+                                                        device=x.device),
+                                        (x.shape[0], 1))], dim=1)
+    K = kops.k_cross(Xi, Xi, length, name)
+    valid_full = torch.cat([valid, torch.ones((x.shape[0], 1), dtype=torch.bool,
+                                              device=x.device)], dim=1)
+    both = valid_full[:, :, None] & valid_full[:, None, :]
+    K = torch.where(both, K, _eye_like(K))
+    K = kops.set_diag(K, torch.where(valid_full, 1.0 + nug + _f32_jitter(K.dtype), 1.0))
+    return K, yi
+
+
+def gp_vecch(x, w_train, NNarray, y, scale, length, nugget, nugget_diag, name,
+             extra_jit=0.0):
+    """Batched Vecchia GP prediction (reference gp_vecch).  ``extra_jit`` is
+    an additional diagonal for the callers' jitter-escalation retry."""
+    K, yi = _pred_blocks(x, w_train, NNarray, y, length, nugget, nugget_diag, name)
+    K = K + extra_jit * _eye_like(K)
+    L = linalg.chol_small(K)
+    Ly = linalg.fwd_solve_small(L[:, :-1, :-1], yi)
+    mean = torch.einsum('ij,ij->i', L[:, -1, :-1], Ly)
+    var = scale * L[:, -1, -1] ** 2
+    return mean, var
+
+
+def link_gp_vecch(m, v, z, w1, global_w1, NNarray, y, scale, length, nugget,
+                  nugget_diag, name, extra_jit=0.0):
+    """Batched linked-GP prediction under Vecchia (reference link_gp_vecch):
+    per test point, closed-form I/J moments over its conditioning set.  The
+    JAX package vmaps a one-point function; here the points are a batch
+    axis."""
+    from ..ops import moments
+
+    Dw = w1.shape[1]
+    Dz = 0 if z is None else z.shape[1]
+    full_len = torch.broadcast_to(length, (Dw + Dz,))
+    length_w, length_z = full_len[:Dw], full_len[Dw:]
+
+    ok = NNarray >= 0                                     # (M, k)
+    idx = torch.where(ok, NNarray, 0)
+    wi = w1[idx]                                          # (M, k, Dw)
+    yi = torch.where(ok, y[idx], 0.0)
+    nug_i = nugget * nugget_diag[idx] + extra_jit
+    I, J = moments.IJ(wi, m, v, length_w, name)
+    if z is not None:
+        gwi = global_w1[idx]
+        Iz = kops.k_vec(gwi, z, length_z, name)           # (M, k)
+        I = I * Iz
+        J = J * (Iz[:, :, None] * Iz[:, None, :])
+        Xi = torch.cat([wi, gwi], dim=2)
+    else:
+        Xi = wi
+    both = ok[:, :, None] & ok[:, None, :]
+    I = torch.where(ok, I, 0.0)
+    J = torch.where(both, J, 0.0)
+    K = kops.k_cross(Xi, Xi, full_len, name)
+    K = torch.where(both, K, _eye_like(K))
+    K = kops.set_diag(K, torch.where(ok, 1.0 + nug_i + _f32_jitter(K.dtype), 1.0))
+    L = linalg.chol_small(K)
+    Rinv_y = linalg.bwd_solve_small(L, linalg.fwd_solve_small(L, yi))
+    # tr(K^-1 J) = tr(L^-1 J L^-T)
+    A = torch.linalg.solve_triangular(L, J, upper=False)
+    N = torch.linalg.solve_triangular(L, A.transpose(-1, -2), upper=False)
+    tr = torch.diagonal(N, dim1=-2, dim2=-1).sum(-1)
+    mu = torch.sum(I * Rinv_y, dim=-1)
+    var = torch.abs(linalg.quad_form(J, Rinv_y) - mu**2
+                    + scale * (1.0 + nugget - tr))
+    return mu, var

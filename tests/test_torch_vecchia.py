@@ -1,0 +1,195 @@
+"""dgp_tpu_torch.vecchia and the plain versions of the CUDA kernels against
+dgp_tpu: neighbour sets (exactly), conditional weights (against both the
+XLA branch and the Pallas kernel in interpret mode), ancestral sampling
+with the same noise, Vecchia GP and linked-GP prediction, and the K2
+candidate evaluator (against the Pallas kernel in interpret mode).
+Tolerances rtol 1e-9, atol 1e-12, as in tests/test_pallas.py."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dgp_tpu.ops import pallas_vecchia as pv
+from dgp_tpu.vecchia import core as jcore
+from dgp_tpu.vecchia import nn as jnn
+import dgp_tpu_torch as tp
+from dgp_tpu_torch.ops import cuda_vecchia as cv
+from dgp_tpu_torch.vecchia import core as tcore
+from dgp_tpu_torch.vecchia import nn as tnn
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-9, atol=1e-12)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _jit(f, *static):
+    """The JAX reference, jitted: eager dispatch of its unrolled loops
+    costs seconds per call on the CPU."""
+    return jax.jit(f, static_argnames=static)
+
+
+def _close(a, b, **kw):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **(kw or TOL))
+
+
+def _setup(n=90, d=2, m=9, seed=0):
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(size=(n, d))
+    y = np.sin(3 * X[:, 0]) + X[:, -1]
+    NN = jnn.nn(X, m)
+    return X, y, np.asarray(NN)
+
+
+def test_nn_index_sets_match():
+    rs = np.random.RandomState(1)
+    X = rs.uniform(size=(300, 2))
+    np.testing.assert_array_equal(tnn.nn(X, 12), np.asarray(jnn.nn(X, 12)))
+    Q = rs.uniform(size=(70, 2))
+    np.testing.assert_array_equal(tnn.get_pred_nn(Q, X, 15),
+                                  np.asarray(jnn.get_pred_nn(Q, X, 15)))
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+def test_cond_weights_match_xla_and_pallas(name, monkeypatch):
+    X, _, NN = _setup(seed=7)
+    length, nugget = np.array([0.5, 0.8]), 1e-3
+    w_t, s_t, i_t, v_t = tcore.cond_weights(_t(X), _t(NN), _t(length), nugget, name)
+    ref_xla = _jit(jcore.cond_weights, 'name')(jnp.asarray(X), jnp.asarray(NN),
+                                               jnp.asarray(length), nugget, name=name)
+    monkeypatch.setattr(pv, "use_pallas", lambda *a: True)
+    ref_pl = _jit(jcore.cond_weights, 'name')(jnp.asarray(X), jnp.asarray(NN),
+                                              jnp.asarray(length), nugget, name=name)
+    for ref in (ref_xla, ref_pl):
+        _close(w_t, ref[0])
+        _close(s_t, ref[1])
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(ref[2]))
+        np.testing.assert_array_equal(v_t.numpy(), np.asarray(ref[3]))
+
+
+def test_cond_weights_pre_gathered_path():
+    """The I-step's pre-gathered layer-0 blocks (CompiledDGP._chunk_static)
+    give the same prior draws as gathering the blocks in cond_weights."""
+    X, y, _ = _setup(n=60, d=1, seed=8)
+    tp.nb_seed(0)
+    layers = tp.combine([tp.kernel(length=np.array([0.5]), nugget=1e-3)],
+                        [tp.kernel(length=np.array([0.5]))])
+    eng = tp.dgp(X, y[:, None], layers, vecchia=True, m=9).imp._engine()
+    lat, par = eng.get_state()
+    nn_state = eng.get_nn_state()
+    draws = [eng._draw_prior_node_batch(0, 0, lat, par, nn_state,
+                                        torch.Generator().manual_seed(1), 3, cs=cs)
+             for cs in (eng._chunk_static(nn_state), None)]
+    np.testing.assert_array_equal(draws[0].numpy(), draws[1].numpy())
+
+
+def test_ancestral_sample_same_eps():
+    X, _, NN = _setup(n=300, d=1, m=8, seed=2)
+    length, nugget = np.array([0.3]), 1e-4
+    w, sigma, idx, _ = _jit(jcore.cond_weights, 'name')(
+        jnp.asarray(X), jnp.asarray(NN), jnp.asarray(length), nugget, name='sexp')
+    eps = np.random.RandomState(3).normal(size=(3, 300)) * np.asarray(sigma)[None]
+    ref = _jit(jcore.ancestral_sample, 'block')(jnp.asarray(eps), w, idx)
+    out = tcore.ancestral_sample(_t(eps), _t(w), _t(idx))
+    _close(out, ref, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+def test_vecchia_llik_matches(name):
+    X, y, NN = _setup(seed=4)
+    length, nugget, scale = np.array([0.4, 0.7]), 1e-3, 1.3
+    nd = np.ones(X.shape[0])
+    _close(tcore.vecchia_llik(_t(X), _t(y), _t(NN), scale, _t(length), nugget,
+                              _t(nd), name),
+           _jit(jcore.vecchia_llik, 'name')(jnp.asarray(X), jnp.asarray(y),
+                                            jnp.asarray(NN), scale, jnp.asarray(length),
+                                            nugget, jnp.asarray(nd), name=name))
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+def test_gp_and_link_gp_prediction_match(name):
+    rs = np.random.RandomState(5)
+    n, M, mp = 120, 40, 10
+    W = rs.uniform(-1, 1, (n, 1))
+    G = rs.uniform(-1, 1, (n, 1))
+    y = np.sin(3 * W[:, 0]) + G[:, 0]
+    nd = rs.uniform(0.5, 1.0, n)
+    length = np.array([0.5, 0.8])
+    scale, nugget = 1.4, 1e-3
+    x = rs.uniform(-1, 1, (M, 2))
+    NN = np.array(jnn.get_pred_nn(x / length, np.hstack([W, G]) / length, mp))
+    NN[3, -2:] = -1  # padded conditioning lanes
+    WG = np.hstack([W, G])
+    _close(tcore.gp_vecch(_t(x), _t(WG), _t(NN), _t(y), scale, _t(length), nugget,
+                          _t(nd), name),
+           _jit(jcore.gp_vecch, 'name')(jnp.asarray(x), jnp.asarray(WG), jnp.asarray(NN),
+                                        jnp.asarray(y), scale, jnp.asarray(length),
+                                        nugget, jnp.asarray(nd), name=name))
+    mq = rs.uniform(-1, 1, (M, 1))
+    vq = rs.uniform(0.01, 0.1, (M, 1))
+    z = rs.uniform(-1, 1, (M, 1))
+    for zz, gw, ln in ((z, G, length), (None, None, length[:1])):
+        w1 = W
+        t_out = tcore.link_gp_vecch(_t(mq), _t(vq), None if zz is None else _t(zz),
+                                    _t(w1), None if gw is None else _t(gw), _t(NN),
+                                    _t(y), scale, _t(ln), nugget, _t(nd), name)
+        # eager: XLA's fusion under jit rewrites the Matern moment algebra,
+        # whose cancellations then differ from the op-by-op form at ~1e-8
+        j_out = jcore.link_gp_vecch(
+            jnp.asarray(mq), jnp.asarray(vq), None if zz is None else jnp.asarray(zz),
+            jnp.asarray(w1), None if gw is None else jnp.asarray(gw),
+            jnp.asarray(NN), jnp.asarray(y), scale, jnp.asarray(ln), nugget,
+            jnp.asarray(nd), name=name)
+        for a, b in zip(t_out, j_out):
+            _close(a, b)
+
+
+def _multi_inputs(dl, dg, seed=11, m1=6, n=300, K=7):
+    """Candidate views like CompiledDGP._build_angle_plan's, with
+    sentinel-encoded invalid lanes (mirrors test_pallas.py)."""
+    rs = np.random.RandomState(seed)
+    d = dl + dg
+    A = np.zeros((m1, d, n))
+    B = np.zeros((m1, d, n))
+    A[:, :dl] = rs.uniform(-1, 1, (m1, dl, n))
+    B[:, :dl] = rs.uniform(-1, 1, (m1, dl, n))
+    C = np.zeros((m1, d, n))
+    C[:, dl:] = rs.uniform(-1, 1, (m1, dg, n))
+    valid = rs.uniform(size=(m1, n)) > 0.15
+    valid[-1] = True
+    sent = 1e7 + rs.uniform(0, 1e3, (m1, n))
+    for t in range(d):
+        C[:, t] = np.where(valid, C[:, t], sent)
+        A[:, t] = np.where(valid, A[:, t], 0.0)
+        B[:, t] = np.where(valid, B[:, t], 0.0)
+    yg = np.where(valid, rs.uniform(-1, 1, (m1, n)), 0.0)
+    diag = np.where(valid, 1.0 + 1e-3, 1.0)
+    ang = np.linspace(0.1, 2 * np.pi, K)
+    return A, B, C, yg, diag, np.cos(ang), np.sin(ang)
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+@pytest.mark.parametrize("dl,dg", [(1, 1), (2, 0)])
+def test_block_loglik_multi_plain_matches_pallas(name, dl, dg):
+    args = _multi_inputs(dl, dg)
+    ld_t, q_t = cv.block_loglik_multi_t(*(_t(a) for a in args), name=name, dl=dl)
+    ld_j, q_j = pv.block_loglik_multi_t(*(jnp.asarray(a) for a in args), name=name,
+                                        dl=dl)
+    _close(ld_t, ld_j)
+    _close(q_t, q_j)
+    assert cv.block_loglik_multi_t.launches == 0  # CPU tensors: plain version
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused,
+    never moved."""
+    X = torch.empty((4, 1, 8), device='meta', dtype=torch.float64)
+    d = torch.empty((4, 8), device='meta', dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cv.cond_weights_t(X, d, name='sexp')
+    with pytest.raises(ValueError):
+        cv.block_loglik_multi_t(X, X, X, d, d, [1.0], [0.0], name='sexp')
