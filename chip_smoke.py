@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of dgp_tpu_torch (the PyTorch/CUDA port) on one NVIDIA GPU.
 
-Phases, each printing its results as one JSON line:
+Phases, each printing its results (and its seconds) as one JSON line:
 
-  device   require CUDA; print the card's name and power limit as
-           `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
-           gives them.
-  build    build the hand-written kernels from dgp_tpu_torch/csrc with nvcc
-           for sm_90a; print the build seconds and ptxas's spill counts.
-  kernels  run each kernel and its plain PyTorch version on the card at the
-           shapes of the main path (K3 at (26, 1, 2000); K2 at (26, 2, 2000)
-           with K=9, dl=1 and dl=d), for sexp and Matern-2.5, float64 and
-           float32, with sentinel lanes; check them against each other and
-           time both (median of CUDA-event timings).
-  main     the port's serving path at the configuration of bench.py: a
-           2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
-           dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
-           emulator(m.estimate(), N=5), predict on 1000 points at m=50 and
-           then on 20000 points.  Fails unless both kernels were launched
-           by this path and the RMSE against the noiseless truth is finite
-           and at most twice the JAX package's figure in the JSON.
+  device    require CUDA; print the card's name and power limit as
+            `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+            gives them.
+  build     build the hand-written kernels from dgp_tpu_torch/csrc with nvcc
+            for sm_90a (one nvcc per source, in parallel); print the build
+            seconds and ptxas's registers, stack and spill counts.
+  kernels   run each kernel and its plain PyTorch version on the card at the
+            shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
+            with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
+            K=9, dl=1 and dl=d; K3 at (26, 1, 2000); K4 at (26, 2, 2000) and
+            with a leading axis of 9 candidates -- for sexp and Matern-2.5,
+            float64 and float32, with sentinel lanes; check them against
+            each other; time kernel, plain version and the batched
+            torch.linalg.cholesky_ex of the same blocks (median of CUDA-event
+            timings), and compute each kernel's least time on the card.
+  main      the port's serving path at the configuration of bench.py: a
+            2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
+            dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
+            emulator(m.estimate(), N=5), predict on 1000 points at m=50 and
+            then on 20000 points.  Fails unless K2 and K3 were launched by
+            this path and the RMSE against the noiseless truth is finite and
+            at most twice the JAX package's figure in the JSON.
+  train     SEM training of the same configuration from bench.py's starting
+            hyper-parameters (length 0.5, nugget 1e-4): train(N=48) as
+            warm-up, a timed train(N=152) (200 iterations, the protocol
+            behind the JSON), then emulator(m.estimate(), N=5) and predict on
+            1000 points at m=50.  Fails unless K1, K2 and K3 were launched,
+            everything is finite and the RMSE is at most twice the JSON's.
+  nodewise  the same data with node-wise ESS (block=False): construction and
+            4 SEM iterations.  Fails unless K4 was launched and the results
+            are finite.
 
 Then it prints the kernel summary line and, last, the device line.  Any
 failed phase exits non-zero.  Usage, from the repository root:
@@ -49,14 +63,35 @@ NUGGET_WELL, NUGGET_BENCH = 1e-1, 1e-4
 # float32, K2: relative error of the summed log-likelihood against the
 # float64 plain version (the repo's own float32 bound, tests/test_pallas.py)
 REL_LL32 = 5e-3
-# float32, per-point values and K3's weights: the blocks at this n are
-# ill-conditioned (neighbours 1e-3 apart, diagonal 1 + 1e-4 + 3e-5), so
-# float32 errors of order 1e-2 relative are inherent to any factorisation.
-# The kernel must be no less accurate than the plain PyTorch version in
-# float32: max |kernel32 - plain64| <= F32_FACTOR * max |plain32 - plain64|
-# + F32_FLOOR * max |plain64|.  The factor allows for the two Cholesky
-# orders rounding differently on the worst-conditioned block.
+# float32, per-point values, K3's weights and K1's gradients: the blocks at
+# this n are ill-conditioned (neighbours 1e-3 apart, diagonal 1 + 1e-4 +
+# 3e-5), so float32 errors of order 1e-2 relative are inherent to any
+# factorisation.  The kernel must be no less accurate than the plain
+# PyTorch version in float32: max |kernel32 - plain64| <= F32_FACTOR *
+# max |plain32 - plain64| + F32_FLOOR * max |plain64|.  The factor allows
+# for the two Cholesky orders rounding differently on the worst-conditioned
+# block.
 F32_FACTOR, F32_FLOOR = 4.0, 1e-5
+# NVIDIA's published H100 SXM peaks (data sheet, dense, at 700 W): device
+# memory 3.35 TB/s; float64 34 TFLOP/s and float32 67 TFLOP/s outside the
+# tensor cores.  A kernel's least time is the larger of its bytes (inputs
+# read once, outputs written once) over the memory rate and its operations
+# over the peak of its type.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
+K_CAND = 9
+TRAIN_WARM, TRAIN_TIMED = 48, 152
+NODEWISE_ITERS = 4
+SOURCES = {
+    "block_nllik_grad_parts_t": ("dgp_tpu_torch/csrc/block_nllik_grad.cu",
+                                 "dgp_tpu/ops/pallas_vecchia.py:515"),
+    "block_loglik_multi_t": ("dgp_tpu_torch/csrc/block_loglik_multi.cu",
+                             "dgp_tpu/ops/pallas_vecchia.py:326"),
+    "cond_weights_t": ("dgp_tpu_torch/csrc/cond_weights.cu",
+                       "dgp_tpu/ops/pallas_vecchia.py:202"),
+    "block_loglik_parts_t": ("dgp_tpu_torch/csrc/block_loglik_parts.cu",
+                             "dgp_tpu/ops/pallas_vecchia.py:283"),
+}
 
 
 def emit(obj):
@@ -93,6 +128,11 @@ def cuda_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def launch_counts():
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    return {w.__name__: w.launches for w in cv.WRAPPERS}
+
+
 # ----------------------------------------------------------------------
 def phase_device():
     import torch
@@ -117,10 +157,14 @@ def phase_build():
 
 
 def _slice_inputs(dtype, device, nugget):
-    """K3 and K2 inputs at the main path's shapes, built from the bench
-    data the way vecchia.core.cond_weights and
-    CompiledDGP._build_angle_plan build them (bench.py's starting
-    lengthscale, 0.5; ``nugget`` sets the conditioning)."""
+    """Inputs of the four kernels at the main path's shapes, built from the
+    bench data the way the port builds them (bench.py's starting
+    lengthscale, 0.5; ``nugget`` sets the conditioning): K3 as in
+    vecchia.core.cond_weights, K2 as in CompiledDGP._build_angle_plan, K1
+    as in CompiledDGP._node_operands + mstep._vecch_fg (both nodes of the
+    M-step group, the layer-1 input zero-padded to the group's 2 dims), K4
+    as in vecchia.core.vecchia_llik (the layer-2 node, alone and for 9
+    candidates of a node-wise ESS round)."""
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     from dgp_tpu_torch.vecchia import core as vcore
@@ -134,11 +178,13 @@ def _slice_inputs(dtype, device, nugget):
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    ones = t(np.ones(N_TRAIN))
     # K3: layer-1 node, input X
-    ordv = rs.permutation(N_TRAIN)
-    NN = torch.as_tensor(vnn.nn(X[ordv] / length, M_TRAIN), device=device)
-    Xg, _, diag = cv.gather_scale_t(t(X[ordv]), t(np.zeros(N_TRAIN)), NN,
-                                    t([length]), nugget, t(np.ones(N_TRAIN)), jit)
+    ordv1 = rs.permutation(N_TRAIN)
+    NN1 = torch.as_tensor(vnn.nn(X[ordv1] / length, M_TRAIN, device=device),
+                          device=device)
+    Xg, _, diag = cv.gather_scale_t(t(X[ordv1]), t(np.zeros(N_TRAIN)), NN1,
+                                    t([length]), nugget, ones, jit)
     k3 = (Xg, diag)
 
     # K2: layer-2 node, input (latent f, global x); candidates cos*f + sin*nu
@@ -146,7 +192,7 @@ def _slice_inputs(dtype, device, nugget):
     nu = 0.5 * np.sin(3 * X[:, 0] + 1.0)
     WG = np.column_stack([f, X[:, 0]])
     ordv = rs.permutation(N_TRAIN)
-    NN = vnn.nn(WG[ordv] / length, M_TRAIN)
+    NN = vnn.nn(WG[ordv] / length, M_TRAIN, device=device)
     rev = np.flip(NN, axis=1)
     validT = (rev >= 0).T
     safeT = np.where(validT, rev.T, 0)
@@ -165,7 +211,7 @@ def _slice_inputs(dtype, device, nugget):
     yg = t(np.where(validT, Y[:, 0][ordv][safeT], 0.0))
     diag2 = torch.where(vt, torch.full_like(yg, 1.0 + nugget + jit),
                         torch.ones_like(yg))
-    ang = np.concatenate([[0.0], rs.uniform(0, 2 * np.pi, 8)])
+    ang = np.concatenate([[0.0], rs.uniform(0, 2 * np.pi, K_CAND - 1)])
     cosv, sinv = t(np.cos(ang)), t(np.sin(ang))
     k2 = (A, B, C, yg, diag2, cosv, sinv)
     # dl = d: both dims candidate-dependent (C holds the sentinels only)
@@ -176,7 +222,29 @@ def _slice_inputs(dtype, device, nugget):
     B2[:, 1] = t(np.where(validT, (np.sin(4 * X[:, 0])[ordv] / length)[safeT], 0.0))
     C2 = torch.where(vt[:, None, :], torch.zeros_like(C), sent[:, None, :])
     k2_full = (A2, B2, C2, yg, diag2, cosv, sinv)
-    return k3, k2, k2_full
+
+    # K4: the layer-2 node at fixed parameters, and its 9 candidates
+    NN_t = torch.as_tensor(NN, device=device)
+    k4 = cv.gather_scale_t(t(WG[ordv]), t(Y[:, 0][ordv]), NN_t, t([length]),
+                           nugget, ones, jit)
+    cand = np.stack([np.column_stack([c * f + s * nu, X[:, 0]])
+                     for c, s in zip(np.cos(ang), np.sin(ang))])[:, ordv]
+    Xc, _, _ = cv.gather_scale_t(t(cand), t(Y[:, 0][ordv]), NN_t, t([length]),
+                                 nugget, ones, jit)
+    k4_cand = (Xc, k4[1], k4[2])
+
+    # K1: the M-step group {layer-1 node, layer-2 node}, d_max = 2
+    X1 = np.column_stack([X[:, 0], np.zeros(N_TRAIN)])
+    raw1 = cv.gather_raw_t(t(X1[ordv1]), t(f[ordv1]), NN1, ones)
+    raw2 = cv.gather_raw_t(t(WG[ordv]), t(Y[:, 0][ordv]), NN_t, ones)
+    Xg_raw, yg1, nug_g, valid = (torch.stack([a, b]) for a, b in zip(raw1, raw2))
+    lengths = t([[length, 1.0], [length, length]])
+    Xg1, diag1, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, lengths,
+                                         t([nugget, nugget]), jit)
+    k1 = (Xg1, yg1, diag1, dnug)
+    return {"cond_weights_t": k3, "block_loglik_multi_t": k2,
+            "block_loglik_multi_t/dl=d": k2_full, "block_loglik_parts_t": k4,
+            "block_loglik_parts_t/K=9": k4_cand, "block_nllik_grad_parts_t": k1}
 
 
 def _err64(out, ref, per_value):
@@ -235,60 +303,135 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
     return rows + [row32]
 
 
+def _blocks_of(kname, ins, name="sexp"):
+    """The (batch, m1, m1) correlation blocks with their diagonals that
+    `kname` factors on these inputs: what torch.linalg.cholesky_ex is timed
+    on as the library yardstick."""
+    import torch
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.ops import kernels as kops
+    if kname == "block_loglik_multi_t":             # dl = 1, K candidates
+        A, B, C, _, diag, cosv, sinv = ins
+        c, s = cosv[:, None, None, None], sinv[:, None, None, None]
+        lat = c * A[:, :1] + s * B[:, :1] + C[:, :1]
+        Kc = cv._corr_blocks(lat, name) * cv._corr_blocks(C[:, 1:], name)
+    else:
+        Kc = cv._corr_blocks(ins[0], name)
+        diag = ins[1] if kname == "cond_weights_t" else ins[2]
+    K = kops.set_diag(Kc, diag.transpose(-1, -2))
+    return K.reshape(-1, K.shape[-2], K.shape[-1]).contiguous()
+
+
+def _bound_ms(kname, ins, dtype_name):
+    """Least time (ms) the card could take for one call on these inputs,
+    and which of bytes or operations bounds it.  Operations count the sexp
+    pipeline's floating-point work per block (an exponential or a square
+    root counts as one): the correlation pairs, the column Cholesky, the
+    substitutions and, for K1, the derivative blocks and their solves."""
+    m1 = ins[0].shape[-3]
+    d = ins[0].shape[-2]
+    n = ins[0].shape[-1]
+    pairs = m1 * (m1 - 1) // 2
+    chol = sum(2 * j + 1 + (m1 - 1 - j) * (2 * j + 2) for j in range(m1))
+    corr = pairs * (3 * d + 1)
+    solve = m1 * m1
+    in_elems = sum(t.numel() for t in ins)
+    if kname == "cond_weights_t":
+        blocks, per = n, corr + chol + (m1 - 1) ** 2
+        out_elems = m1 * n
+    elif kname == "block_loglik_multi_t":
+        K = ins[5].shape[0]
+        blocks, per = K * n, 4 * m1 * d + corr + chol + solve
+        out_elems = 2 * K * n
+    elif kname == "block_loglik_parts_t":
+        blocks = ins[0].numel() // (m1 * d)
+        per = corr + chol + solve
+        out_elems = 2 * blocks
+    else:                                            # K1: n_length 2 + nugget
+        G, p, nlen = ins[0].shape[0], 3, 2
+        blocks = G * n
+        per = (corr + chol + 2 * solve + pairs * nlen * 6 + m1
+               + p * (solve + 2 * m1 + 4))
+        out_elems = 2 * G * n + 2 * G * p * n
+    nbytes = (in_elems + out_elems) * ins[0].element_size()
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = blocks * per / PEAK_OPS_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_kernels(dev):
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
 
-    results = {"cond_weights_t": {"max_abs_err": 0.0},
-               "block_loglik_multi_t": {"max_abs_err": 0.0}}
+    t0 = time.perf_counter()
+    results = {k: {"max_abs_err": 0.0} for k in SOURCES}
     failures = []
     well64 = _slice_inputs(torch.float64, dev, NUGGET_WELL)
     in64 = _slice_inputs(torch.float64, dev, NUGGET_BENCH)
     in32 = _slice_inputs(torch.float32, dev, NUGGET_BENCH)
-    cases = (("cond_weights_t", 0, {}, "K3"),
-             ("block_loglik_multi_t", 1, {"dl": 1}, "dl=1"),
-             ("block_loglik_multi_t", 2, {"dl": 2}, "dl=d"))
+    grad_kw = {"n_length": 2, "nugget_est": True}
+    cases = (("cond_weights_t", "cond_weights_t", {}),
+             ("block_loglik_multi_t", "block_loglik_multi_t", {"dl": 1}),
+             ("block_loglik_multi_t", "block_loglik_multi_t/dl=d", {"dl": 2}),
+             ("block_loglik_parts_t", "block_loglik_parts_t", {}),
+             ("block_loglik_parts_t", "block_loglik_parts_t/K=9", {}),
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t", grad_kw))
     for name in ("sexp", "matern2.5"):
-        for kname, i, kw, label in cases:
+        for kname, case, kw in cases:
             kern = getattr(cv, kname)
             plain = getattr(cv, kname + "_plain")
-            rows = _compare(kname, kern, plain, well64[i], in64[i], in32[i],
+            rows = _compare(kname, kern, plain, well64[case], in64[case], in32[case],
                             dict(kw, name=name))
             results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
                                                 rows[0]["max_abs_err"],
                                                 rows[1]["max_abs_err"])
             for r in rows:
-                emit({"phase": "kernels", "name": name, "case": label, **r})
+                emit({"phase": "kernels", "name": name, "case": case, **r})
                 if not r["ok"]:
                     failures.append(r)
-    # times at the main path's configuration (sexp, K=9, dl=1)
+    # times at the main path's configuration (sexp; K2 with K=9, dl=1; K4
+    # as the single (26, 2, 2000) call)
     timing = {}
     for dt, ins in (("float64", in64), ("float32", in32)):
-        for kname, i, kw in (("cond_weights_t", 0, {}),
-                             ("block_loglik_multi_t", 1, {"dl": 1})):
+        for kname, _, kw in cases:
+            if (dt, kname) in timing:
+                continue
             kern = getattr(cv, kname)
             plain = getattr(cv, kname + "_plain")
             kw = dict(kw, name="sexp")
-            timing[(dt, kname)] = (cuda_ms(lambda: kern(*ins[i], **kw)),
-                                   cuda_ms(lambda: plain(*ins[i], **kw)))
+            args = ins[kname]
+            blocks = _blocks_of(kname, args)
+            bound, by = _bound_ms(kname, args, dt)
+            timing[(dt, kname)] = {
+                "ms": cuda_ms(lambda: kern(*args, **kw)),
+                "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
+                "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+                "bound_ms": bound, "bound_by": by,
+                "shape": list(args[0].shape)}
     for kname in results:
-        results[kname]["ms"], results[kname]["plain_ms"] = timing[("float64", kname)]
-    emit({"phase": "kernels", "timing_ms": {
-        f"{dt}/{k}": {"kernel": a, "plain": b} for (dt, k), (a, b) in timing.items()}})
+        results[kname].update(timing[("float64", kname)])
+    emit({"phase": "kernels", "timing_ms": {f"{dt}/{k}": v
+                                            for (dt, k), v in timing.items()},
+          "seconds": time.perf_counter() - t0})
     if failures:
         raise SystemExit(f"kernel comparisons failed: {len(failures)}")
     return results
 
 
-def phase_main(dev):
-    import torch
+def _params_json():
     from pathlib import Path
     import dgp_tpu_torch
+    return json.loads((Path(dgp_tpu_torch.__file__).parent / "data"
+                       / "vecchia_si_n2000.json").read_text())
+
+
+def phase_main(dev):
+    import torch
     from dgp_tpu_torch import dgp, emulator, layers_from_numpy, nb_seed
     from dgp_tpu_torch.ops import cuda_vecchia as cv
 
-    params = json.loads((Path(dgp_tpu_torch.__file__).parent / "data"
-                         / "vecchia_si_n2000.json").read_text())
+    t_phase = time.perf_counter()
+    params = _params_json()
     X, Y = bench_data()
     nb_seed(123)
     cv.reset_launch_counts()
@@ -308,11 +451,11 @@ def phase_main(dev):
     t0 = time.perf_counter()
     mu_p, var_p = emu.predict(zp, m=50)
     t_pred = time.perf_counter() - t0
-    launches = {"cond_weights_t": cv.cond_weights_t.launches,
-                "block_loglik_multi_t": cv.block_loglik_multi_t.launches}
+    launches = launch_counts()
     gate = 2.0 * params["emulator"]["rmse_gate_ref"]
     checks = {
-        "launches": all(v > 0 for v in launches.values()),
+        "launches": launches["cond_weights_t"] > 0
+        and launches["block_loglik_multi_t"] > 0,
         "shapes": mu.shape == (1000, 1) and var.shape == (1000, 1)
         and mu_p.shape == (20000, 1) and var_p.shape == (20000, 1),
         "finite": bool(np.isfinite(mu).all() and np.isfinite(var).all()
@@ -324,9 +467,112 @@ def phase_main(dev):
           "dgp_construct_s": t_dgp, "emulator_build_s": t_emu, "rmse": rmse,
           "rmse_gate": gate, "rmse_jax_ref": params["emulator"]["rmse_gate_ref"],
           "predict_20000_s": t_pred, "predict_pts_per_s": len(zp) / t_pred,
-          "launches": launches, "checks": checks})
+          "launches": launches, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"main path checks failed: {checks}")
+    return launches
+
+
+def _bench_layers():
+    """bench.py's starting structure: length 0.5, nugget 1e-4; layer 2
+    wired to the global input with its nugget and scale estimated."""
+    from dgp_tpu_torch import combine, kernel
+    return combine([kernel(length=np.array([0.5]), name='sexp', nugget=1e-4)],
+                   [kernel(length=np.array([0.5]), name='sexp', nugget=1e-4,
+                           nugget_est=True, scale_est=True, connect=np.arange(1))])
+
+
+def phase_train(dev):
+    import torch
+    from dgp_tpu_torch import dgp, emulator, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    params = _params_json()
+    X, Y = bench_data()
+    nb_seed(123)
+    cv.reset_launch_counts()
+    m = dgp(X, Y, _bench_layers(), vecchia=True, m=M_TRAIN, device=dev)
+    m.train(N=TRAIN_WARM, disable=True, chunk_size=16)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    m.train(N=TRAIN_TIMED, disable=True, chunk_size=16)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    per_iter = {k: (v - before[k]) / TRAIN_TIMED for k, v in launch_counts().items()}
+    est = m.estimate()
+    emu = emulator(est, N=5, device=dev)
+    z = np.linspace(-1, 1, 1000).reshape(-1, 1)
+    mu, var = emu.predict(z, m=50)
+    rmse = float(np.sqrt(np.mean((mu - func(z)) ** 2)))
+    launches = launch_counts()
+    trained = [{"scale": float(nd.scale[0]), "length": nd.length.tolist(),
+                "nugget": float(nd.nugget[0])} for layer in est for nd in layer]
+    jax_trained = [{"scale": nd["scale"], "length": nd["length"],
+                    "nugget": nd["nugget"]} for layer in params["layers"] for nd in layer]
+    gate = 2.0 * params["emulator"]["rmse_gate_ref"]
+    finite = (all(np.isfinite(nd.para_path).all() for layer in m.all_layer
+                  for nd in layer)
+              and all(np.isfinite(nd.output).all() for layer in m.all_layer[:-1]
+                      for nd in layer)
+              and bool(np.isfinite(mu).all() and np.isfinite(var).all()))
+    checks = {
+        "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
+                                                  "block_loglik_multi_t",
+                                                  "cond_weights_t")),
+        "iterations": m.N == TRAIN_WARM + TRAIN_TIMED
+        and all(len(nd.para_path) == 1 + m.N for layer in m.all_layer for nd in layer),
+        "finite": finite,
+        "rmse": bool(np.isfinite(rmse) and rmse <= gate),
+    }
+    emit({"phase": "train", "n": N_TRAIN, "m": M_TRAIN, "dtype": "float64",
+          "iterations": m.N, "timed_iterations": TRAIN_TIMED,
+          "sem_it_per_s": TRAIN_TIMED / t_train, "timed_s": t_train,
+          "trained": trained, "jax_trained": jax_trained,
+          "rmse": rmse, "rmse_gate": gate, "launches": launches,
+          "launches_per_iteration": per_iter, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"train phase checks failed: {checks}")
+    return launches
+
+
+def phase_nodewise(dev):
+    import torch
+    from dgp_tpu_torch import dgp, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    X, Y = bench_data()
+    nb_seed(123)
+    cv.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = dgp(X, Y, _bench_layers(), vecchia=True, m=M_TRAIN, block=False, device=dev)
+    torch.cuda.synchronize()
+    t_dgp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.train(N=NODEWISE_ITERS, disable=True, chunk_size=16)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = launch_counts()
+    checks = {
+        "launches": launches["block_loglik_parts_t"] > 0,
+        "finite": all(np.isfinite(nd.para_path).all() for layer in m.all_layer
+                      for nd in layer)
+        and all(np.isfinite(nd.output).all() for layer in m.all_layer[:-1]
+                for nd in layer),
+        "iterations": m.N == NODEWISE_ITERS,
+    }
+    emit({"phase": "nodewise", "n": N_TRAIN, "m": M_TRAIN, "block": False,
+          "dgp_construct_s": t_dgp, "train_s": t_train,
+          "sem_it_per_s": NODEWISE_ITERS / t_train, "launches": launches,
+          "para_last": [nd.para_path[-1].tolist() for layer in m.all_layer
+                        for nd in layer],
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"nodewise phase checks failed: {checks}")
     return launches
 
 
@@ -341,16 +587,17 @@ def main():
     phase_device()
     phase_build()
     results = phase_kernels(dev)
-    launches = phase_main(dev)
-    sources = {"cond_weights_t": ("dgp_tpu_torch/csrc/cond_weights.cu",
-                                  "dgp_tpu/ops/pallas_vecchia.py:202"),
-               "block_loglik_multi_t": ("dgp_tpu_torch/csrc/block_loglik_multi.cu",
-                                        "dgp_tpu/ops/pallas_vecchia.py:326")}
+    launches = {k: 0 for k in SOURCES}
+    for phase in (phase_main, phase_train, phase_nodewise):
+        for k, v in phase(dev).items():
+            launches[k] += v
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": launches[k],
+        {"name": k, "route": "cuda", "source": SOURCES[k][0],
+         "replaces": SOURCES[k][1], "launches": launches[k],
          "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]} for k in sources]})
+         "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"]} for k in SOURCES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,14 +2,15 @@
 
 The same model code as the JAX package (`dgp_tpu`), on tensors, with the
 JAX package's Pallas kernels replaced by hand-written CUDA kernels for
-NVIDIA Hopper (ops/cuda_vecchia.py, csrc/).  This first slice covers the
-serving path of a Vecchia DGP: construction with the initial imputation,
-the emulator's imputation draws and its mean/variance prediction.
-Training is not ported yet (see ROADMAP.md).
+NVIDIA Hopper (ops/cuda_vecchia.py, csrc/).  It covers a GP-only Vecchia
+DGP: construction with the initial imputation, SEM training (`dgp.train`,
+block or node-wise ESS), the emulator's imputation draws and its
+mean/variance prediction.  What is not ported yet is listed in ROADMAP.md.
 
-Every entry point takes an explicit ``device``; float64 is the default
-working dtype and TF32 is off (see config.py).  The package never imports
-jax.
+Every entry point runs on the current CUDA device unless its ``device``
+argument says otherwise (``device='cpu'``), and raises where there is no
+card; float64 is the default working dtype and TF32 is off (see
+config.py).  The package never imports jax.
 """
 from . import config  # noqa: F401  (sets the TF32 switches)
 from .config import set_default_dtype, default_dtype  # noqa: F401

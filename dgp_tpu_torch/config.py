@@ -37,10 +37,16 @@ def np_dtype():
 
 
 def resolve_device(device=None):
-    """A torch.device for ``device`` (default: the CPU).  Asking for a CUDA
-    device without CUDA raises: nothing in the package moves work to the
-    CPU behind the caller's back."""
-    dev = torch.device('cpu' if device is None else device)
+    """A torch.device for ``device``.  The default is the current CUDA
+    device; without one it raises and asks for ``device='cpu'``.  Nothing in
+    the package moves work to the CPU behind the caller's back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available: dgp_tpu_torch runs "
+                               "on the card by default; pass device='cpu' to "
+                               "run on the CPU")
+        return torch.device('cuda', torch.cuda.current_device())
+    dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
@@ -63,3 +69,11 @@ ESS_SPEC_LARGE_THRESHOLD = 50_000
 def ess_spec(n):
     """Speculative ESS width for a model with n data points."""
     return ESS_SPEC_LARGE if n >= ESS_SPEC_LARGE_THRESHOLD else ESS_SPEC
+
+
+#: cap on the per-node M-step function-evaluation budget (the reference
+#: hands scipy L-BFGS-B maxfun = max(30, 20 + 5D)); copied from the JAX
+#: package, which validated it against the reference-anchored parity
+#: matrix: a stochastic-EM M-step needs an improvement step, not
+#: convergence, and each node restarts warm from the last iteration.
+MSTEP_MAXFUN_CAP = 16

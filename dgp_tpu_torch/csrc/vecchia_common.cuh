@@ -1,8 +1,9 @@
 // Device code shared by the Vecchia block kernels (cond_weights.cu,
-// block_loglik_multi.cu): the correlation of two block rows, the column
-// Cholesky that builds each correlation column on the fly, and forward /
-// backward substitution.  Counterpart of `_corr_cols` and `_fwd_pipeline`
-// in dgp_tpu/ops/pallas_vecchia.py.
+// block_loglik_multi.cu, block_loglik_parts.cu, block_nllik_grad.cu): the
+// correlation of two block rows, the column Cholesky that builds each
+// correlation column on the fly, and forward / backward substitution.
+// Counterpart of `_corr_cols` and `_fwd_pipeline` in
+// dgp_tpu/ops/pallas_vecchia.py.
 //
 // Layout (the JAX package's): blocks are (m1, d, n) with the point axis
 // last, coordinates pre-scaled by the lengthscales; diagonals and targets
@@ -27,8 +28,14 @@
 
 namespace dgp {
 
+#ifndef DGP_NLEN_MAX
+#define DGP_NLEN_MAX 8
+#endif
+
 constexpr int M1_MAX = DGP_M1_MAX;
 constexpr int TRI_MAX = M1_MAX * (M1_MAX + 1) / 2;
+// most log-lengthscale lanes the gradient kernel (K1) differentiates
+constexpr int NLEN_MAX = DGP_NLEN_MAX;
 constexpr int THREADS = 128;
 
 enum KernelName : int { SEXP = 0, MATERN25 = 1 };
@@ -126,6 +133,16 @@ __device__ __forceinline__ T forward_last(const T* L, const T* __restrict__ y, i
     sol[i] = (y[(long long)i * n + p] - dot) / L[tri(i, i)];
   }
   return sol[m1 - 1];
+}
+
+// In-place forward substitution L v <- v on a per-thread vector.
+template <typename T>
+__device__ __forceinline__ void forward_inplace(const T* L, T* v, int m1) {
+  for (int i = 0; i < m1; ++i) {
+    T dot = T(0);
+    for (int k = 0; k < i; ++k) dot += L[tri(i, k)] * v[k];
+    v[i] = (v[i] - dot) / L[tri(i, i)];
+  }
 }
 
 // Backward substitution L_nn^T w = L[m1-1, :m1-1] (L_nn the leading

@@ -4,7 +4,9 @@ package's node attributes, which are numpy already, or from a JSON file).
 The input is a list of layers, each a list of per-node dicts of numpy
 arrays, numbers and strings with the keys of `NODE_KEYS`; a missing key
 leaves the node's default (so a dict of hyper-parameters alone gives a
-node that `dgp` can initialise).
+node that `dgp` can initialise).  The training traces (``para_path``,
+``R2``) come across too, so that a model trained in one package can be
+estimated by, or continue training in, the other.
 """
 import numpy as np
 
@@ -13,8 +15,8 @@ from .models.node import kernel
 #: node attributes carried across
 NODE_KEYS = ('name', 'scale', 'length', 'nugget', 'nugget_est', 'scale_est',
              'input_dim', 'connect', 'input', 'global_input', 'output', 'ord',
-             'NNarray', 'm')
-_ARRAYS = ('input', 'global_input', 'output')
+             'NNarray', 'm', 'para_path', 'R2')
+_ARRAYS = ('input', 'global_input', 'output', 'para_path', 'R2')
 
 
 def node_from_numpy(d):
@@ -37,7 +39,9 @@ def node_from_numpy(d):
         node.m = int(d['m'])
     if node.input is not None:
         node.D = node.input.shape[1] + (0 if node.connect is None else len(node.connect))
-    node.para_path = np.atleast_2d(np.concatenate((node.scale, node.length, node.nugget)))
+    if node.para_path is None:
+        node.para_path = np.atleast_2d(np.concatenate((node.scale, node.length,
+                                                       node.nugget)))
     return node
 
 

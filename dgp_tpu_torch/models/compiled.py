@@ -1,5 +1,5 @@
-"""DGP sampling engine: the ESS-within-Gibbs I-step on tensors; the
-counterpart of the sampling part of `dgp_tpu/models/compiled.py`.
+"""DGP engine: the SEM iteration (ESS-within-Gibbs I-step and batched
+L-BFGS M-step) on tensors; the counterpart of `dgp_tpu/models/compiled.py`.
 
 The DGP's dynamic state is
 
@@ -12,19 +12,20 @@ plus, under the Vecchia approximation, a per-node neighbour structure
 
     nn_state : tuple over layers of tuples of {'ord', 'rev', 'NN'}
 
-all on the engine's device.  The JAX package traces one I-step into a
-single program; here it runs eagerly, with the ESS rounds' host checks as
-the only synchronisations.
+all on the engine's device.  The JAX package traces a chunk of SEM
+iterations into one program; here `train_chunk` is a plain loop that runs
+eagerly, with the ESS rounds' host checks as its only synchronisations.
 
-Where every upper GP node is Vecchia with no 'ref' prior, the ESS
-candidates of a layer are evaluated through maintained angle views
-(`_build_angle_plan` / `_plan_ll`) by the K2 kernel, and the prior draws go
-through the K3 kernel (`vecchia.core.cond_weights`) -- on every device; on
-the CPU the kernel wrappers run their plain versions.
+The kernels carry the hot paths on every device (on the CPU their wrappers
+run the plain versions): K2 evaluates the ESS candidates of a layer through
+maintained angle views (`_build_angle_plan` / `_plan_ll`), K3 gives the
+prior draws' conditional weights (`vecchia.core.cond_weights`), K4 the
+per-node log-likelihood of node-wise ESS (`_gp_loglik`), and K1 every
+objective and gradient of the M-step (`models/mstep.py`).
 
-Not ported yet (each raises NotImplementedError): the M-step and
-`train_chunk` (ROADMAP "training"), likelihood nodes and dense GP nodes
-(ROADMAP O1/O2), node-wise ESS (block=False) and 'ref' priors.
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+likelihood nodes and their exact Gibbs steps (O2), dense GP nodes and the
+'ref' prior (O1), approximate-NN refresh (O5).
 """
 import numpy as np
 import torch
@@ -34,6 +35,8 @@ from ..ess import ess_update
 from ..ops import cuda_vecchia as cv
 from ..ops import linalg
 from ..vecchia import core as vcore
+from ..vecchia import nn as vnn
+from . import mstep
 
 
 def _not_ported(what, item):
@@ -53,17 +56,24 @@ class NodeSpec:
         self.connect = None if getattr(obj, 'connect', None) is None else \
             tuple(int(i) for i in obj.connect)
         self.is_final = layer == n_layer - 1
+        self.n_length = len(obj.length)
+        self.scale_est = bool(obj.scale_est)
+        self.nugget_est = bool(obj.nugget_est)
         self.prior_name = obj.prior_name
+        self.prior_coef = None if obj.prior_coef is None else \
+            tuple(float(c) for c in obj.prior_coef)
+        self.bds = None if obj.bds is None else tuple(float(b) for b in obj.bds)
         self.has_rep = obj.W_diag is not None
+        # the node's input width (node.D of the object graph)
+        self.D = len(self.input_dim) + (len(self.connect) if self.connect else 0)
         self.vecch = bool(getattr(obj, 'vecch', False))
 
 
 class CompiledDGP:
-    """ESS-within-Gibbs imputation for one DGP structure on one device."""
+    """SEM training and ESS-within-Gibbs imputation for one DGP structure on
+    one device (default: the card)."""
 
     def __init__(self, all_layer, block=True, device=None):
-        if not block:
-            raise _not_ported("node-wise ESS (block=False)", "training")
         self.all_layer = all_layer
         self.n_layer = len(all_layer)
         self.block = block
@@ -100,10 +110,16 @@ class CompiledDGP:
                 if sp.connect is not None and node.global_input is not None:
                     X[:, list(sp.connect)] = node.global_input
         self.X = self._t(X)
-        self.y_final, self.w_diag = [], []
+        self.n = n
+        self.y_final, self.w_diag, self.sum_res = [], [], []
+        self.n_orig = float(n)
         for node, sp in zip(self.all_layer[-1], self.spec[-1]):
             self.y_final.append(self._t(node.output[:, 0]))
             self.w_diag.append(self._t(node.W_diag) if sp.has_rep else None)
+            self.sum_res.append(float(np.ravel(node.sum_residual)[0])
+                                if sp.has_rep else None)
+            if sp.has_rep:
+                self.n_orig = float(len(node.rep))
 
     def get_state(self):
         dt = config.np_dtype()
@@ -140,6 +156,52 @@ class CompiledDGP:
         self._nn_cache = (fp, out)
         return out
 
+    def set_nn_state(self, nn_state):
+        """Write a device-computed Vecchia NN structure back into the node
+        objects (predictions and persistence read it from there)."""
+        for layer, nn_layer in zip(self.all_layer, nn_state):
+            for node, d in zip(layer, nn_layer):
+                if d is None:
+                    continue
+                node.ord = d['ord'].cpu().numpy()
+                node.rev_ord = np.argsort(node.ord)
+                node.NNarray = d['NN'].cpu().numpy()
+                node.nn_version = getattr(node, 'nn_version', 0) + 1
+
+    def supports_device_refresh(self):
+        """The device refresh covers exact NN search with random ordering
+        (no custom ord_fun); other configurations refresh on the host
+        through the imputer."""
+        return all(getattr(node, 'ord_fun', None) is None
+                   for layer, specs in zip(self.all_layer, self.spec)
+                   for node, sp in zip(layer, specs) if sp.vecch)
+
+    def refresh_nn(self, state, gen):
+        """Re-order and rebuild every Vecchia node's NN structure on the
+        device (the role of imputation.update_ord_nn, reference
+        dgp.py:1388-1389): a random permutation from ``gen`` and an exact
+        NN search of the length-scaled, reordered inputs.  Same-wiring
+        isotropic nodes of a layer share one ordering (dgp.py:643-663)."""
+        latents, params = state
+        built = {}
+        for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
+            for k, (node, sp) in enumerate(zip(layer, specs)):
+                share = next(((l, j) for j in range(k)
+                              if (self.spec[l][j].n_length == 1 and sp.n_length == 1
+                                  and self.spec[l][j].input_dim == sp.input_dim
+                                  and self.spec[l][j].connect == sp.connect
+                                  and layer[j].m == node.m)), None)
+                if share is not None:
+                    built[(l, k)] = built[share]
+                    continue
+                Xn = self._node_input(l, k, latents)
+                ordv = torch.randperm(Xn.shape[0], generator=gen, device=self.device)
+                Xo = (Xn / params[l][k]['length'])[ordv]
+                built[(l, k)] = {'ord': ordv, 'rev': torch.argsort(ordv),
+                                 'NN': vnn._nn_ordered_impl(Xo, int(node.m))}
+        return tuple(tuple(built[(l, k)] for k in range(len(layer)))
+                     for l, layer in enumerate(self.spec))
+
     def set_state(self, state):
         latents, params = state
         latents = [a.cpu().numpy() for a in latents]
@@ -159,11 +221,14 @@ class CompiledDGP:
     # building blocks
     # ------------------------------------------------------------------
     def _node_input(self, l, k, latents):
+        """(..., n, d) input of node (l, k); latents[l - 1] may carry a
+        leading candidate axis, and then so does the result."""
         sp = self.spec[l][k]
         In = self.X if l == 0 else latents[l - 1]
-        Xn = In[:, list(sp.input_dim)]
+        Xn = In[..., list(sp.input_dim)]
         if sp.connect is not None:
-            Xn = torch.cat([Xn, self.X[:, list(sp.connect)]], dim=1)
+            G = self.X[:, list(sp.connect)]
+            Xn = torch.cat([Xn, G.expand(Xn.shape[:-2] + G.shape)], dim=-1)
         return Xn
 
     def _nd(self, k, sp, n):
@@ -172,20 +237,18 @@ class CompiledDGP:
             n, dtype=self.dtype, device=self.device)
 
     def _gp_loglik(self, l, k, latents, params, nn_state):
+        """Vecchia log-likelihood of node (l, k) through K4: a scalar, or
+        (K,) when latents[l - 1] carries K candidates (one launch)."""
         sp = self.spec[l][k]
         if sp.prior_name == 'ref':
             raise _not_ported("the 'ref' prior", "O1")
-        if self.device.type != 'cpu':
-            # the JAX package runs this through kernel K4 on its device
-            raise _not_ported("the per-node Vecchia log-likelihood on the "
-                              "card (kernel K4)", "T2")
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
         y = self.y_final[k] if sp.is_final else latents[l][:, k]
         ns = nn_state[l][k]
-        nd = self._nd(k, sp, Xn.shape[0])
+        nd = self._nd(k, sp, Xn.shape[-2])
         o = ns['ord']
-        return vcore.vecchia_llik(Xn[o], y[o], ns['NN'], p['scale'],
+        return vcore.vecchia_llik(Xn[..., o, :], y[o], ns['NN'], p['scale'],
                                   p['length'], p['nugget'], nd[o], sp.name)
 
     def _upper_loglik(self, l, latents, params, nn_state):
@@ -419,9 +482,52 @@ class CompiledDGP:
 
         return ll
 
+    def _ess_nodewise_layer(self, l, latents, params, nn_state, gens,
+                            pre_nu=None, s=None):
+        """One ESS transition per node of layer l, each against the upper
+        GP nodes wired to it.  The speculative candidates of a round go
+        through one K4 launch per linked upper node."""
+        gen, host_gen = gens
+        for k in range(len(self.spec[l])):
+            linked = [j for j, usp in enumerate(self.spec[l + 1])
+                      if k in usp.input_dim]
+            if pre_nu is not None and (l, k) in pre_nu:
+                nu = pre_nu[(l, k)][s]
+            else:
+                nu = self._draw_prior_node(l, k, latents, params, nn_state, gen)
+            f = latents[l][:, k]
+
+            def log_lik(F, l=l, k=k, linked=linked):
+                # F: (n,) or (K, n) values of column k of layer l
+                lat = latents[l].expand(F.shape[:-1] + latents[l].shape).clone()
+                lat[..., k] = F
+                lat2 = latents[:l] + (lat,) + latents[l + 1:]
+                total = torch.zeros(F.shape[:-1], dtype=torch.float64,
+                                    device=self.device)
+                for j in linked:
+                    total = total + self._gp_loglik(l + 1, j, lat2, params, nn_state)
+                return total
+
+            def log_lik_angles(cosv, sinv, f=f, nu=nu, log_lik=log_lik):
+                c = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
+                sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
+                return log_lik(c[:, None] * f + sn[:, None] * nu)
+
+            f_new = ess_update(host_gen, f, nu, log_lik,
+                               log_lik_angles=log_lik_angles,
+                               spec=config.ess_spec(f.shape[0]))
+            lat = latents[l].clone()
+            lat[:, k] = f_new
+            latents = latents[:l] + (lat,) + latents[l + 1:]
+        return latents
+
     def _sweep(self, latents, views, params, nn_state, gens, pre_nu=None,
                s=None, plans=None):
         for l in range(self.n_layer - 1):
+            if not self.block:
+                latents = self._ess_nodewise_layer(l, latents, params, nn_state,
+                                                   gens, pre_nu, s)
+                continue
             plan = plans[l] if plans is not None else None
             latents, views = self._ess_block_layer(l, latents, views, params,
                                                    nn_state, gens, pre_nu, s, plan)
@@ -438,6 +544,7 @@ class CompiledDGP:
                     0, k, latents, params, nn_state, gens[0], S, cs)
         plans = tuple(self._build_angle_plan(l, latents, params, nn_state,
                                              pre_nu if l == 0 else None, S, cs)
+                      if self.block else None
                       for l in range(self.n_layer - 1))
         views = tuple(None if plan is None else tuple(nd_['A0'] for nd_ in plan['nodes'])
                       for plan in plans)
@@ -445,6 +552,152 @@ class CompiledDGP:
             latents, views = self._sweep(latents, views, params, nn_state, gens,
                                          pre_nu, s, plans)
         return latents
+
+    # -- M-step ---------------------------------------------------------
+    def _node_bounds(self, sp, p_max):
+        big = float(torch.finfo(self.dtype).max / 4)
+        p_k = sp.n_length + (1 if sp.nugget_est else 0)
+        lb = np.full(p_max, -big)
+        ub = np.full(p_max, big)
+        if sp.bds is not None:
+            lb[:sp.n_length] = np.log(sp.bds[0]) if sp.bds[0] > 0 else -big
+            ub[:sp.n_length] = np.log(sp.bds[1])
+        if sp.nugget_est:
+            lb[p_k - 1] = np.log(1e-8)
+            ub[p_k - 1] = big
+        lb[p_k:] = 0.0  # frozen padded lanes
+        ub[p_k:] = 0.0
+        return self._t(lb), self._t(ub)
+
+    def _node_operands(self, l, k, sp, latents, params, d_max, p_max, cs):
+        """Stackable operands of GP node (l, k) for the batched M-step:
+        (op dict, lt0, lb, ub, maxfun).  The blocks splice the latent
+        columns, gathered here, with the chunk-static views of ``cs``."""
+        if sp.prior_name == 'ref':
+            raise _not_ported("the 'ref' prior", "O1")
+        dt = self.dtype
+        p = params[l][k]
+        d_k = sp.D
+        has_rep = sp.is_final and sp.has_rep
+        p_k = sp.n_length + (1 if sp.nugget_est else 0)
+
+        # tying matrix: node params (p_max) -> lanes (d_max lengths + nugget)
+        A = np.zeros((d_max + 1, p_max))
+        if sp.n_length == 1:
+            A[:d_k, 0] = 1.0
+        else:
+            for t in range(sp.n_length):
+                A[t, t] = 1.0
+        if sp.nugget_est:
+            A[d_max, sp.n_length] = 1.0
+        b = torch.zeros(d_max + 1, dtype=dt, device=self.device)
+        if not sp.nugget_est:
+            b[-1] = torch.log(p['nugget'])
+        param_mask = np.zeros(p_max)
+        param_mask[:p_k] = 1.0
+        f64 = dict(dtype=torch.float64, device=self.device)
+        op = {
+            'A': self._t(A), 'b': b, 'param_mask': self._t(param_mask),
+            'prior_id': torch.tensor(mstep.PRIOR_ID.get(sp.prior_name, 0),
+                                     device=self.device),
+            'prior_coef': self._t(sp.prior_coef if sp.prior_coef is not None
+                                  else np.zeros(2)),
+            'scale_est': torch.tensor(sp.scale_est, device=self.device),
+            'nug_est_f': torch.tensor(1.0 if sp.nugget_est else 0.0, **f64),
+            'sum_res': torch.tensor(self.sum_res[k] if has_rep else 0.0, **f64),
+            'n_orig': torch.tensor(self.n_orig if has_rep else float(self.n), **f64),
+            'fixed_scale64': p['scale'].to(torch.float64),
+        }
+        st = cs[(l, k)]
+        valid = st['validT']
+        m1, n = valid.shape
+        dyn_rows = [latents[l - 1][:, c] for c in sp.input_dim] if l > 0 else []
+        if not sp.is_final:
+            dyn_rows.append(latents[l][:, k])
+        Gd = (torch.stack(dyn_rows, dim=0)[:, st['idx_comp']].transpose(0, 1)
+              if dyn_rows else None)                       # (m1, r, n)
+        parts = [Gd[:, :len(sp.input_dim)]] if l > 0 else []
+        parts.append(st['Xg_stat'])
+        if d_k < d_max:
+            parts.append(torch.zeros((m1, d_max - d_k, n), dtype=dt, device=self.device))
+        op.update(Xg_raw=torch.cat(parts, dim=1),
+                  yg=st['yg_stat'] if sp.is_final else torch.where(valid, Gd[:, -1], 0.0),
+                  nug_g=st['nd_g'], valid=valid)
+
+        lt0 = torch.log(p['length'])
+        if sp.nugget_est:
+            lt0 = torch.cat([lt0, torch.log(p['nugget'])[None]])
+        lt0 = torch.nn.functional.pad(lt0, (0, p_max - p_k))
+        lb, ub = self._node_bounds(sp, p_max)
+        # the reference budget (kernel_class.py:542), capped
+        maxfun = min(max(30, 20 + 5 * sp.D), config.MSTEP_MAXFUN_CAP)
+        return op, lt0, lb, ub, maxfun
+
+    def _m_step(self, latents, params, nn_state, cs):
+        """Per-node bounded L-BFGS of every GP node, one batched
+        optimisation per (kernel name, m + 1) group."""
+        groups = {}
+        for l, layer in enumerate(self.spec):
+            for k, sp in enumerate(layer):
+                m1 = nn_state[l][k]['NN'].shape[1]
+                groups.setdefault((sp.name, m1), []).append((l, k, sp))
+        results = {}
+        for (name, _m1), es in groups.items():
+            d_max = max(sp.D for _, _, sp in es)
+            p_max = max(sp.n_length + (1 if sp.nugget_est else 0) for _, _, sp in es)
+            built = [self._node_operands(l, k, sp, latents, params, d_max, p_max, cs)
+                     for l, k, sp in es]
+            ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
+            lt0, lb, ub = (torch.stack([b[i] for b in built]) for i in (1, 2, 3))
+            lt, scale, ok = mstep.run_group(ops, lt0, lb, ub, [b[4] for b in built],
+                                            name=name, mode='vecch', d_max=d_max,
+                                            n=self.n)
+            for i, (l, k, _) in enumerate(es):
+                results[(l, k)] = (lt[i], scale[i], ok[i], lt0[i])
+
+        new_params = []
+        for l, layer in enumerate(self.spec):
+            layer_p = []
+            for k, sp in enumerate(layer):
+                p = params[l][k]
+                lt, scale, ok, lt0 = results[(l, k)]
+                lt = torch.where(ok, lt, lt0)
+                scale = torch.where(ok & sp.scale_est, scale.to(p['scale'].dtype),
+                                    p['scale'])
+                nugget = torch.exp(lt[sp.n_length]) if sp.nugget_est else p['nugget']
+                layer_p.append({'length': torch.exp(lt[:sp.n_length]),
+                                'nugget': nugget, 'scale': scale})
+            new_params.append(tuple(layer_p))
+        return tuple(new_params)
+
+    def _para_vector(self, params):
+        """Per GP node: (scale, lengths..., nugget), the para_path row."""
+        return tuple(torch.cat([p['scale'][None], p['length'], p['nugget'][None]])
+                     for layer_p in params for p in layer_p)
+
+    def _r2_vector(self, latents):
+        """R^2 of the least-squares fit global input -> input, per GP node
+        with a global connection below the first layer, from ridge-
+        regularised normal equations solved by Cholesky."""
+        out = []
+        for l in range(1, self.n_layer):
+            for sp in self.spec[l]:
+                if sp.connect is None:
+                    continue
+                G = self.X[:, list(sp.connect)]
+                G1 = torch.cat([G, torch.ones((G.shape[0], 1), dtype=self.dtype,
+                                              device=self.device)], dim=1)
+                In = latents[l - 1][:, list(sp.input_dim)]
+                gtg = G1.T @ G1
+                eps = 1e-8 * torch.trace(gtg) / gtg.shape[0]
+                A = gtg + eps * torch.eye(gtg.shape[0], dtype=self.dtype,
+                                          device=self.device)
+                chol = torch.linalg.cholesky_ex(A).L
+                beta = torch.cholesky_solve(G1.T @ In, chol)
+                resid = torch.sum((In - G1 @ beta) ** 2, dim=0)
+                out.append(1.0 - resid / (In.shape[0] * torch.var(In, dim=0,
+                                                                  correction=0)))
+        return tuple(out)
 
     # ------------------------------------------------------------------
     # public entry points
@@ -460,5 +713,24 @@ class CompiledDGP:
                                burnin, cs)
         return latents, params
 
-    def train_chunk(self, *args, **kwargs):
-        raise _not_ported("SEM training (train_chunk, M-step)", "training")
+    def train_chunk(self, state, gens, n_iters, ess_burn, nn_state=None):
+        """Run ``n_iters`` SEM iterations (I-step, R^2, M-step) from
+        ``state``.  ``gens`` is (device generator, CPU generator for the ESS
+        uniforms); ``nn_state`` may carry a device-refreshed NN structure
+        (see refresh_nn) and by default is read from the node objects.
+        Returns (state, para, r2): per GP node an (n_iters, 2 + p) tensor of
+        para_path rows, and per globally connected node an (n_iters, d)
+        tensor of R^2 values."""
+        if nn_state is None:
+            nn_state = self.get_nn_state()
+        latents, params = state
+        cs = self._chunk_static(nn_state)
+        paras, r2s = [], []
+        for _ in range(n_iters):
+            latents = self._i_step(latents, params, nn_state, gens, ess_burn, cs)
+            r2s.append(self._r2_vector(latents))
+            params = self._m_step(latents, params, nn_state, cs)
+            paras.append(self._para_vector(params))
+        para = tuple(torch.stack(col) for col in zip(*paras))
+        r2 = tuple(torch.stack(col) for col in zip(*r2s))
+        return (latents, params), para, r2

@@ -3,15 +3,19 @@
 Ported: the constructor (data checks, replicate detection, default
 structure), `initialize` for GP-only hierarchies, the Vecchia wiring of
 each node, the initial imputation (10 burn-in sweeps on the model's
-device), `compute_r2` and `estimate`.  Not ported yet: `train` (SEM
-training; ROADMAP.md, "training"), the likelihood-specific latent
-initialisers and the kernel-PCA initialiser of narrowing layers (O2).
+device), SEM training (`train`) with the NN refresh schedule and restarts,
+`compute_r2`, `aggregate_r2` and `estimate`.  Not ported yet: the
+likelihood-specific latent initialisers and the kernel-PCA initialiser of
+narrowing layers (O2), and multi-device training (`ptrain`,
+``sharded=True``; O7).
 """
 import copy
+import sys
 
 import numpy as np
+import torch
 
-from .. import config
+from .. import config, rng
 from .node import kernel as ker
 from .node import combine
 from .imputation import imputer
@@ -19,7 +23,8 @@ from .imputation import imputer
 
 class dgp:
     """DGP hierarchy for stochastic-imputation inference (dgp.py:26).
-    ``device`` is where imputation runs ('cpu' or a CUDA device)."""
+    ``device`` is where imputation and training run: a CUDA device by
+    default, or 'cpu' when asked for."""
 
     def __init__(self, X, Y, all_layer=None, check_rep=True, block=True,
                  vecchia=False, m=25, ord_fun=None, device=None):
@@ -145,15 +150,120 @@ class dgp:
         node.ord_nn(device=self.device)
 
     # ------------------------------------------------------------------
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SEM training is not ported to dgp_tpu_torch yet (ROADMAP.md, "
-            "'training': ops/lbfgs, models/mstep, train_chunk, kernel K1)")
+    def train(self, N=500, ess_burn=10, disable=False, chunk_size=25,
+              sharded=False):
+        """SEM training: N iterations of ESS-within-Gibbs imputation
+        (``ess_burn`` + 1 sweeps) and a per-node bounded L-BFGS M-step, in
+        chunks of at most ``chunk_size`` iterations on the model's device.
+        The Vecchia orderings and neighbours are rebuilt after every
+        power-of-2 global iteration g > 1 (reference dgp.py:1388), including
+        at the end of a call, so that a later call continues on schedule.
+        A non-finite hyper-parameter, R^2 or latent restarts the call from
+        re-initialised latents, at most 3 times (dgp.py:1402-1412).
+        ``disable`` silences the per-chunk progress line on stderr."""
+        if sharded:
+            raise NotImplementedError("multi-device training is not ported to "
+                                      "dgp_tpu_torch yet (ROADMAP.md, O7)")
+        N0 = self.N
+        restarts, max_restarts = 0, 3
+        while True:
+            engine = self.imp._engine()
+            state = engine.get_state()
+            gens = (rng.next_generator(self.device), rng.next_generator('cpu'))
+            nn_dev = None  # device-refreshed NN structure, if any
+            snapshots = ([], [])  # para, r2 chunks
+            done = 0
+            ok = True
+            while done < N:
+                # stop chunks at the next power-of-2 global iteration, so
+                # that the NN refresh happens on schedule
+                g = N0 + done
+                nxt = 1
+                while nxt <= g:
+                    nxt *= 2
+                this = min(chunk_size, N - done, nxt - g)
+                state, para, r2 = engine.train_chunk(state, gens, this, ess_burn,
+                                                     nn_state=nn_dev)
+                ok = bool(torch.stack([torch.isfinite(t).all()
+                                       for grp in (para, r2, state[0])
+                                       for t in grp]).all())
+                if not ok:
+                    break
+                snapshots[0].append(para)
+                snapshots[1].append(r2)
+                done += this
+                if not disable:
+                    print(f"dgp.train: {done}/{N}", file=sys.stderr, flush=True)
+                g = N0 + done
+                if g > 1 and (g & (g - 1)) == 0:
+                    if engine.supports_device_refresh():
+                        nn_dev = engine.refresh_nn(state, gens[0])
+                    else:
+                        engine.set_state(state)
+                        self.imp.update_ord_nn()
+                        state = engine.get_state()
+                        nn_dev = None
+            if ok:
+                engine.set_state(state)
+                if nn_dev is not None:
+                    engine.set_nn_state(nn_dev)
+                self._append_paths(snapshots)
+                self.N += N
+                return
+            restarts += 1
+            if restarts > max_restarts:
+                raise RuntimeError(f'Training failed after {max_restarts} restarts.')
+            self.N = N0
+            self.reinit_all_layer(reset_lengthscale=True, row=0)
+            self.imp.invalidate()
+            self.imp.sample(burnin=10)
+
+    def _append_paths(self, snapshots):
+        """Append the chunks' hyper-parameter rows to each GP node's
+        para_path and the R^2 rows to each globally connected node's R2."""
+        para_chunks, r2_chunks = snapshots
+        if para_chunks:
+            merged = [np.concatenate([c[i].cpu().numpy() for c in para_chunks])
+                      for i in range(len(para_chunks[0]))]
+            nodes = [node for layer in self.all_layer for node in layer]
+            for node, rows in zip(nodes, merged):
+                node.para_path = np.vstack((node.para_path, rows))
+        if r2_chunks and r2_chunks[0]:
+            merged = [np.concatenate([c[i].cpu().numpy() for c in r2_chunks])
+                      for i in range(len(r2_chunks[0]))]
+            nodes = [node for layer in self.all_layer[1:] for node in layer
+                     if node.connect is not None]
+            for node, rows in zip(nodes, merged):
+                node.R2 = rows if node.R2 is None else np.vstack((node.R2, rows))
+
+    def reinit_all_layer(self, reset_lengthscale, row=0):
+        """Re-initialise latents (and optionally hyper-parameters, from row
+        ``row`` of each para_path) keeping the structure (dgp.py:1097)."""
+        if reset_lengthscale:
+            for layer in self.all_layer:
+                for node in layer:
+                    initial = node.para_path[row, :]
+                    node.scale = np.atleast_1d(initial[0]).copy()
+                    node.length = np.atleast_1d(initial[1:-1]).copy()
+                    node.nugget = np.atleast_1d(initial[-1]).copy()
+        self.initialize()
 
     def compute_r2(self):
         for l in range(1, self.n_layer):
             for node in self.all_layer[l]:
                 node.r2(overwritten=True)
+
+    def aggregate_r2(self, burnin=0.75, agg='median'):
+        """Aggregated per-node R^2 diagnostics over the iterations after
+        the ``burnin`` fraction (dgp.py:1481)."""
+        if burnin < 0 or burnin > 1:
+            raise Exception('burnin must be between 0 and 1.')
+        if agg not in ('mean', 'median'):
+            raise Exception("agg must be either 'median' or 'mean'.")
+        fn = np.mean if agg == 'mean' else np.median
+        return [[None if node.R2 is None else
+                 fn(node.R2[int(len(node.R2) * burnin):, :], axis=0)
+                 for node in layer] for layer in self.all_layer]
 
     def estimate(self, burnin=None):
         """Posterior-mean hyper-parameters -> trained structure (dgp.py:1517)."""

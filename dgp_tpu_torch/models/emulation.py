@@ -61,7 +61,8 @@ class emulator:
         the Gaussian mixture's mean and variance, each (M, n_out)."""
         if method != 'mean_var':
             raise NotImplementedError(
-                f"predict(method={method!r}) is not ported to dgp_tpu_torch yet")
+                f"predict(method={method!r}) is not ported to dgp_tpu_torch yet "
+                "(ROADMAP.md, O6)")
         if x.ndim == 1:
             raise Exception('The testing input has to be a numpy 2d-array')
         if self._ens is None:

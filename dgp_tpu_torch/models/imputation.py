@@ -10,6 +10,9 @@ from .compiled import CompiledDGP
 
 
 class imputer:
+    """ESS-within-Gibbs imputation of a DGP structure on ``device``
+    (default: the card)."""
+
     def __init__(self, all_layer, block=True, device=None):
         self.all_layer = all_layer
         self.block = block
@@ -20,6 +23,10 @@ class imputer:
         if self._compiled is None:
             self._compiled = CompiledDGP(self.all_layer, self.block, self.device)
         return self._compiled
+
+    def invalidate(self):
+        """Drop the engine (call after structural or data changes)."""
+        self._compiled = None
 
     def sample(self, burnin=0):
         """(burnin+1) ESS-within-Gibbs sweeps over all hidden layers."""

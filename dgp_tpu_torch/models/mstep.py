@@ -1,0 +1,124 @@
+"""Batched SEM M-step: the bounded L-BFGS of every GP node of a group runs
+as one batched optimisation; the counterpart of `dgp_tpu/models/mstep.py`.
+
+The reference optimises each node's hyper-parameters independently
+(dgpsi/dgp.py:1391-1398).  The node problems are tiny (1-3 parameters) and
+independent, so all nodes of a compatible group share every objective
+evaluation: one K1 launch evaluates the objective and gradient of every
+node (`ops.cuda_vecchia.block_nllik_grad_parts_t`), and `ops.lbfgs`
+carries G problems as tensors.
+
+Nodes differ in input dimension, parameter count (isotropic vs per-dim
+lengthscales, estimated vs fixed nugget), priors and replicate handling.
+These are unified so that a group shares one batched objective:
+
+  * input dims are zero-padded to the group's largest (zero coordinates
+    contribute nothing to stationary kernels);
+  * the kernel differentiates with respect to ALL padded per-dim
+    log-lengths plus the log-nugget; a per-node tying matrix A maps the
+    node's own parameter vector lt (p_max, padded with frozen lanes) to the
+    full lane vector, and A^T contracts the full gradient back (an
+    isotropic length is tied lanes);
+  * scale profiling and replicate corrections use per-node flags: with
+    sum_res = 0 and n_orig = n the replicate terms vanish;
+  * ga and inv_ga priors are both evaluated and selected by a per-node
+    prior id.
+
+Groups are keyed by (kernel name, m + 1).  Not ported yet: dense groups and
+the 'ref' prior (ROADMAP.md, O1).
+"""
+import torch
+
+from ..ops import cuda_vecchia as cv
+from ..ops import lbfgs, linalg
+from ..vecchia import core as vcore
+
+#: prior ids of the per-node selector (0: no prior)
+PRIOR_ID = {'ga': 1, 'inv_ga': 2}
+
+
+def _prior_lp(lt, op):
+    """Log-prior over each node's own (masked) parameter lanes, and its
+    gradient, in closed form: lt (G, p_max) -> ((G,), (G, p_max))."""
+    mask = op['param_mask']
+    c0, c1 = op['prior_coef'][:, :1], op['prior_coef'][:, 1:]
+    lt_safe = lt * mask
+    pid = op['prior_id'][:, None]
+    lp = torch.zeros_like(lt)
+    dlp = torch.zeros_like(lt)
+    for name, i in PRIOR_ID.items():
+        v, dv = vcore.prior_lanes(lt_safe, name, c0, c1)
+        lp = torch.where(pid == i, v, lp)
+        dlp = torch.where(pid == i, dv, dlp)
+    return (mask * lp).sum(-1), mask * mask * dlp
+
+
+def _assemble(logdet, quad, nugget64, op, n):
+    """Profiled nll and scale (G,) from (logdet, quad) block sums (all
+    float64).  Replicate terms vanish when sum_res == 0 and n_orig == n."""
+    N = op['n_orig']
+    sr = op['sum_res']
+    scale_prof = (quad + sr / nugget64) / N
+    scale = torch.where(op['scale_est'], scale_prof, op['fixed_scale64'])
+    nll = torch.where(op['scale_est'],
+                      0.5 * (logdet + N * torch.log(scale_prof)),
+                      0.5 * (logdet + quad / scale))
+    extra = torch.where(op['scale_est'],
+                        0.5 * (N - n) * torch.log(nugget64),
+                        0.5 * (sr / (scale * nugget64) + (N - n) * torch.log(nugget64)))
+    return nll + op['nug_est_f'] * extra, scale
+
+
+def _lanes(lt, op):
+    """Node parameters (G, p_max) -> full lanes: lengths (G, d_max) and
+    nugget (G,)."""
+    lt_full = torch.einsum('gfp,gp->gf', op['A'], lt) + op['b']
+    return torch.exp(lt_full[:, :-1]), torch.exp(lt_full[:, -1])
+
+
+def _vecch_fg(lt, op, *, name, d_max, n):
+    """(nll (G,), grad (G, p_max), scale (G,)) of every node of the group
+    through one K1 launch.  Operands are in the kernels' transposed
+    (G, m1, ..., n) layout."""
+    length_full, nugget = _lanes(lt, op)
+    Xg, diag, dnug = cv.scale_blocks_t(op['Xg_raw'], op['nug_g'], op['valid'],
+                                       length_full, nugget,
+                                       vcore._f32_jitter(op['Xg_raw'].dtype))
+    ld, q, dld, dq = cv.block_nllik_grad_parts_t(
+        Xg, op['yg'], diag, dnug, name=name, n_length=d_max, nugget_est=True)
+    logdet, quad = linalg.sum64(ld, dim=-1), linalg.sum64(q, dim=-1)
+    dlogdet, dquad = linalg.sum64(dld, dim=-1), linalg.sum64(dq, dim=-1)
+    nugget64 = nugget.to(torch.float64)
+    nll, scale = _assemble(logdet, quad, nugget64, op, n)
+    g_full = 0.5 * (dlogdet - dquad / scale[:, None])
+    g_last = op['nug_est_f'] * 0.5 * (-op['sum_res'] / (scale * nugget64)
+                                      + (op['n_orig'] - n))
+    g_full = torch.cat([g_full[:, :-1], (g_full[:, -1] + g_last)[:, None]], dim=1)
+    g_node = torch.einsum('gfp,gf->gp', op['A'].to(torch.float64), g_full).to(lt.dtype)
+    lp, dlp = _prior_lp(lt, op)
+    return nll - lp, g_node - dlp, scale
+
+
+def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n):
+    """Batched bounded L-BFGS over one node group.
+
+    Args:
+        ops: dict of stacked per-node operands (leading axis G).
+        lt0/lb/ub: (G, p_max) initial log-params and box bounds.
+        maxfun: G per-node function-evaluation budgets (host ints).
+    Returns:
+        (lt (G, p_max), scale (G,), ok (G,)), ``ok`` marking a finite result.
+    """
+    if mode != 'vecch':
+        raise NotImplementedError("the dense M-step is not ported to "
+                                  "dgp_tpu_torch yet (ROADMAP.md, O1)")
+
+    def fg(lt):
+        return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n)
+
+    # history=4: the node problems have 1-3 parameters, so a short curvature
+    # memory loses nothing.  The profiled scale rides along as aux.
+    lt, _, _, scale = lbfgs.minimize(fg, lt0, lb, ub, maxiter=100, maxfun=maxfun,
+                                     history=4, has_aux=True)
+    ok = torch.isfinite(lt).all(-1) & torch.isfinite(scale)
+    return lt, scale, ok

@@ -2,15 +2,20 @@
 PyTorch versions and the block-layout helpers; the counterpart of
 `dgp_tpu/ops/pallas_vecchia.py`.
 
-Two kernels are ported (CUDA C++ in ../csrc, built with nvcc for sm_90a
-into a shared library with a plain C interface and loaded with ctypes):
+All four TPU kernels are ported (CUDA C++ in ../csrc, built with nvcc for
+sm_90a into one shared library with a plain C interface and loaded with
+ctypes):
 
-  * K3 `cond_weights_t`       <- pallas_vecchia.cond_weights_t
-  * K2 `block_loglik_multi_t` <- pallas_vecchia.block_loglik_multi_t
+  * K1 `block_nllik_grad_parts_t` <- pallas_vecchia.block_nllik_grad_parts_t
+  * K2 `block_loglik_multi_t`     <- pallas_vecchia.block_loglik_multi_t
+  * K3 `cond_weights_t`           <- pallas_vecchia.cond_weights_t
+  * K4 `block_loglik_parts_t`     <- pallas_vecchia.block_loglik_parts_t
 
-Both take the JAX package's transposed layout: blocks (m1, d, n) with the
+All take the JAX package's transposed layout: blocks (m1, d, n) with the
 point axis last and coordinates pre-scaled by the lengthscales; diagonals
-and targets (m1, n).  Invalid neighbour lanes carry sentinel coordinates
+and targets (m1, n).  K1 takes a leading node axis (G, ...) and K4 an
+optional leading candidate axis (K, ...): one launch serves what the JAX
+package vmaps.  Invalid neighbour lanes carry sentinel coordinates
 (far from everything, including each other), a unit diagonal and a zero
 target, which decouples them exactly.
 
@@ -42,11 +47,15 @@ M1_MAX = 32
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-_SOURCES = ("cond_weights.cu", "block_loglik_multi.cu")
+#: most log-lengthscale lanes K1 differentiates (-DDGP_NLEN_MAX)
+NLEN_MAX = 8
+
+_SOURCES = ("cond_weights.cu", "block_loglik_multi.cu", "block_loglik_parts.cu",
+            "block_nllik_grad.cu")
 _HEADERS = ("vecchia_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               f"-DDGP_M1_MAX={M1_MAX}")
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               f"-DDGP_M1_MAX={M1_MAX}", f"-DDGP_NLEN_MAX={NLEN_MAX}")
 _KNAME = {"sexp": 0, "matern2.5": 1}
 _DTYPE = {torch.float32: 0, torch.float64: 1}
 
@@ -117,16 +126,24 @@ def build():
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-               *[str(_CSRC / s) for s in _SOURCES]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-        log.write_text(res.stdout + res.stderr)
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
+            # one nvcc per source, all started together, then one link
+            objs = [os.path.join(tmpdir, src + ".o") for src in _SOURCES]
+            procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / src),
+                                       "-o", obj], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(_SOURCES, objs)]
+            outs = [p.communicate()[0] for p in procs]
+            if any(p.returncode != 0 for p in procs):
+                raise RuntimeError("nvcc failed:\n" + "\n".join(outs))
+            tmp = os.path.join(tmpdir, "lib.so")
+            res = subprocess.run([nvcc, "-shared", *_NVCC_FLAGS[:2], "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+            log.write_text("\n".join(outs))
+            os.replace(tmp, so)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -135,10 +152,18 @@ def build():
     lib.dgp_block_loglik_multi.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp,
                                            vp, vp, ci, ci, ci, ci, ci, vp]
     lib.dgp_block_loglik_multi.restype = ci
-    lib.dgp_vecchia_m1_max.argtypes = []
-    lib.dgp_vecchia_m1_max.restype = ci
-    if lib.dgp_vecchia_m1_max() != M1_MAX:
-        raise RuntimeError("kernel library was built with another M1_MAX")
+    lib.dgp_block_loglik_parts.argtypes = [ci, ci, vp, vp, vp, vp, vp, ci, ci, ci,
+                                           ci, ci, vp]
+    lib.dgp_block_loglik_parts.restype = ci
+    lib.dgp_block_nllik_grad.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
+                                         ci, ci, ci, ci, ci, ci, vp]
+    lib.dgp_block_nllik_grad.restype = ci
+    for fn in (lib.dgp_vecchia_m1_max, lib.dgp_vecchia_nlen_max):
+        fn.argtypes = []
+        fn.restype = ci
+    if (lib.dgp_vecchia_m1_max() != M1_MAX
+            or lib.dgp_vecchia_nlen_max() != NLEN_MAX):
+        raise RuntimeError("kernel library was built with other bounds")
     build_info.clear()
     build_info.update(library=str(so), seconds=seconds,
                       ptxas=parse_ptxas(log.read_text() if log.exists() else ""))
@@ -197,6 +222,53 @@ def block_loglik_multi_t_plain(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     L = linalg.chol_small(Kc)
     sol = linalg.fwd_solve_small(L, torch.broadcast_to(yg.T, Kc.shape[:-1]))
     return 2.0 * torch.log(L[..., -1, -1]), sol[..., -1] ** 2
+
+
+def block_loglik_parts_t_plain(Xg, yg, diag, *, name):
+    """Plain version of K4: (logdet (..., n), quad (..., n)) of (..., m1, d,
+    n) blocks; yg and diag are (m1, n) or (..., m1, n)."""
+    K = kops.set_diag(_corr_blocks(Xg, name), diag.transpose(-1, -2))
+    L = linalg.chol_small(K)
+    sol = linalg.fwd_solve_small(L, torch.broadcast_to(yg.transpose(-1, -2),
+                                                       K.shape[:-1]))
+    return 2.0 * torch.log(L[..., -1, -1]), sol[..., -1] ** 2
+
+
+def block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, *, name, n_length,
+                                   nugget_est):
+    """Plain version of K1, the same analytic gradient batched over the
+    points: (logdet (..., n), quad (..., n), dlogdet (..., p, n), dquad
+    (..., p, n)) of (..., m1, d, n) blocks."""
+    X = Xg.movedim(-1, -3)                                   # (..., n, m1, d)
+    diff = X[..., :, None, :] - X[..., None, :, :]           # (..., n, m1, m1, d)
+    if name == "sexp":
+        sq = diff * diff
+        Kc = torch.exp(-sq.sum(-1))
+        per_dim = 2.0 * sq                  # dK/dlog l_t = 2 u_t^2 K
+    elif name == "matern2.5":
+        a = diff.abs()
+        c = 1.0 + kops.SQRT5 * a + (5.0 / 3.0) * a * a
+        Kc = torch.prod(c, dim=-1) * torch.exp(-kops.SQRT5 * a.sum(-1))
+        per_dim = (5.0 / 3.0) * a * a * (1.0 + kops.SQRT5 * a) / c
+    else:
+        raise ValueError(f"unknown kernel name: {name}")
+    dd = per_dim.sum(-1, keepdim=True) if n_length == 1 else per_dim[..., :n_length]
+    L = linalg.chol_small(kops.set_diag(Kc, diag.transpose(-1, -2)))
+    Ly = linalg.fwd_solve_small(L, yg.transpose(-1, -2))      # (..., n, m1)
+    e_last = torch.zeros_like(Ly)
+    e_last[..., -1] = 1.0
+    z = linalg.bwd_solve_small(L, e_last)                     # L^-T e_last
+    # dK_k z for every lane k (the diagonal of dd is 0)
+    V = torch.einsum('...ajk,...j->...ak', dd * Kc[..., None], z)
+    if nugget_est:
+        V = torch.cat([V, (dnug.transpose(-1, -2) * z)[..., None]], dim=-1)
+    W = torch.linalg.solve_triangular(L, V, upper=False)      # (..., n, m1, p)
+    yl = Ly[..., -1:]
+    wl = W[..., -1, :]                                        # (..., n, p)
+    s = (Ly[..., None] * W).sum(-2)
+    dquad = 2.0 * s * yl - wl * yl ** 2
+    return (2.0 * torch.log(L[..., -1, -1]), yl[..., 0] ** 2,
+            wl.movedim(-1, -2), dquad.movedim(-1, -2))
 
 
 # ----------------------------------------------------------------------
@@ -280,9 +352,105 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
 block_loglik_multi_t.launches = 0
 
 
+def block_loglik_parts_t(Xg, yg, diag, *, name):
+    """K4: per-point (logdet, quad) at fixed parameters.  Xg is (m1, d, n),
+    or (K, m1, d, n) for K candidate blocks in one launch; yg and diag are
+    (m1, n) (shared by all candidates) or (K, m1, n).  Outputs (n,) or
+    (K, n)."""
+    if Xg.device.type == "cpu":
+        return block_loglik_parts_t_plain(Xg, yg, diag, name=name)
+    if Xg.device.type != "cuda":
+        raise ValueError(f"block_loglik_parts_t: unsupported device {Xg.device}")
+    if Xg.ndim not in (3, 4):
+        raise ValueError("block_loglik_parts_t: Xg must be (m1, d, n) or (K, m1, d, n)")
+    K, m1, d, n = (1,) + tuple(Xg.shape) if Xg.ndim == 3 else tuple(Xg.shape)
+    if m1 > M1_MAX:
+        raise ValueError(f"block_loglik_parts_t: m1={m1} exceeds the kernel bound {M1_MAX}")
+    if yg.shape != diag.shape or tuple(yg.shape) not in ((m1, n), (K, m1, n)):
+        raise ValueError("block_loglik_parts_t: yg and diag must both be (m1, n) "
+                         "or (K, m1, n)")
+    _check_cuda("block_loglik_parts_t", (Xg, yg, diag), Xg.dtype, Xg.device)
+    Xg, yg, diag = Xg.contiguous(), yg.contiguous(), diag.contiguous()
+    out_shape = (n,) if Xg.ndim == 3 else (K, n)
+    logdet = torch.empty(out_shape, dtype=Xg.dtype, device=Xg.device)
+    quad = torch.empty(out_shape, dtype=Xg.dtype, device=Xg.device)
+    if n == 0 or K == 0:
+        return logdet, quad
+    lib = build()
+    err = lib.dgp_block_loglik_parts(
+        _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(), diag.data_ptr(),
+        logdet.data_ptr(), quad.data_ptr(), m1, d, n, K, int(yg.ndim == 2),
+        _stream(Xg.device))
+    if err != 0:
+        raise RuntimeError(f"block_loglik_parts_t: kernel launch failed (cudaError {err})")
+    block_loglik_parts_t.launches += 1
+    return logdet, quad
+
+
+block_loglik_parts_t.launches = 0
+
+
+def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
+    """K1: per-point (logdet, quad) and their gradients with respect to the
+    n_length log-lengthscale lanes and, with ``nugget_est``, the log-nugget
+    lane (p lanes in all).  Xg is (G, m1, d, n) for the G nodes of an
+    M-step group (one launch), or (m1, d, n); yg, diag and dnug match it
+    with (m1, n) blocks.  Returns (logdet (G, n), quad (G, n), dlogdet
+    (G, p, n), dquad (G, p, n)), without the G axis for unbatched input.
+    ``n_length`` is 1 (isotropic: one lane for all dims) or at most d."""
+    if Xg.device.type == "cpu":
+        return block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, name=name,
+                                              n_length=n_length,
+                                              nugget_est=nugget_est)
+    if Xg.device.type != "cuda":
+        raise ValueError(f"block_nllik_grad_parts_t: unsupported device {Xg.device}")
+    if Xg.ndim not in (3, 4):
+        raise ValueError("block_nllik_grad_parts_t: Xg must be (G, m1, d, n) or (m1, d, n)")
+    single = Xg.ndim == 3
+    if single:
+        Xg, yg, diag, dnug = Xg[None], yg[None], diag[None], dnug[None]
+    G, m1, d, n = Xg.shape
+    if m1 > M1_MAX:
+        raise ValueError(f"block_nllik_grad_parts_t: m1={m1} exceeds the kernel bound {M1_MAX}")
+    for t in (yg, diag, dnug):
+        if t.shape != (G, m1, n):
+            raise ValueError(f"block_nllik_grad_parts_t: yg, diag and dnug must be "
+                             f"{(G, m1, n)}, got {tuple(t.shape)}")
+    n_length = int(n_length)
+    if not (1 <= n_length <= NLEN_MAX and (n_length == 1 or n_length <= d)):
+        raise ValueError(f"block_nllik_grad_parts_t: n_length={n_length} must be 1 "
+                         f"or at most d={d} (and at most {NLEN_MAX})")
+    _check_cuda("block_nllik_grad_parts_t", (Xg, yg, diag, dnug), Xg.dtype, Xg.device)
+    Xg, yg, diag, dnug = (t.contiguous() for t in (Xg, yg, diag, dnug))
+    npar = n_length + int(bool(nugget_est))
+    kw = dict(dtype=Xg.dtype, device=Xg.device)
+    logdet, quad = torch.empty((G, n), **kw), torch.empty((G, n), **kw)
+    dlogdet, dquad = torch.empty((G, npar, n), **kw), torch.empty((G, npar, n), **kw)
+    if n > 0 and G > 0:
+        lib = build()
+        err = lib.dgp_block_nllik_grad(
+            _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(),
+            diag.data_ptr(), dnug.data_ptr(), logdet.data_ptr(), quad.data_ptr(),
+            dlogdet.data_ptr(), dquad.data_ptr(), m1, d, n, G, n_length,
+            int(bool(nugget_est)), _stream(Xg.device))
+        if err != 0:
+            raise RuntimeError(f"block_nllik_grad_parts_t: kernel launch failed "
+                               f"(cudaError {err})")
+        block_nllik_grad_parts_t.launches += 1
+    out = (logdet, quad, dlogdet, dquad)
+    return tuple(o[0] for o in out) if single else out
+
+
+block_nllik_grad_parts_t.launches = 0
+
+#: every kernel wrapper, by the name its launch count is reported under
+WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
+            block_loglik_parts_t)
+
+
 def reset_launch_counts():
-    cond_weights_t.launches = 0
-    block_loglik_multi_t.launches = 0
+    for w in WRAPPERS:
+        w.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -297,13 +465,15 @@ def sentinels(n, m1, dtype, device):
 
 def gather_scale_t(X, y, NNarray, length, nugget, nugget_diag, extra_jitter):
     """Gather and sentinel-encode Vecchia blocks directly in the kernels'
-    (m1, d, n) layout.  Returns (Xg (m1, d, n), yg (m1, n), diag (m1, n))."""
+    (m1, d, n) layout.  X may carry leading candidate axes, (..., n, d),
+    and then so does Xg.  Returns (Xg (..., m1, d, n), yg (m1, n), diag
+    (m1, n))."""
     rev = torch.flip(NNarray, dims=(1,))
     validT = (rev >= 0).T                                   # (m1, n)
     safeT = torch.where(validT, rev.T, 0)
-    n, m1 = X.shape[0], NNarray.shape[1]
-    Xl = (X / length).T                                     # (d, n)
-    Xg = Xl[:, safeT].transpose(0, 1)                       # (m1, d, n)
+    n, m1 = X.shape[-2], NNarray.shape[1]
+    Xl = (X / length).transpose(-1, -2)                     # (..., d, n)
+    Xg = Xl[..., safeT].transpose(-3, -2)                   # (..., m1, d, n)
     sent = sentinels(n, m1, Xg.dtype, Xg.device)
     Xg = torch.where(validT[:, None, :], Xg, sent[:, None, :])
     yg = torch.where(validT, y[safeT], 0.0)
@@ -311,14 +481,31 @@ def gather_scale_t(X, y, NNarray, length, nugget, nugget_diag, extra_jitter):
     return Xg, yg, diag
 
 
+def gather_raw_t(X, y, NNarray, nugget_diag):
+    """Index-only block gather in the transposed layout (no parameter
+    dependence, so it runs once for the many evaluations of an M-step).
+    Returns (Xg_raw (m1, d, n), yg (m1, n), nug_g (m1, n), valid (m1, n))."""
+    rev = torch.flip(NNarray, dims=(1,))
+    validT = (rev >= 0).T
+    safeT = torch.where(validT, rev.T, 0)
+    Xg_raw = X.T[:, safeT].transpose(0, 1)                  # (m1, d, n)
+    yg = torch.where(validT, y[safeT], 0.0)
+    nug_g = torch.where(validT, nugget_diag[safeT], 0.0)
+    return Xg_raw, yg, nug_g, validT
+
+
 def scale_blocks_t(Xg_raw, nug_g, valid, length, nugget, extra_jitter):
     """Per-evaluation transform in the transposed layout: scale by the
-    lengthscales, sentinel-encode invalid lanes, build the diagonal.
-    Returns (Xg (m1, d, n), diag (m1, n), dnug (m1, n))."""
-    m1, d, n = Xg_raw.shape
-    Xg = Xg_raw / length[None, :, None]
+    lengthscales, sentinel-encode invalid lanes, build the diagonal.  A
+    leading node axis is allowed: Xg_raw (..., m1, d, n), nug_g and valid
+    (..., m1, n), length (..., d) and nugget (...).  Returns (Xg (..., m1,
+    d, n), diag (..., m1, n), dnug (..., m1, n))."""
+    m1, d, n = Xg_raw.shape[-3:]
+    nugget = torch.as_tensor(nugget, dtype=Xg_raw.dtype, device=Xg_raw.device)
+    Xg = Xg_raw / length[..., None, :, None]
     sent = sentinels(n, m1, Xg.dtype, Xg.device)
-    Xg = torch.where(valid[:, None, :], Xg, sent[:, None, :])
-    diag = torch.where(valid, 1.0 + nugget * nug_g + extra_jitter, 1.0)
-    dnug = nugget * nug_g
+    Xg = torch.where(valid[..., :, None, :], Xg, sent[:, None, :])
+    nug = nugget[..., None, None]
+    diag = torch.where(valid, 1.0 + nug * nug_g + extra_jitter, 1.0)
+    dnug = nug * nug_g
     return Xg, diag, dnug

@@ -1,8 +1,9 @@
 """Vecchia integration with the kernel class: ordering and neighbour
 construction (reference kernel_class.ord_nn); the counterpart of the
-ordering part of `dgp_tpu/vecchia/api.py`.  Not ported yet: the Vecchia
-M-step, the node-level prediction entry points and the self-excluded
-neighbour sets of the Hetero exact posterior (``pointer``).
+ordering part of `dgp_tpu/vecchia/api.py`.  Not ported yet: the
+node-level M-step and prediction entry points (the SEM M-step lives in
+models/mstep.py) and the self-excluded neighbour sets of the Hetero exact
+posterior (``pointer``).
 """
 import numpy as np
 

@@ -7,10 +7,13 @@ predecessors, marked -1 in NNarray) are decoupled by masking their rows and
 columns to the identity, which leaves the final-element conditionals equal
 to the unpadded computation.
 
-The conditional weights of ancestral sampling go through the K3 kernel
-wrapper (`ops.cuda_vecchia.cond_weights_t`); `vecchia_llik` keeps the JAX
-package's batched (XLA) form as a reference for the K2/K4 pipelines.
-Prediction (`gp_vecch`, `link_gp_vecch`) is batched torch.linalg.
+The kernels' wrappers (`ops.cuda_vecchia`) carry the hot paths: the
+log-likelihood at fixed parameters (`vecchia_llik`, K4), the M-step
+objective with its analytic gradient (`vecchia_nllik_fg`, K1) and the
+conditional weights of ancestral sampling (`cond_weights`, K3).
+`vecchia_nllik` keeps the masked-block form with an autograd gradient as
+the reference for K1.  Prediction (`gp_vecch`, `link_gp_vecch`) is
+batched torch.linalg.
 """
 import numpy as np
 import torch
@@ -51,14 +54,109 @@ def _blocks(X, y, NNarray, length, nugget, name, nugget_diag):
 def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
     """Vecchia log-likelihood at fixed parameters (reference vecchia_llik):
     the scale enters only through quad/scale; the parameter-constant
-    normalisation is dropped.  Accumulated in float64."""
+    normalisation is dropped.  Accumulated in float64.
+
+    X may carry a leading candidate axis, (K, n, d), for K inputs that
+    share y, the NN structure and the parameters (the candidates of one
+    node-wise ESS round); the result is then (K,).  One K4 launch either
+    way."""
+    Xg, yg, diag = cv.gather_scale_t(X, y, NNarray, length, nugget, nugget_diag,
+                                     _f32_jitter(X.dtype))
+    logdet_i, quad_i = cv.block_loglik_parts_t(Xg, yg, diag, name=name)
+    quad = linalg.sum64(quad_i, dim=-1)
+    logdet = linalg.sum64(logdet_i, dim=-1)
+    scale64 = torch.as_tensor(scale, dtype=torch.float64, device=quad.device)
+    return -0.5 * (logdet + quad / scale64)
+
+
+def _profiled(logdet, quad, nugget, *, n, scale_est, nugget_est, fixed_scale,
+              n_orig, sum_residual):
+    """(nll, scale) from the float64 block sums (reference vecchia_nllik's
+    profiling and replicate terms)."""
+    nugget = torch.as_tensor(nugget, dtype=torch.float64, device=quad.device)
+    has_rep = sum_residual is not None
+    N = n_orig if has_rep else n
+    if scale_est:
+        scale = (quad + sum_residual / nugget) / N if has_rep else quad / n
+        nll = 0.5 * (logdet + N * torch.log(scale))
+        if has_rep and nugget_est:
+            nll = nll + 0.5 * (N - n) * torch.log(nugget)
+    else:
+        scale = torch.as_tensor(fixed_scale, dtype=torch.float64, device=quad.device)
+        nll = 0.5 * (logdet + quad / scale)
+        if has_rep and nugget_est:
+            nll = nll + 0.5 * (sum_residual / (scale * nugget) + (N - n) * torch.log(nugget))
+    return nll, scale
+
+
+def _params(log_theta, nugget_est, fixed_nugget):
+    if nugget_est:
+        return torch.exp(log_theta[:-1]), torch.exp(log_theta[-1])
+    return torch.exp(log_theta), fixed_nugget
+
+
+def vecchia_nllik(log_theta, X, y, NNarray, nugget_diag, *, name, scale_est,
+                  nugget_est, fixed_scale, fixed_nugget, n_orig, sum_residual):
+    """Profiled Vecchia negative log-likelihood (reference vecchia_nllik
+    semantics) on masked blocks and a library Cholesky, differentiable by
+    autograd: the reference form K1's analytic gradient is held against.
+    Returns (nllik, scale)."""
+    length, nugget = _params(log_theta, nugget_est, fixed_nugget)
     K, yi, _ = _blocks(X, y, NNarray, length, nugget, name, nugget_diag)
     L = linalg.chol_small(K)
     Ly = linalg.fwd_solve_small(L, yi)
     quad = linalg.sum64(Ly[:, -1] ** 2)
     logdet = linalg.sum64(2.0 * torch.log(torch.abs(L[:, -1, -1])))
-    scale64 = torch.as_tensor(scale, dtype=torch.float64, device=quad.device)
-    return -0.5 * (logdet + quad / scale64)
+    return _profiled(logdet, quad, nugget, n=X.shape[0], scale_est=scale_est,
+                     nugget_est=nugget_est, fixed_scale=fixed_scale,
+                     n_orig=n_orig, sum_residual=sum_residual)
+
+
+def prior_lanes(lt, prior_name, c0, c1):
+    """Per-lane log-prior of log-parameters lt and its derivative, for the
+    gamma ('ga') and inverse-gamma ('inv_ga') priors with the adjusted
+    coefficients (c0, c1) the nodes store (reference kernel_class.py:
+    367-401).  The 'ref' prior depends on the inputs and is not ported."""
+    if prior_name == 'ga':
+        e = torch.exp(lt)
+        return c0 * lt - c1 * e, c0 - c1 * e
+    if prior_name == 'inv_ga':
+        e = torch.exp(-lt)
+        return -c0 * lt - c1 * e, -c0 + c1 * e
+    if prior_name == 'ref':
+        raise NotImplementedError("the 'ref' prior is not ported to dgp_tpu_torch "
+                                  "yet (ROADMAP.md, O1)")
+    raise ValueError(f"unknown prior: {prior_name}")
+
+
+def vecchia_nllik_fg(log_theta, X, y, NNarray, nugget_diag, *, name, n_length,
+                     scale_est, nugget_est, fixed_scale, fixed_nugget, n_orig,
+                     sum_residual, prior_name=None, prior_coef=None):
+    """Profiled Vecchia negative log-likelihood AND its gradient with
+    respect to the log-parameters, through the K1 kernel's analytic
+    gradient (dgpsi/vecchia.py:182-242).  Returns (nll, grad, scale)."""
+    length, nugget = _params(log_theta, nugget_est, fixed_nugget)
+    Xg_raw, yg, nug_g, valid = cv.gather_raw_t(X, y, NNarray, nugget_diag)
+    Xg, diag, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, length, nugget,
+                                       _f32_jitter(X.dtype))
+    logdet_i, quad_i, dlogdet_i, dquad_i = cv.block_nllik_grad_parts_t(
+        Xg, yg, diag, dnug, name=name, n_length=n_length, nugget_est=nugget_est)
+    quad, logdet = linalg.sum64(quad_i), linalg.sum64(logdet_i)
+    dquad, dlogdet = linalg.sum64(dquad_i, dim=1), linalg.sum64(dlogdet_i, dim=1)
+    n = X.shape[0]
+    nll, scale = _profiled(logdet, quad, nugget, n=n, scale_est=scale_est,
+                           nugget_est=nugget_est, fixed_scale=fixed_scale,
+                           n_orig=n_orig, sum_residual=sum_residual)
+    g = 0.5 * (dlogdet - dquad / scale)
+    if sum_residual is not None and nugget_est:
+        nug64 = torch.as_tensor(nugget, dtype=torch.float64, device=g.device)
+        g[-1] = g[-1] + 0.5 * (-sum_residual / (scale * nug64) + (n_orig - n))
+    if prior_name is not None:
+        c = torch.as_tensor(prior_coef, dtype=log_theta.dtype, device=log_theta.device)
+        lp, dlp = prior_lanes(log_theta, prior_name, c[0], c[1])
+        nll = nll - lp.sum()
+        g = g - dlp
+    return nll, g.to(log_theta.dtype), scale
 
 
 def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None):

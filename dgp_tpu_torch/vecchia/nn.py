@@ -16,6 +16,8 @@ float64 the two packages pick the same neighbour sets.  The approximate
 import numpy as np
 import torch
 
+from .. import config
+
 #: query rows per distance tile
 _BLOCK = 256
 
@@ -63,18 +65,21 @@ def _pred_nn_impl(query, x, m):
 
 def nn(x, m, device=None):
     """Ordered nearest neighbours of the (already ordered) points x, as a
-    numpy int array (reference vecchia.nn)."""
+    numpy int array (reference vecchia.nn); the search runs on ``device``
+    (default: the card, see config.resolve_device)."""
     x = np.asarray(x)
     m = min(int(m), x.shape[0] - 1)
-    xt = torch.as_tensor(x, device=device)
+    xt = torch.as_tensor(x, device=config.resolve_device(device))
     return _nn_ordered_impl(xt, m).cpu().numpy()
 
 
 def get_pred_nn(query, x, m=50, device=None):
     """Unconstrained NN of each query among x, nearest first, as a numpy
-    int array (reference vecchia.get_pred_nn)."""
+    int array (reference vecchia.get_pred_nn); the search runs on
+    ``device`` (default: the card)."""
     query, x = np.asarray(query), np.asarray(x)
     m = int(min(m, x.shape[0]))
-    out = _pred_nn_impl(torch.as_tensor(query, device=device),
-                        torch.as_tensor(x, device=device), m)
+    dev = config.resolve_device(device)
+    out = _pred_nn_impl(torch.as_tensor(query, device=dev),
+                        torch.as_tensor(x, device=dev), m)
     return out.cpu().numpy()

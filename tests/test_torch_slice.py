@@ -50,11 +50,11 @@ def _layers(pkg):
     return pkg.combine(l1, l2)
 
 
-def _rmse(pkg, seed, z):
+def _rmse(pkg, seed, z, **kw):
     X, Y = _data()
     pkg.nb_seed(seed)
-    m = pkg.dgp(X, Y, _layers(pkg), vecchia=True, m=M_NN)
-    mu, _ = pkg.emulator(m.estimate(), N=5).predict(z, m=PRED_M)
+    m = pkg.dgp(X, Y, _layers(pkg), vecchia=True, m=M_NN, **kw)
+    mu, _ = pkg.emulator(m.estimate(), N=5, **kw).predict(z, m=PRED_M)
     return float(np.sqrt(np.mean((mu - func(z)) ** 2)))
 
 
@@ -69,7 +69,8 @@ def test_plan_ll_equals_upper_loglik(jax_model):
     eng_j = jax_model.imp._engine()
     lat_j, par_j = eng_j.get_state()
     nn_j = eng_j.get_nn_state()
-    eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(jax_model.all_layer)))
+    eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(jax_model.all_layer)),
+                        device='cpu')
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
     np.testing.assert_array_equal(lat_t[0].numpy(), np.asarray(lat_j[0]))
@@ -96,7 +97,8 @@ def test_carried_imputations_predict_the_same(jax_model):
     z = np.linspace(-1, 1, 150).reshape(-1, 1)
     mu_j, var_j = emu_j.predict(z, m=PRED_M)
     emu_t = dgp_tpu_torch.emulator.from_imputations(
-        [layers_from_numpy(layers_to_numpy(s)) for s in emu_j.all_layer_set])
+        [layers_from_numpy(layers_to_numpy(s)) for s in emu_j.all_layer_set],
+        device='cpu')
     mu_t, var_t = emu_t.predict(z, m=PRED_M)
     # Same imputations, the same exact-NN conditioning sets, float64
     # factorisations of (m+1)-blocks in another order (torch.linalg vs the
@@ -124,7 +126,7 @@ def test_emulator_rmse_within_jax_seed_spread():
     # (JAX_SEED_RMSE) to its worst seed plus two.
     spread = np.asarray(JAX_SEED_RMSE)
     lo, hi = spread.min() - 2 * spread.std(), spread.max() + 2 * spread.std()
-    rmse = [_rmse(dgp_tpu_torch, seed, z) for seed in range(3)]
+    rmse = [_rmse(dgp_tpu_torch, seed, z, device='cpu') for seed in range(3)]
     assert all(np.isfinite(rmse)), rmse
     assert lo <= min(rmse) and max(rmse) <= hi, (rmse, lo, hi)
 

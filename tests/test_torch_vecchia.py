@@ -1,9 +1,12 @@
 """dgp_tpu_torch.vecchia and the plain versions of the CUDA kernels against
 dgp_tpu: neighbour sets (exactly), conditional weights (against both the
 XLA branch and the Pallas kernel in interpret mode), ancestral sampling
-with the same noise, Vecchia GP and linked-GP prediction, and the K2
-candidate evaluator (against the Pallas kernel in interpret mode).
-Tolerances rtol 1e-9, atol 1e-12, as in tests/test_pallas.py."""
+with the same noise, Vecchia GP and linked-GP prediction, the K2 candidate
+evaluator, the K4 per-point parts and the K1 analytic gradient (each
+against its Pallas kernel in interpret mode), and the K1 objective
+against torch autograd of the port's own reference form.  Tolerances
+rtol 1e-9, atol 1e-12 for values and rtol 1e-7, atol 1e-10 for gradients,
+as in tests/test_pallas.py."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -48,9 +51,9 @@ def _setup(n=90, d=2, m=9, seed=0):
 def test_nn_index_sets_match():
     rs = np.random.RandomState(1)
     X = rs.uniform(size=(300, 2))
-    np.testing.assert_array_equal(tnn.nn(X, 12), np.asarray(jnn.nn(X, 12)))
+    np.testing.assert_array_equal(tnn.nn(X, 12, device='cpu'), np.asarray(jnn.nn(X, 12)))
     Q = rs.uniform(size=(70, 2))
-    np.testing.assert_array_equal(tnn.get_pred_nn(Q, X, 15),
+    np.testing.assert_array_equal(tnn.get_pred_nn(Q, X, 15, device='cpu'),
                                   np.asarray(jnn.get_pred_nn(Q, X, 15)))
 
 
@@ -78,7 +81,8 @@ def test_cond_weights_pre_gathered_path():
     tp.nb_seed(0)
     layers = tp.combine([tp.kernel(length=np.array([0.5]), nugget=1e-3)],
                         [tp.kernel(length=np.array([0.5]))])
-    eng = tp.dgp(X, y[:, None], layers, vecchia=True, m=9).imp._engine()
+    eng = tp.dgp(X, y[:, None], layers, vecchia=True, m=9,
+                 device='cpu').imp._engine()
     lat, par = eng.get_state()
     nn_state = eng.get_nn_state()
     draws = [eng._draw_prior_node_batch(0, 0, lat, par, nn_state,
@@ -193,3 +197,104 @@ def test_kernel_wrappers_refuse_other_devices():
         cv.cond_weights_t(X, d, name='sexp')
     with pytest.raises(ValueError):
         cv.block_loglik_multi_t(X, X, X, d, d, [1.0], [0.0], name='sexp')
+    with pytest.raises(ValueError):
+        cv.block_loglik_parts_t(X, d, d, name='sexp')
+    with pytest.raises(ValueError):
+        cv.block_nllik_grad_parts_t(X, d, d, d, name='sexp', n_length=1,
+                                    nugget_est=True)
+
+
+def _grad_blocks(n_length, seed):
+    """K1 inputs from a real NN structure (its first rows have padded,
+    sentinel-encoded lanes), built by the JAX package's own gather and
+    per-evaluation transform."""
+    X, y, NN = _setup(n=70, d=2, m=9, seed=seed)
+    nd = np.random.RandomState(seed).uniform(0.5, 1.0, X.shape[0])
+    length = np.array([0.5] if n_length == 1 else [0.5, 0.8]) * (1 + 0.3 * seed)
+    nugget = 2e-3 * (1 + seed)
+    raw = pv.gather_raw_t(jnp.asarray(X), jnp.asarray(y), jnp.asarray(NN),
+                          jnp.asarray(nd))
+    full_len = np.broadcast_to(length, (2,))
+    Xg, diag, dnug = pv.scale_blocks_t(raw[0], raw[2], raw[3], jnp.asarray(full_len),
+                                       nugget, 0.0)
+    return tuple(np.asarray(a) for a in (Xg, raw[1], diag, dnug))
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+@pytest.mark.parametrize("n_length", [1, 2])
+@pytest.mark.parametrize("nugget_est", [True, False])
+def test_block_nllik_grad_plain_matches_pallas(name, n_length, nugget_est):
+    """K1's plain version against the Pallas gradient kernel, with a
+    leading node axis of two parameter settings (one launch on the card)."""
+    groups = [_grad_blocks(n_length, seed) for seed in (0, 1)]
+    kw = dict(name=name, n_length=n_length, nugget_est=nugget_est)
+    stacked = [_t(np.stack([g[i] for g in groups])) for i in range(4)]
+    out_t = cv.block_nllik_grad_parts_t(*stacked, **kw)
+    ref = _jit(pv.block_nllik_grad_parts_t, 'name', 'n_length', 'nugget_est')
+    for gi, g in enumerate(groups):
+        out_j = ref(*(jnp.asarray(a) for a in g), **kw)
+        _close(out_t[0][gi], out_j[0])                      # logdet
+        _close(out_t[1][gi], out_j[1])                      # quad
+        for a, b in zip(out_t[2:], out_j[2:]):              # gradients
+            _close(a[gi], b, rtol=1e-7, atol=1e-10)
+    assert cv.block_nllik_grad_parts_t.launches == 0  # CPU tensors: plain version
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+def test_block_loglik_parts_plain_matches_pallas(name):
+    """K4's plain version against the Pallas kernel, alone and with a
+    leading candidate axis whose blocks share one target and diagonal."""
+    X, y, NN = _setup(seed=6)
+    length, nugget = np.array([0.4, 0.7]), 1e-3
+    nd = np.ones(X.shape[0])
+    rs = np.random.RandomState(6)
+    Xs = [X, X + 0.05 * rs.normal(size=X.shape)]
+    blocks = [pv.gather_scale_t(jnp.asarray(Xc), jnp.asarray(y), jnp.asarray(NN),
+                                jnp.asarray(length), nugget, jnp.asarray(nd), 0.0)
+              for Xc in Xs]
+    refs = [pv.block_loglik_parts_t(*b, name=name) for b in blocks]
+    one = cv.block_loglik_parts_t(*(_t(a) for a in blocks[0]), name=name)
+    _close(one[0], refs[0][0])
+    _close(one[1], refs[0][1])
+    cand = cv.block_loglik_parts_t(_t(np.stack([np.asarray(b[0]) for b in blocks])),
+                                   _t(blocks[0][1]), _t(blocks[0][2]), name=name)
+    for c, ref in enumerate(refs):
+        _close(cand[0][c], ref[0])
+        _close(cand[1][c], ref[1])
+    assert cv.block_loglik_parts_t.launches == 0
+
+
+@pytest.mark.parametrize("nugget_est", [True, False])
+@pytest.mark.parametrize("rep_prior", [False, True])
+def test_vecchia_nllik_fg_matches_autograd(nugget_est, rep_prior):
+    """The M-step objective through K1 (plain version on the CPU) against
+    torch autograd of the port's reference form `vecchia_nllik`; with
+    replicates (W_diag semantics) and a ga prior (tests/test_pallas.py:
+    78-105)."""
+    X, y, NN = _setup(seed=2)
+    n = X.shape[0]
+    rs = np.random.RandomState(3)
+    if rep_prior:
+        nd = 1.0 / rs.randint(1, 4, size=n).astype(np.float64)
+        rep = dict(n_orig=float(n) * 1.8, sum_residual=0.37)
+        prior = dict(prior_name='ga', prior_coef=[1.2, 0.3])
+    else:
+        nd = np.ones(n)
+        rep = dict(n_orig=float(n), sum_residual=None)
+        prior = {}
+    params = [0.6, 0.9, 5e-3] if nugget_est else [0.6, 0.9]
+    lt = _t(np.log(params))
+    kw = dict(name='sexp', scale_est=True, nugget_est=nugget_est, fixed_scale=1.0,
+              fixed_nugget=5e-3, **rep)
+    args = (_t(X), _t(y), _t(NN), _t(nd))
+    nll_k, g_k, scale_k = tcore.vecchia_nllik_fg(lt, *args, n_length=2, **kw, **prior)
+
+    lt_a = lt.clone().requires_grad_(True)
+    nll_a, scale_a = tcore.vecchia_nllik(lt_a, *args, **kw)
+    if rep_prior:
+        lp, _ = tcore.prior_lanes(lt_a, 'ga', 1.2, 0.3)
+        nll_a = nll_a - lp.sum()
+    nll_a.backward()
+    _close(nll_k, nll_a.detach(), rtol=1e-9, atol=0)
+    _close(scale_k, scale_a.detach(), rtol=1e-9, atol=0)
+    _close(g_k, lt_a.grad, rtol=1e-7, atol=1e-10)

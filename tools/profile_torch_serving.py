@@ -1,13 +1,17 @@
-"""Profile dgp_tpu_torch's serving path on one CUDA device with torch.profiler.
+"""Profile dgp_tpu_torch's serving and training paths on one CUDA device
+with torch.profiler.
 
 Runs chip_smoke.py's main-path configuration (2-layer Vecchia DGP, n=2000,
 m=25, hyper-parameters from dgp_tpu_torch/data/vecchia_si_n2000.json) once
 to warm up, then profiles `emulator(..., N=5)` and `predict` on 20000
-points separately.  For each window it prints one JSON line: wall seconds,
-the summed device time of all kernels, their share of the wall time, and
-the top operators by device time and by host time.  With a directory
-argument it also writes each window's Chrome trace there.  Usage, from
-the repository root:
+points separately; then trains chip_smoke.py's training configuration
+(bench.py's starting hyper-parameters) for 48 warm-up iterations and
+profiles 4 warm SEM iterations (`train(N=4)`, no NN refresh inside).  For
+each window it prints one JSON line: wall seconds, the summed device time
+of all kernels, their share of the wall time, the launches of each
+hand-written kernel, and the top operators by device time and by host
+time.  With a directory argument it also writes
+each window's Chrome trace there.  Usage, from the repository root:
 
     python3 tools/profile_torch_serving.py [TRACE_DIR]
 """
@@ -38,6 +42,7 @@ def _top(events, key, n=12):
 
 def window(name, fn, out_dir):
     torch.cuda.synchronize()
+    before = chip_smoke.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -48,8 +53,9 @@ def window(name, fn, out_dir):
     ev = prof.key_averages()
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
     print(json.dumps({"window": name, "wall_s": wall, "device_kernel_s": busy,
-                      "device_busy_share": busy / wall,
+                      "device_busy_share": busy / wall, "launches": launches,
                       "top_device": _top(ev, "self_device_time_total"),
                       "top_host": _top(ev, "self_cpu_time_total")}), flush=True)
 
@@ -78,6 +84,12 @@ def main():
     window("emulator", lambda: holder.update(
         emu=emulator(m.estimate(), N=5, device=dev)), out_dir)
     window("predict20k", lambda: holder["emu"].predict(zp, m=50), out_dir)
+    nb_seed(123)
+    mt = dgp(X, Y, chip_smoke._bench_layers(), vecchia=True, m=chip_smoke.M_TRAIN,
+             device=dev)
+    mt.train(N=chip_smoke.TRAIN_WARM, disable=True, chunk_size=16)
+    # iterations 49-52: no power-of-2 boundary, so no NN refresh inside
+    window("sem4", lambda: mt.train(N=4, disable=True, chunk_size=16), out_dir)
     return 0
 
 
