@@ -16,8 +16,16 @@ Phases, each printing its results (and its seconds) as one JSON line:
             with a leading axis of 9 candidates -- for sexp and Matern-2.5,
             float64 and float32, with sentinel lanes; check them against
             each other; time kernel, plain version and the batched
-            torch.linalg.cholesky_ex of the same blocks (median of CUDA-event
-            timings), and compute each kernel's least time on the card.
+            torch.linalg.cholesky_ex of the same blocks (CUDA events around
+            10 calls back to back, median of 20; the kernel and the library
+            call also as one call alone), and compute each kernel's least
+            time on the card.  Then the edges of the warp-per-block kernels
+            K1 and K2 on well-conditioned random blocks: a full warp
+            (m1 = 32) at a ragged n (2001), a two-row block at an n below one
+            thread block's points, G = 1, K = 1, dl = 0, d = 5 with 5 length
+            lanes, K2 at d = 3 with dl = 1 and sentinel lanes, and blocks
+            with a non-positive pivot, which must come out NaN where the
+            plain version's do.
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -111,7 +119,13 @@ def bench_data():
     return X, Y
 
 
-def cuda_ms(fn, reps=20, warm=3):
+def cuda_ms(fn, reps=20, warm=3, inner=10):
+    """Milliseconds per call: the median over ``reps`` of CUDA-event time
+    around ``inner`` calls made back to back, divided by ``inner``.  Queued
+    back to back, the calls keep the card busy while the host prepares the
+    next one, so a call's own host time counts only where it is longer than
+    its device time.  ``inner=1`` times one call alone (the method of the
+    first versions' numbers), host time and launch included."""
     import torch
     for _ in range(warm):
         fn()
@@ -121,10 +135,11 @@ def cuda_ms(fn, reps=20, warm=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -148,12 +163,27 @@ def phase_device():
 
 
 def phase_build():
+    import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     t0 = time.perf_counter()
     cv.build()
+    plans = {f"{dt}/{k}": cv.launch_plan(k, getattr(torch, dt), M_TRAIN + 1, 2)
+             for dt in ("float64", "float32")
+             for k in ("block_nllik_grad_parts_t", "block_loglik_multi_t")}
+    ptxas = [dict(p, warps_per_sm_by_registers=_warps_by_registers(p["registers"]))
+             for p in cv.build_info["ptxas"]]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cv.build_info["seconds"],
-          "ptxas": cv.build_info["ptxas"]})
+          "ptxas": ptxas, "launch_plans_m1_26_d2": plans})
+
+
+def _warps_by_registers(regs, block_warps=4):
+    """Warps one H100 SM holds for a kernel of ``regs`` registers a thread
+    in blocks of ``block_warps`` warps (K3 and K4: 128 threads), from the
+    registers alone: 65536 a SM, allocated per warp in units of 256, at
+    most 64 warps."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(64, 65536 // per_warp // block_warps * block_warps)
 
 
 def _slice_inputs(dtype, device, nugget):
@@ -303,6 +333,112 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
     return rows + [row32]
 
 
+# Edges of the warp-per-block mapping of K1 and K2.  K1: (m1, n, G, d,
+# n_length, nugget_est); K2: (m1, n, d, dl, K).
+EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True))
+EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3))
+NAN_K1 = (26, 300, 2, 2, 2, True)
+NAN_K2 = (26, 300, 2, 1, 3)
+
+
+def _edge_inputs(kname, shape, seed, bad=False):
+    """Well-conditioned random blocks (float64 numpy) for K1 or K2 at an edge
+    shape: coordinates in [-2, 2] (pre-scaled), 15% sentinel lanes (none
+    where a correlation factor spans more than 2 dims), nugget 0.1.  With
+    ``bad``, every 7th point's block gets a non-positive pivot (diagonal 0
+    in the middle row, or -1 in the first)."""
+    rs = np.random.RandomState(seed)
+    if kname == "block_nllik_grad_parts_t":
+        m1, n, G, d = shape[:4]
+        lead = (G,)
+        wide = d
+    else:
+        m1, n, d, dl = shape[:4]
+        lead = ()
+        dlc = d if dl == 0 or dl >= d else dl
+        wide = max(dlc, d - dlc)
+    # K1's correlation is one product over all d dims, K2's two, split at dl
+    # (the d = 3, dl = 1 case: 1 + 2 dims).  In float32, Matern-2.5's
+    # product of per-dim factors at a sentinel distance overflows over 3
+    # dims (inf * 0 = NaN), in the plain version as in the kernel
+    valid = rs.uniform(size=lead + (m1, n)) > (0.15 if wide <= 2 else 0.0)
+    valid[..., -1, :] = True
+    sent = 1e7 + np.arange(n)[None, :] * 1e3 + np.arange(m1)[:, None] * 7e2
+    y = np.where(valid, rs.uniform(-1, 1, valid.shape), 0.0)
+    diag = np.where(valid, 1.1, 1.0)
+    if bad:
+        diag[..., m1 // 2, ::14] = 0.0
+        diag[..., 0, 7::14] = -1.0
+    if kname == "block_nllik_grad_parts_t":
+        X = rs.uniform(-2, 2, lead + (m1, d, n))
+        X = np.where(valid[..., :, None, :], X, sent[:, None, :])
+        return X, y, diag, np.where(valid, 0.1, 0.0)
+    K = shape[4]
+    A = np.zeros((m1, d, n))
+    B = np.zeros((m1, d, n))
+    A[:, :dlc] = rs.uniform(-1, 1, (m1, dlc, n))
+    B[:, :dlc] = rs.uniform(-1, 1, (m1, dlc, n))
+    C = np.zeros((m1, d, n))
+    C[:, dlc:] = rs.uniform(-2, 2, (m1, d - dlc, n))
+    C = np.where(valid[:, None, :], C, sent[:, None, :])
+    A = np.where(valid[:, None, :], A, 0.0)
+    B = np.where(valid[:, None, :], B, 0.0)
+    ang = rs.uniform(0, 2 * np.pi, K)
+    return A, B, C, y, diag, np.cos(ang), np.sin(ang)
+
+
+def _edge_kw(kname, shape, name):
+    if kname == "block_nllik_grad_parts_t":
+        return {"name": name, "n_length": shape[4], "nugget_est": shape[5]}
+    return {"name": name, "dl": shape[3]}
+
+
+def _compare_edges(dev):
+    """K1 and K2 against their plain versions at the edge shapes, float64
+    per value and float32 against the float64 plain version, and the NaN
+    pattern of blocks with a non-positive pivot."""
+    import torch
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    rows = []
+    cases = ([("block_nllik_grad_parts_t", s, False) for s in EDGE_K1]
+             + [("block_nllik_grad_parts_t", NAN_K1, True)]
+             + [("block_loglik_multi_t", s, False) for s in EDGE_K2]
+             + [("block_loglik_multi_t", NAN_K2, True)])
+    for name in ("sexp", "matern2.5"):
+        for seed, (kname, shape, bad) in enumerate(cases):
+            kern = getattr(cv, kname)
+            plain = getattr(cv, kname + "_plain")
+            kw = _edge_kw(kname, shape, name)
+            raw = _edge_inputs(kname, shape, seed, bad)
+            in64 = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in raw]
+            in32 = [a.float() for a in in64]
+            out, ref = kern(*in64, **kw), plain(*in64, **kw)
+            out32, ref32 = kern(*in32, **kw), plain(*in32, **kw)
+            ref32_64 = plain(*[a.double() for a in in32], **kw)
+            torch.cuda.synchronize()
+            base = {"kernel": kname, "case": "edge", "shape": list(shape), "name": name}
+            if bad:
+                for dt, o, r in (("float64", out, ref), ("float32", out32, ref32)):
+                    nan_o = [a.isnan() for a in o]
+                    nan_r = [b.isnan() for b in r]
+                    same = all(bool((a == b).all()) for a, b in zip(nan_o, nan_r))
+                    bad_pts = int(nan_r[0].sum())
+                    ok, err, _ = _err64([a[~m] for a, m in zip(o, nan_r)],
+                                        [b[~m] for b, m in zip(r, nan_r)], True) \
+                        if dt == "float64" else (True, None, None)
+                    rows.append(dict(base, dtype=dt, blocks="non-positive pivot",
+                                     nan_points=bad_pts, nan_pattern_equal=same,
+                                     ok=same and bad_pts > 0 and ok, max_abs_err=err))
+                continue
+            ok, err, det = _err64(out, ref, True)
+            rows.append(dict(base, dtype="float64", blocks="well", per_value=True, ok=ok,
+                             max_abs_err=err, detail=det))
+            ok32, err32, det32 = _err32(out32, ref32, ref32_64)
+            rows.append(dict(base, dtype="float32", blocks="well", ok=ok32,
+                             max_abs_err_vs_f64=err32, detail=det32))
+    return rows
+
+
 def _blocks_of(kname, ins, name="sexp"):
     """The (batch, m1, m1) correlation blocks with their diagonals that
     `kname` factors on these inputs: what torch.linalg.cholesky_ex is timed
@@ -389,6 +525,13 @@ def phase_kernels(dev):
                 emit({"phase": "kernels", "name": name, "case": case, **r})
                 if not r["ok"]:
                     failures.append(r)
+    for r in _compare_edges(dev):
+        emit({"phase": "kernels", **r})
+        if r["dtype"] == "float64" and r["max_abs_err"] is not None:
+            results[r["kernel"]]["max_abs_err"] = max(results[r["kernel"]]["max_abs_err"],
+                                                      r["max_abs_err"])
+        if not r["ok"]:
+            failures.append(r)
     # times at the main path's configuration (sexp; K2 with K=9, dl=1; K4
     # as the single (26, 2, 2000) call)
     timing = {}
@@ -404,8 +547,11 @@ def phase_kernels(dev):
             bound, by = _bound_ms(kname, args, dt)
             timing[(dt, kname)] = {
                 "ms": cuda_ms(lambda: kern(*args, **kw)),
+                "ms_one_call": cuda_ms(lambda: kern(*args, **kw), inner=1),
                 "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
                 "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+                "library_ms_one_call": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks),
+                                               inner=1),
                 "bound_ms": bound, "bound_by": by,
                 "shape": list(args[0].shape)}
     for kname in results:

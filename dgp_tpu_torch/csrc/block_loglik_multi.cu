@@ -6,63 +6,112 @@
 // matrix (diagonal from diag), forward-solves L sol = y and writes
 // logdet[k, p] = 2 log L[m1-1, m1-1] and quad[k, p] = sol[m1-1]^2.  Dims
 // >= dl do not depend on the candidate (A and B are zero there and C holds
-// the global coordinates); as in the TPU kernel their correlation is a
-// separate factor G that multiplies the candidate-dependent one.
+// the global coordinates); as in the TPU kernel and the plain version their
+// correlation is a separate factor that multiplies the candidate-dependent
+// one.  Keeping the two factors apart matters in float32: at a sentinel
+// lane each Matern-2.5 dim contributes a polynomial factor of ~1e14, so a
+// product over three dims would overflow to inf and inf * exp(-...) = NaN,
+// where each factor alone stays finite and its exponential takes it to 0.
 //
 // What bounds it on an H100: per (candidate, point) it reads 3*m1*d + 2*m1
-// values (1.7 KB at the slice's m1 = 26, d = 2 in float64; the K
-// candidates of a point re-read the same A/B/C, which stay in L2) against
-// about m1^3/6 + m1^2 ~ 3.6k fused multiply-adds and m1^2 exponentials.
-// As in K3 the factor's 351 values live in per-thread local memory and the
-// Cholesky updates that read them bound the kernel (L1/L2 traffic and
-// latency), not device memory or arithmetic.
+// values (1.7 KB at the slice's m1 = 26, d = 2 in float64; the K candidates
+// of a point share them) against about m1^3/6 + m1^2 ~ 3.6k fused
+// multiply-adds and m1^2/2 exponentials (m1^2 when 0 < dl < d).  Neither
+// bytes nor operations bound it: the factorisation is a chain of m1
+// dependent column steps (a shuffle, a reciprocal square root, a publish
+// and the update), and how many such chains an SM keeps in flight (16
+// warps at 97 registers in float64) sets the time.
 //
-// What the design does about it, and the choice asked of it: the
-// candidates are a grid axis (blockIdx.y), not a loop inside the thread.
-// At the slice's n = 2000 one thread per point fills 16 blocks of the
-// card's 132 SMs; a candidate axis multiplies the threads by K (9 on the
-// first ESS round, 8 after), which is the cheapest way to put more of the
-// card to work.  The price is that G is rebuilt per candidate instead of
-// once per point; for the slice's single static dim that is one
-// exponential per pair, the same work as the candidate-dependent factor,
-// and it saves a second 351-value local array per thread.
-#include "vecchia_common.cuh"
+// What the design does about it (vecchia_warp.cuh): one warp per point,
+// factoring the blocks of its K candidates in turn.  A block's
+// correlations are spread evenly over the 32 lanes, and the column
+// Cholesky runs across the lanes with the forward substitution of y fused
+// in; only the last lane's L[m1-1, m1-1] and sol[m1-1] are written.  A
+// thread block stages the A, B, C, y and diag tiles of P points once
+// (coalesced), and the warp forms each candidate's coordinates from the
+// staged tile in its own shared buffer.  PERF.md has the measurements
+// against the candidate axis on the grid (one candidate per thread block).
+#include "vecchia_warp.cuh"
 
 namespace dgp {
 
+// shared values of one point: its A, B, C tiles, y and diag, the warp's
+// candidate coordinates and its block
+__host__ __device__ inline int multi_per_point(int m1, int d) {
+  return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch(m1);
+}
+
 template <typename T, int KN>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(WARP * WARPS_MAX)
 block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
                           const T* __restrict__ C, const T* __restrict__ yg,
                           const T* __restrict__ diag, const T* __restrict__ cosv,
                           const T* __restrict__ sinv, T* __restrict__ logdet,
-                          T* __restrict__ quad, int m1, int d, int dl, int n) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+                          T* __restrict__ quad, int m1, int d, int dl, int n, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int P = blockDim.x / WARP;
+  const int warp = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  const int p0 = blockIdx.x * P;
+  const int tile = m1 * d * P;
+  T* As = sm;
+  T* Bs = As + tile;
+  T* Cs = Bs + tile;
+  T* ys = Cs + tile;
+  T* ds = ys + m1 * P;
+  T* xw = ds + m1 * P + warp * (d * m1 + block_scratch(m1));   // (m1, d)
+  T* ls = xw + d * m1;                                         // (m1, LDS)
+  stage(A, As, m1, d, n, p0, P);
+  stage(B, Bs, m1, d, n, p0, P);
+  stage(C, Cs, m1, d, n, p0, P);
+  stage(yg, ys, m1, 1, n, p0, P);
+  stage(diag, ds, m1, 1, n, p0, P);
+  __syncthreads();
+
+  const int p = p0 + warp;
   if (p >= n) return;
-  const int k = blockIdx.y;
-  T L[TRI_MAX];
-  const AngleCoords<T> x{A, B, C, cosv[k], sinv[k], d, n, p};
-  if (dl >= d || dl == 0) {
-    const auto col = [&](int i, int j) { return corr<T, KN>(x, i, j, 0, d); };
-    column_cholesky<T>(col, diag, n, p, m1, L);
-  } else {
-    const PlainCoords<T> g{C, d, n, p};
-    const auto col = [&](int i, int j) {
-      return corr<T, KN>(x, i, j, 0, dl) * corr<T, KN>(g, i, j, dl, d);
-    };
-    column_cholesky<T>(col, diag, n, p, m1, L);
+  const int dlc = dl < d && dl > 0 ? dl : d;   // dims built from the candidate
+  const TileCoords<T> x{xw, d};
+  for (int k = 0; k < K; ++k) {
+    const T c = cosv[k], s = sinv[k];
+    __syncwarp();
+    if (lane < m1)
+      for (int t = 0; t < d; ++t) {
+        const int o = (warp * m1 + lane) * d + t;
+        xw[lane * d + t] = t < dlc ? c * As[o] + s * Bs[o] + Cs[o] : Cs[o];
+      }
+    __syncwarp();
+    warp_build<T, KN>(x, lane < m1 ? ds[warp * m1 + lane] : T(0), ls, m1, d, dlc, lane);
+    T b = lane < m1 ? ys[warp * m1 + lane] : T(0);
+    const T lii = warp_cholesky(ls, ls + m1 * LDS, static_cast<T*>(nullptr), b, m1, lane);
+    if (lane == m1 - 1) {
+      const long long o = (long long)k * n + p;
+      logdet[o] = T(2) * d_log(lii);
+      quad[o] = b * b;
+    }
   }
-  const T s = forward_last<T>(L, yg, n, p, m1);
-  const long long o = (long long)k * n + p;
-  logdet[o] = T(2) * d_log(L[tri(m1 - 1, m1 - 1)]);
-  quad[o] = s * s;
+}
+
+template <typename T, int KN>
+static int launch_kn(const T* a, const T* b, const T* c, const T* y, const T* dg, const T* cs,
+                     const T* sn, T* ld, T* q, int m1, int d, int dl, int n, int K,
+                     cudaStream_t stream) {
+  const auto kern = block_loglik_multi_kernel<T, KN>;
+  int P;
+  size_t bytes;
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * multi_per_point(m1, d), &P,
+                                     &bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(n + P - 1) / P, P * WARP, bytes, stream>>>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl,
+                                                     n, K);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-static void launch(int kname, const void* A, const void* B, const void* C, const void* yg,
-                   const void* diag, const void* cosv, const void* sinv, void* logdet,
-                   void* quad, int m1, int d, int dl, int n, int K, cudaStream_t stream) {
-  const dim3 grid(blocks_for(n), K);
+static int launch(int kname, const void* A, const void* B, const void* C, const void* yg,
+                  const void* diag, const void* cosv, const void* sinv, void* logdet,
+                  void* quad, int m1, int d, int dl, int n, int K, cudaStream_t stream) {
   const auto* a = static_cast<const T*>(A);
   const auto* b = static_cast<const T*>(B);
   const auto* c = static_cast<const T*>(C);
@@ -73,31 +122,41 @@ static void launch(int kname, const void* A, const void* B, const void* C, const
   auto* ld = static_cast<T*>(logdet);
   auto* q = static_cast<T*>(quad);
   if (kname == SEXP)
-    block_loglik_multi_kernel<T, SEXP>
-        <<<grid, THREADS, 0, stream>>>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n);
-  else
-    block_loglik_multi_kernel<T, MATERN25>
-        <<<grid, THREADS, 0, stream>>>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n);
+    return launch_kn<T, SEXP>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
+  return launch_kn<T, MATERN25>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
 }
 
 }  // namespace dgp
 
 // dtype: 0 float32, 1 float64.  kname: 0 sexp, 1 matern2.5.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int dgp_block_loglik_multi(int dtype, int kname, const void* A, const void* B,
                                       const void* C, const void* yg, const void* diag,
                                       const void* cosv, const void* sinv, void* logdet,
                                       void* quad, int m1, int d, int dl, int n, int K,
                                       void* stream) {
-  if (m1 < 1 || m1 > dgp::M1_MAX || d < 1 || dl < 0 || n < 1 || K < 1 || K > 65535 ||
+  if (m1 < 1 || m1 > dgp::M1_MAX || d < 1 || dl < 0 || n < 1 || K < 1 ||
       (kname != 0 && kname != 1))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    dgp::launch<double>(kname, A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl, n, K, s);
-  else if (dtype == 0)
-    dgp::launch<float>(kname, A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl, n, K, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return dgp::launch<double>(kname, A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl,
+                               n, K, s);
+  if (dtype == 0)
+    return dgp::launch<float>(kname, A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl,
+                              n, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch plan of the sexp kernel at (m1, d): out[0] points (warps) per
+// thread block, out[1] its shared bytes, out[2] blocks resident per SM.
+extern "C" int dgp_block_loglik_multi_plan(int dtype, int m1, int d, int* out) {
+  if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return (int)dgp::plan_report((const void*)dgp::block_loglik_multi_kernel<double, dgp::SEXP>,
+                                 sizeof(double) * dgp::multi_per_point(m1, d), out);
+  if (dtype == 0)
+    return (int)dgp::plan_report((const void*)dgp::block_loglik_multi_kernel<float, dgp::SEXP>,
+                                 sizeof(float) * dgp::multi_per_point(m1, d), out);
+  return (int)cudaErrorInvalidValue;
 }

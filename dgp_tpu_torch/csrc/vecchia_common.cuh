@@ -1,19 +1,20 @@
-// Device code shared by the Vecchia block kernels (cond_weights.cu,
-// block_loglik_multi.cu, block_loglik_parts.cu, block_nllik_grad.cu): the
-// correlation of two block rows, the column Cholesky that builds each
-// correlation column on the fly, and forward / backward substitution.
-// Counterpart of `_corr_cols` and `_fwd_pipeline` in
+// Device code shared by the Vecchia block kernels: the bounds, the
+// correlation of two block rows (all four kernels), and the per-thread
+// column Cholesky that builds each correlation column on the fly with
+// forward / backward substitution (cond_weights.cu and
+// block_loglik_parts.cu; K1 and K2 use the warp-level versions of
+// vecchia_warp.cuh).  Counterpart of `_corr_cols` and `_fwd_pipeline` in
 // dgp_tpu/ops/pallas_vecchia.py.
 //
 // Layout (the JAX package's): blocks are (m1, d, n) with the point axis
 // last, coordinates pre-scaled by the lengthscales; diagonals and targets
-// are (m1, n).  One thread owns one point p, so the threads of a warp read
-// neighbouring addresses of every (row, dim) plane.  Invalid neighbour
-// lanes carry sentinel coordinates, a unit diagonal and a zero target,
-// which decouples them exactly; the ragged end of the point axis is masked
-// by `p < n` in the kernels.
+// are (m1, n).  Invalid neighbour lanes carry sentinel coordinates, a unit
+// diagonal and a zero target, which decouples them exactly; the ragged end
+// of the point axis is masked by `p < n` in the kernels.
 //
-// Each thread keeps the packed lower triangle of its factor L in a local
+// In the per-thread kernels one thread owns one point p, so the threads of
+// a warp read neighbouring addresses of every (row, dim) plane.  Each
+// thread keeps the packed lower triangle of its factor L in a local
 // array of TRI_MAX values, bounded by the compile-time M1_MAX.  At the
 // slice's m1 = 26 that is 351 values, more than the 255 registers a thread
 // may hold, so the array lives in local memory (L1/L2-cached).
@@ -61,20 +62,6 @@ struct PlainCoords {
   const T* __restrict__ X;
   int d, n, p;
   __device__ __forceinline__ T operator()(int i, int t) const { return X[at(i, t, d, n, p)]; }
-};
-
-// Coordinates of an ESS candidate, c * A + s * B + C, built on the fly.
-template <typename T>
-struct AngleCoords {
-  const T* __restrict__ A;
-  const T* __restrict__ B;
-  const T* __restrict__ C;
-  T c, s;
-  int d, n, p;
-  __device__ __forceinline__ T operator()(int i, int t) const {
-    const long long o = at(i, t, d, n, p);
-    return c * A[o] + s * B[o] + C[o];
-  }
 };
 
 // Correlation of rows i and j over dims [t0, t1).  Both kernels are
@@ -133,16 +120,6 @@ __device__ __forceinline__ T forward_last(const T* L, const T* __restrict__ y, i
     sol[i] = (y[(long long)i * n + p] - dot) / L[tri(i, i)];
   }
   return sol[m1 - 1];
-}
-
-// In-place forward substitution L v <- v on a per-thread vector.
-template <typename T>
-__device__ __forceinline__ void forward_inplace(const T* L, T* v, int m1) {
-  for (int i = 0; i < m1; ++i) {
-    T dot = T(0);
-    for (int k = 0; k < i; ++k) dot += L[tri(i, k)] * v[k];
-    v[i] = (v[i] - dot) / L[tri(i, i)];
-  }
 }
 
 // Backward substitution L_nn^T w = L[m1-1, :m1-1] (L_nn the leading

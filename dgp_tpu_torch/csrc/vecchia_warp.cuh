@@ -1,0 +1,232 @@
+// Warp-level device code of the Vecchia block kernels K1
+// (block_nllik_grad.cu) and K2 (block_loglik_multi.cu): one warp factors one
+// block, lane i owning row i (m1 <= M1_MAX <= 32; what lanes >= m1 compute
+// is never read).
+//
+// Staging.  The JAX layout puts the point axis last, so the lanes of a warp
+// that each read one row of the same point would read at stride n.  A thread
+// block therefore serves P consecutive points (one warp each) and first copies
+// their tiles into shared memory, consecutive threads reading consecutive
+// points (`stage`); a point's tile keeps its (m1, d) layout there.
+//
+// The block.  `warp_build` writes it into the warp's shared (m1, LDS) array,
+// element (r, c) at c * LDS + r: the m1 (m1 - 1) / 2 correlations below the
+// diagonal are spread evenly over the 32 lanes (about m1^2 / 64 pairs
+// each), the diagonal comes from diag, and a copy of the correlations goes
+// above the diagonal, which the factorisation leaves alone.  LDS = 33 keeps
+// both a row (lane r reads (r, c)) and a column (lane c reads (r, c)) free
+// of bank conflicts.
+//
+// The factor.  Right-looking Cholesky by columns across the lanes
+// (`warp_cholesky`), lane i owning row i: at step j lane j's diagonal entry
+// is broadcast by a shuffle, lanes i > j scale their entry to L[i][j] and
+// publish it, and every lane subtracts L[i][j] L[k][j] from its entries
+// k > j.  A forward substitution rides along: lane j finishes x_j and lanes
+// i > j fold in L[i][j] x_j.  Column j of L is written over column j of the
+// block as it is finished, so L ends in the shared array for the later
+// substitutions.  During the factorisation each lane's unfactored row lives
+// in registers: an array of M1_MAX values, shifted one place per step so
+// that entry t always holds column j + t.  The loop over a row's entries is
+// unrolled over M1_MAX and cut at m1, so the array is never indexed at run
+// time, and the loop over the steps stays a loop (small code).  PERF.md has
+// the measurements against rows kept in the shared array.
+#pragma once
+
+#include "vecchia_common.cuh"
+
+namespace dgp {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int WARP = 32;
+static_assert(M1_MAX <= WARP, "one lane per block row");
+// stride of a warp's shared (m1, LDS) array
+constexpr int LDS = WARP + 1;
+// most points (warps) a thread block serves
+constexpr int WARPS_MAX = 8;
+// dynamic shared memory a launch gets without opting in
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
+
+__device__ __forceinline__ double d_rsqrt(double x) { return rsqrt(x); }
+__device__ __forceinline__ float d_rsqrt(float x) { return rsqrtf(x); }
+
+template <typename T>
+__device__ __forceinline__ T nan_value();
+template <>
+__device__ __forceinline__ double nan_value<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+template <>
+__device__ __forceinline__ float nan_value<float>() {
+  return __int_as_float(0x7fc00000);
+}
+
+// Coordinates of one point's block from its staged (m1, d) tile.
+template <typename T>
+struct TileCoords {
+  const T* x;
+  int d;
+  __device__ __forceinline__ T operator()(int i, int t) const { return x[i * d + t]; }
+};
+
+// Shared values of a warp's block: the (m1, LDS) array and two 32-value
+// column buffers after it.
+__host__ __device__ inline int block_scratch(int m1) { return m1 * LDS + 2 * WARP; }
+
+// Copies the (nrows, d) tiles of points p0 .. p0+P-1 of a (nrows, d, n) array
+// into dst laid out (P, nrows, d), with P = blockDim.x / WARP; points past n
+// read as 0.  Thread `tid` copies point tid % P, so consecutive threads read
+// consecutive points.
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, T* dst, int nrows, int d,
+                                      int n, int p0, int P) {
+  const int w = threadIdx.x % P;
+  const int p = p0 + w;
+  const int total = nrows * d;
+  for (int rt = threadIdx.x / P; rt < total; rt += WARP)
+    dst[w * total + rt] = p < n ? src[(long long)rt * n + p] : T(0);
+}
+
+// Writes the warp's block into its shared (m1, LDS) array `ls`: corr(i, k)
+// of rows i > k at (i, k) and at (k, i), pair p = i (i - 1) / 2 + k on lane
+// p % 32, and lane i's dg at (i, i).  The correlation is the product of two
+// factors, over dims [0, split) and [split, d) (one factor if split == d),
+// each of which underflows to 0 on its own at a sentinel distance, as in
+// the plain versions.  Ends with __syncwarp.
+template <typename T, int KN, typename Coords>
+__device__ __forceinline__ void warp_build(const Coords& x, T dg, T* ls, int m1, int d,
+                                           int split, int lane) {
+  const int npairs = m1 * (m1 - 1) / 2;
+  int i = 1, k = lane;                 // pair p = lane, then p + 32, ...
+  for (int p = lane; p < npairs; p += WARP) {
+    while (k >= i) {
+      k -= i;
+      ++i;
+    }
+    T v = corr<T, KN>(x, i, k, 0, split);
+    if (split < d) v *= corr<T, KN>(x, i, k, split, d);
+    ls[k * LDS + i] = v;
+    ls[i * LDS + k] = v;
+    k += WARP;
+  }
+  if (lane < m1) ls[lane * LDS + lane] = dg;
+  __syncwarp();
+}
+
+// Cholesky of the warp's block in its shared (m1, LDS) array `ls` (entries
+// below the diagonal and the diagonal are read; entries above it are neither
+// used nor changed), with the forward substitution of one right-hand side:
+// lane i's b becomes (L^-1 b)_i.  L is written over the block's lower
+// triangle, and the function gives L[i][i] on lane i.  A pivot that is not
+// positive gives NaN, which spreads to every later row, as a failed library
+// factorisation does.  `col` is the warp's 2 * WARP-value buffer; `invd`, if
+// not null, receives 1 / L[j][j].  Ends with __syncwarp.
+template <typename T>
+__device__ __forceinline__ T warp_cholesky(T* ls, T* col, T* invd, T& b, int m1, int lane) {
+  T lii = T(0);
+  T a[M1_MAX];                         // a[t]: column j + t of lane's row
+#pragma unroll
+  for (int t = 0; t < M1_MAX; ++t) a[t] = t < m1 ? ls[t * LDS + lane] : T(0);
+  for (int j = 0; j < m1; ++j) {
+    const T aj = a[0];
+    const T djj = __shfl_sync(FULL_MASK, aj, j);
+    const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+    const T piv = djj * inv;
+    const T xj = __shfl_sync(FULL_MASK, b, j) * inv;
+    const T lij = lane == j ? piv : aj * inv;
+    if (lane >= j) ls[j * LDS + lane] = lij;
+    if (lane == j) {
+      lii = piv;
+      b = xj;
+    } else if (lane > j) {
+      b -= lij * xj;
+    }
+    if (invd != nullptr && lane == 0) invd[j] = inv;
+    T* c = col + (j & 1) * WARP;       // double-buffered: one __syncwarp a step
+    c[lane] = lij;
+    __syncwarp();
+#pragma unroll
+    for (int t = 1; t < M1_MAX; ++t) {
+      if (j + t >= m1) break;
+      a[t - 1] = a[t] - lij * c[j + t];
+    }
+  }
+  __syncwarp();
+  return lii;
+}
+
+// Forward substitution L x = b for up to NR right-hand sides at once (the
+// first nr), lane i holding entry i of each; L is in the warp's shared
+// (m1, LDS) array, 1 / L[j][j] in invd.
+template <typename T, int NR>
+__device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[NR], int nr,
+                                             int m1, int lane) {
+  for (int j = 0; j < m1; ++j) {
+    const T inv = invd[j];
+    const T lij = ls[j * LDS + lane];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      if (r >= nr) break;
+      const T xj = __shfl_sync(FULL_MASK, b[r], j) * inv;
+      if (lane == j)
+        b[r] = xj;
+      else if (lane > j)
+        b[r] -= lij * xj;
+    }
+  }
+}
+
+// z = L^-T e_last by backward substitution, lane i ending with z_i; L is the
+// warp's shared (m1, LDS) array, read transposed (lane i reads L[k][i]).
+template <typename T>
+__device__ __forceinline__ T warp_backward_last(const T* ls, const T* invd, int m1, int lane) {
+  T acc = lane == m1 - 1 ? T(1) : T(0);
+  T z = T(0);
+  for (int k = m1 - 1; k >= 0; --k) {
+    const T zk = __shfl_sync(FULL_MASK, acc, k) * invd[k];
+    if (lane == k)
+      z = zk;
+    else if (lane < k)
+      acc -= ls[lane * LDS + k] * zk;
+  }
+  return z;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o /= 2) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// Points (warps) per thread block and its dynamic shared bytes, for a kernel
+// that needs `per_point` bytes for each: WARPS_MAX points, halved while the
+// block would need more than SMEM_DEFAULT; a block that still needs more (a
+// large d) opts in, which the launch refuses beyond the SM's 227 KB.
+inline cudaError_t plan_block(const void* kernel, size_t per_point, int* warps, size_t* bytes) {
+  int w = WARPS_MAX;
+  while (w > 1 && w * per_point > SMEM_DEFAULT) w /= 2;
+  *warps = w;
+  *bytes = w * per_point;
+  if (*bytes > SMEM_DEFAULT)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)*bytes);
+  return cudaSuccess;
+}
+
+// What plan_block chose, and the thread blocks of that size one SM holds
+// (registers, shared memory and warps together): out[0] warps per block,
+// out[1] shared bytes per block, out[2] blocks per SM.
+inline cudaError_t plan_report(const void* kernel, size_t per_point, int* out) {
+  int w;
+  size_t bytes;
+  cudaError_t err = plan_block(kernel, per_point, &w, &bytes);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, w * WARP, bytes);
+  out[0] = w;
+  out[1] = (int)bytes;
+  out[2] = blocks;
+  return err;
+}
+
+}  // namespace dgp

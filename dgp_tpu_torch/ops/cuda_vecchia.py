@@ -21,9 +21,11 @@ target, which decouples them exactly.
 
 Each public wrapper dispatches on the device of its tensors: a CPU tensor
 goes to the plain version (`*_plain`), a CUDA tensor to the kernel, and
-anything the kernel cannot take raises.  The library is built at first use
-into ``dgp_tpu_torch/_build/`` from the sources in the package; nothing is
-compiled or loaded when this module is imported.
+anything the kernel cannot take raises (shapes beyond its bounds before
+the device is looked at, then any device but the CPU and CUDA).  The
+library is built at first use into ``dgp_tpu_torch/_build/`` from the
+sources in the package; nothing is compiled or loaded when this module is
+imported.
 """
 import ctypes
 import hashlib
@@ -50,9 +52,6 @@ _BUILD = _PKG / "_build"
 #: most log-lengthscale lanes K1 differentiates (-DDGP_NLEN_MAX)
 NLEN_MAX = 8
 
-_SOURCES = ("cond_weights.cu", "block_loglik_multi.cu", "block_loglik_parts.cu",
-            "block_nllik_grad.cu")
-_HEADERS = ("vecchia_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                f"-DDGP_M1_MAX={M1_MAX}", f"-DDGP_NLEN_MAX={NLEN_MAX}")
@@ -82,10 +81,12 @@ def _nvcc():
 
 
 def _source_hash():
+    """Tag of the library: the flags and every source and header under
+    csrc/."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for name in _HEADERS + _SOURCES:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    for path in sorted(_CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -120,6 +121,7 @@ def build():
     if _lib is not None:
         return _lib
     tag = _source_hash()
+    sources = sorted(_CSRC.glob("*.cu"))
     so = _BUILD / f"libdgp_vecchia_{tag}.so"
     log = _BUILD / f"libdgp_vecchia_{tag}.ptxas.txt"
     seconds = 0.0
@@ -129,11 +131,11 @@ def build():
         nvcc = _nvcc()
         with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
             # one nvcc per source, all started together, then one link
-            objs = [os.path.join(tmpdir, src + ".o") for src in _SOURCES]
-            procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", str(_CSRC / src),
-                                       "-o", obj], stdout=subprocess.PIPE,
+            objs = [os.path.join(tmpdir, src.name + ".o") for src in sources]
+            procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", obj],
+                                      stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
-                     for src, obj in zip(_SOURCES, objs)]
+                     for src, obj in zip(sources, objs)]
             outs = [p.communicate()[0] for p in procs]
             if any(p.returncode != 0 for p in procs):
                 raise RuntimeError("nvcc failed:\n" + "\n".join(outs))
@@ -158,6 +160,9 @@ def build():
     lib.dgp_block_nllik_grad.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, vp]
     lib.dgp_block_nllik_grad.restype = ci
+    for fn in (lib.dgp_block_nllik_grad_plan, lib.dgp_block_loglik_multi_plan):
+        fn.argtypes = [ci, ci, ci, vp]
+        fn.restype = ci
     for fn in (lib.dgp_vecchia_m1_max, lib.dgp_vecchia_nlen_max):
         fn.argtypes = []
         fn.restype = ci
@@ -169,6 +174,27 @@ def build():
                       ptxas=parse_ptxas(log.read_text() if log.exists() else ""))
     _lib = lib
     return lib
+
+
+def _library():
+    """The loaded library, built at first use."""
+    return _lib if _lib is not None else build()
+
+
+def launch_plan(kname, dtype, m1, d):
+    """How the warp-per-block kernel ``kname`` (K1 "block_nllik_grad_parts_t"
+    or K2 "block_loglik_multi_t") launches at (m1, d) in ``dtype``: points
+    (warps) per thread block, its shared bytes, and the blocks and warps one
+    SM holds (registers, shared memory and warps together)."""
+    lib = _library()
+    fn = {"block_nllik_grad_parts_t": lib.dgp_block_nllik_grad_plan,
+          "block_loglik_multi_t": lib.dgp_block_loglik_multi_plan}[kname]
+    out = (ctypes.c_int * 3)()
+    err = fn(_DTYPE[dtype], m1, d, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{kname}: launch plan failed (cudaError {err})")
+    return {"warps_per_block": out[0], "shared_bytes": out[1],
+            "blocks_per_sm": out[2], "warps_per_sm": out[0] * out[2]}
 
 
 def _check_cuda(name, tensors, dtype, device):
@@ -279,20 +305,20 @@ def cond_weights_t(Xg, diag, *, name):
     blocks with (m1, n) diagonals."""
     if Xg.device.type == "cpu":
         return cond_weights_t_plain(Xg, diag, name=name)
-    if Xg.device.type != "cuda":
-        raise ValueError(f"cond_weights_t: unsupported device {Xg.device}")
     m1, d, n = Xg.shape
     if m1 > M1_MAX:
         raise ValueError(f"cond_weights_t: m1={m1} exceeds the kernel bound {M1_MAX}")
     if diag.shape != (m1, n):
         raise ValueError(f"cond_weights_t: diag shape {tuple(diag.shape)} != {(m1, n)}")
+    if Xg.device.type != "cuda":
+        raise ValueError(f"cond_weights_t: unsupported device {Xg.device}")
     _check_cuda("cond_weights_t", (Xg, diag), Xg.dtype, Xg.device)
     Xg, diag = Xg.contiguous(), diag.contiguous()
     w = torch.empty((m1 - 1, n), dtype=Xg.dtype, device=Xg.device)
     sigma = torch.empty((n,), dtype=Xg.dtype, device=Xg.device)
     if n == 0:
         return w, sigma
-    lib = build()
+    lib = _library()
     err = lib.dgp_cond_weights(_DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(),
                                diag.data_ptr(), w.data_ptr(), sigma.data_ptr(),
                                m1, d, n, _stream(Xg.device))
@@ -313,8 +339,6 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     if A.device.type == "cpu":
         return block_loglik_multi_t_plain(A, B, C, yg, diag, cosv, sinv,
                                           name=name, dl=dl)
-    if A.device.type != "cuda":
-        raise ValueError(f"block_loglik_multi_t: unsupported device {A.device}")
     m1, d, n = A.shape
     if dl is None:
         dl = d
@@ -328,6 +352,8 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     sinv = torch.as_tensor(sinv, dtype=A.dtype, device=A.device)
     if cosv.ndim != 1 or sinv.shape != cosv.shape:
         raise ValueError("block_loglik_multi_t: cosv and sinv must be (K,)")
+    if A.device.type != "cuda":
+        raise ValueError(f"block_loglik_multi_t: unsupported device {A.device}")
     K = cosv.shape[0]
     _check_cuda("block_loglik_multi_t", (A, B, C, yg, diag, cosv, sinv),
                 A.dtype, A.device)
@@ -337,7 +363,7 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     quad = torch.empty((K, n), dtype=A.dtype, device=A.device)
     if n == 0 or K == 0:
         return logdet, quad
-    lib = build()
+    lib = _library()
     err = lib.dgp_block_loglik_multi(
         _DTYPE[A.dtype], _KNAME[name], A.data_ptr(), B.data_ptr(), C.data_ptr(),
         yg.data_ptr(), diag.data_ptr(), cosv.data_ptr(), sinv.data_ptr(),
@@ -359,8 +385,6 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
     (K, n)."""
     if Xg.device.type == "cpu":
         return block_loglik_parts_t_plain(Xg, yg, diag, name=name)
-    if Xg.device.type != "cuda":
-        raise ValueError(f"block_loglik_parts_t: unsupported device {Xg.device}")
     if Xg.ndim not in (3, 4):
         raise ValueError("block_loglik_parts_t: Xg must be (m1, d, n) or (K, m1, d, n)")
     K, m1, d, n = (1,) + tuple(Xg.shape) if Xg.ndim == 3 else tuple(Xg.shape)
@@ -369,6 +393,8 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
     if yg.shape != diag.shape or tuple(yg.shape) not in ((m1, n), (K, m1, n)):
         raise ValueError("block_loglik_parts_t: yg and diag must both be (m1, n) "
                          "or (K, m1, n)")
+    if Xg.device.type != "cuda":
+        raise ValueError(f"block_loglik_parts_t: unsupported device {Xg.device}")
     _check_cuda("block_loglik_parts_t", (Xg, yg, diag), Xg.dtype, Xg.device)
     Xg, yg, diag = Xg.contiguous(), yg.contiguous(), diag.contiguous()
     out_shape = (n,) if Xg.ndim == 3 else (K, n)
@@ -376,7 +402,7 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
     quad = torch.empty(out_shape, dtype=Xg.dtype, device=Xg.device)
     if n == 0 or K == 0:
         return logdet, quad
-    lib = build()
+    lib = _library()
     err = lib.dgp_block_loglik_parts(
         _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(), diag.data_ptr(),
         logdet.data_ptr(), quad.data_ptr(), m1, d, n, K, int(yg.ndim == 2),
@@ -402,8 +428,6 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
         return block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, name=name,
                                               n_length=n_length,
                                               nugget_est=nugget_est)
-    if Xg.device.type != "cuda":
-        raise ValueError(f"block_nllik_grad_parts_t: unsupported device {Xg.device}")
     if Xg.ndim not in (3, 4):
         raise ValueError("block_nllik_grad_parts_t: Xg must be (G, m1, d, n) or (m1, d, n)")
     single = Xg.ndim == 3
@@ -420,6 +444,8 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
     if not (1 <= n_length <= NLEN_MAX and (n_length == 1 or n_length <= d)):
         raise ValueError(f"block_nllik_grad_parts_t: n_length={n_length} must be 1 "
                          f"or at most d={d} (and at most {NLEN_MAX})")
+    if Xg.device.type != "cuda":
+        raise ValueError(f"block_nllik_grad_parts_t: unsupported device {Xg.device}")
     _check_cuda("block_nllik_grad_parts_t", (Xg, yg, diag, dnug), Xg.dtype, Xg.device)
     Xg, yg, diag, dnug = (t.contiguous() for t in (Xg, yg, diag, dnug))
     npar = n_length + int(bool(nugget_est))
@@ -427,7 +453,7 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
     logdet, quad = torch.empty((G, n), **kw), torch.empty((G, n), **kw)
     dlogdet, dquad = torch.empty((G, npar, n), **kw), torch.empty((G, npar, n), **kw)
     if n > 0 and G > 0:
-        lib = build()
+        lib = _library()
         err = lib.dgp_block_nllik_grad(
             _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(),
             diag.data_ptr(), dnug.data_ptr(), logdet.data_ptr(), quad.data_ptr(),

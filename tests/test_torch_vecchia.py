@@ -4,9 +4,12 @@ XLA branch and the Pallas kernel in interpret mode), ancestral sampling
 with the same noise, Vecchia GP and linked-GP prediction, the K2 candidate
 evaluator, the K4 per-point parts and the K1 analytic gradient (each
 against its Pallas kernel in interpret mode), and the K1 objective
-against torch autograd of the port's own reference form.  Tolerances
-rtol 1e-9, atol 1e-12 for values and rtol 1e-7, atol 1e-10 for gradients,
-as in tests/test_pallas.py."""
+against torch autograd of the port's own reference form; the K1 and K2
+cases include the edges of the warp kernels' mapping (m1 = 32 and 2,
+ragged n, K = 1, dl = 0, d = 5).  Also: the wrappers refuse shapes beyond
+the kernels' bounds before any build, and the library's tag covers every
+source under csrc/.  Tolerances rtol 1e-9, atol 1e-12 for values and rtol
+1e-7, atol 1e-10 for gradients, as in tests/test_pallas.py."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -176,10 +179,17 @@ def _multi_inputs(dl, dg, seed=11, m1=6, n=300, K=7):
     return A, B, C, yg, diag, np.cos(ang), np.sin(ang)
 
 
+# (dl, dg, m1, n, K): the slice's two layouts, then the edges of the warp
+# kernel's mapping: a full warp (m1 = 32) at a ragged n, a two-row block
+# with one candidate, and no static dims (dl = 0: every dim is built from
+# the candidate)
 @pytest.mark.parametrize("name", ["sexp", "matern2.5"])
-@pytest.mark.parametrize("dl,dg", [(1, 1), (2, 0)])
-def test_block_loglik_multi_plain_matches_pallas(name, dl, dg):
-    args = _multi_inputs(dl, dg)
+@pytest.mark.parametrize("dl,dg,m1,n,K", [(1, 1, 6, 300, 7), (2, 0, 6, 300, 7),
+                                          (1, 1, 32, 301, 3), (2, 0, 2, 37, 1),
+                                          (0, 2, 6, 300, 7)],
+                         ids=["1-1", "2-0", "1-1-m32-n301-K3", "2-0-m2-n37-K1", "0-2"])
+def test_block_loglik_multi_plain_matches_pallas(name, dl, dg, m1, n, K):
+    args = _multi_inputs(dl, dg, m1=m1, n=n, K=K)
     ld_t, q_t = cv.block_loglik_multi_t(*(_t(a) for a in args), name=name, dl=dl)
     ld_j, q_j = pv.block_loglik_multi_t(*(jnp.asarray(a) for a in args), name=name,
                                         dl=dl)
@@ -204,29 +214,88 @@ def test_kernel_wrappers_refuse_other_devices():
                                     nugget_est=True)
 
 
-def _grad_blocks(n_length, seed):
+def _meta(*shape):
+    return torch.empty(shape, device='meta', dtype=torch.float64)
+
+
+@pytest.mark.parametrize("case", ["K1-m1", "K2-m1", "K3-m1", "K4-m1", "K1-nlen-max",
+                                  "K1-nlen-d"])
+def test_kernel_wrappers_refuse_unsupported_shapes_before_build(case, monkeypatch):
+    """Shapes beyond the kernels' bounds (m1 > M1_MAX = 32, more length
+    lanes than NLEN_MAX or than dims) raise before any library is built or
+    loaded."""
+    def no_build(*a, **k):
+        raise AssertionError("the kernel library was built")
+    monkeypatch.setattr(cv, "build", no_build)
+    monkeypatch.setattr(cv, "_lib", None)
+    m1 = cv.M1_MAX + 1 if case.endswith("m1") else 8
+    d = cv.NLEN_MAX + 1 if case == "K1-nlen-max" else 2
+    n_length = {"K1-nlen-max": cv.NLEN_MAX + 1, "K1-nlen-d": 3}.get(case, 2)
+    X, v = _meta(m1, d, 16), _meta(m1, 16)
+    calls = {
+        "K1": lambda: cv.block_nllik_grad_parts_t(X, v, v, v, name='sexp',
+                                                  n_length=n_length, nugget_est=True),
+        "K2": lambda: cv.block_loglik_multi_t(X, X, X, v, v, [1.0], [0.0], name='sexp'),
+        "K3": lambda: cv.cond_weights_t(X, v, name='sexp'),
+        "K4": lambda: cv.block_loglik_parts_t(X, v, v, name='sexp'),
+    }
+    with pytest.raises(ValueError, match="kernel bound" if case.endswith("m1") else "n_length"):
+        calls[case[:2]]()
+
+
+def test_build_tag_covers_every_source(tmp_path, monkeypatch):
+    """The library's tag changes when any source or header under csrc/
+    changes and when a file is added; nothing is built."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cv._CSRC, csrc)
+    monkeypatch.setattr(cv, "_CSRC", csrc)
+    base = cv._source_hash()
+    files = sorted(csrc.glob("*.cu*"))
+    assert {f.suffix for f in files} == {".cu", ".cuh"}
+    for f in files:
+        text = f.read_text()
+        f.write_text(text + "\n// edit\n")
+        assert cv._source_hash() != base, f.name
+        f.write_text(text)
+        assert cv._source_hash() == base
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert cv._source_hash() != base
+    (csrc / "extra.cuh").unlink()
+    assert cv._source_hash() == base
+
+
+def _grad_blocks(n_length, seed, n=70, m=9, d=2):
     """K1 inputs from a real NN structure (its first rows have padded,
     sentinel-encoded lanes), built by the JAX package's own gather and
     per-evaluation transform."""
-    X, y, NN = _setup(n=70, d=2, m=9, seed=seed)
+    X, y, NN = _setup(n=n, d=d, m=m, seed=seed)
     nd = np.random.RandomState(seed).uniform(0.5, 1.0, X.shape[0])
-    length = np.array([0.5] if n_length == 1 else [0.5, 0.8]) * (1 + 0.3 * seed)
+    length = (np.array([0.5]) if n_length == 1 else np.linspace(0.5, 0.8, d)) * (1 + 0.3 * seed)
     nugget = 2e-3 * (1 + seed)
     raw = pv.gather_raw_t(jnp.asarray(X), jnp.asarray(y), jnp.asarray(NN),
                           jnp.asarray(nd))
-    full_len = np.broadcast_to(length, (2,))
+    full_len = np.broadcast_to(length, (d,))
     Xg, diag, dnug = pv.scale_blocks_t(raw[0], raw[2], raw[3], jnp.asarray(full_len),
                                        nugget, 0.0)
     return tuple(np.asarray(a) for a in (Xg, raw[1], diag, dnug))
 
 
+# (nugget_est, n_length, (n, m, d)): the four lane layouts at the default
+# shape, then the edges of the warp kernel's mapping: a full warp (m1 = 32)
+# at a ragged n, a two-row block, and five dims each with its own lane
 @pytest.mark.parametrize("name", ["sexp", "matern2.5"])
-@pytest.mark.parametrize("n_length", [1, 2])
-@pytest.mark.parametrize("nugget_est", [True, False])
-def test_block_nllik_grad_plain_matches_pallas(name, n_length, nugget_est):
+@pytest.mark.parametrize("nugget_est,n_length,shape",
+                         [(True, 1, (70, 9, 2)), (True, 2, (70, 9, 2)),
+                          (False, 1, (70, 9, 2)), (False, 2, (70, 9, 2)),
+                          (True, 2, (71, 31, 2)), (True, 2, (37, 1, 2)),
+                          (True, 5, (70, 9, 5))],
+                         ids=["True-1", "True-2", "False-1", "False-2", "True-2-m32-n71",
+                              "True-2-m2-n37", "True-5-d5"])
+def test_block_nllik_grad_plain_matches_pallas(name, n_length, nugget_est, shape):
     """K1's plain version against the Pallas gradient kernel, with a
     leading node axis of two parameter settings (one launch on the card)."""
-    groups = [_grad_blocks(n_length, seed) for seed in (0, 1)]
+    groups = [_grad_blocks(n_length, seed, *shape) for seed in (0, 1)]
     kw = dict(name=name, n_length=n_length, nugget_est=nugget_est)
     stacked = [_t(np.stack([g[i] for g in groups])) for i in range(4)]
     out_t = cv.block_nllik_grad_parts_t(*stacked, **kw)
