@@ -8,7 +8,9 @@ Phases, each printing its results (and its seconds) as one JSON line:
             gives them.
   build     build the hand-written kernels from dgp_tpu_torch/csrc with nvcc
             for sm_90a (one nvcc per source, in parallel); print the build
-            seconds and ptxas's registers, stack and spill counts.
+            seconds, ptxas's registers, stack and spill counts, and the
+            launch plan of all four kernels at m1 = 26, d = 2 (points per
+            thread block, its shared bytes, blocks and warps per SM).
   kernels   run each kernel and its plain PyTorch version on the card at the
             shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
             with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
@@ -18,14 +20,17 @@ Phases, each printing its results (and its seconds) as one JSON line:
             each other; time kernel, plain version and the batched
             torch.linalg.cholesky_ex of the same blocks (CUDA events around
             10 calls back to back, median of 20; the kernel and the library
-            call also as one call alone), and compute each kernel's least
-            time on the card.  Then the edges of the warp-per-block kernels
-            K1 and K2 on well-conditioned random blocks: a full warp
-            (m1 = 32) at a ragged n (2001), a two-row block at an n below one
-            thread block's points, G = 1, K = 1, dl = 0, d = 5 with 5 length
-            lanes, K2 at d = 3 with dl = 1 and sentinel lanes, and blocks
-            with a non-positive pivot, which must come out NaN where the
-            plain version's do.
+            call also as one call alone) at those shapes (K2 at dl=1 only,
+            K4 also with its 9 candidates), and compute each kernel's least
+            time on the card.  Then the edges of the warp-per-block mapping
+            of all four kernels on well-conditioned random blocks: a full
+            warp (m1 = 32) at a ragged n (2001), a two-row block at an n
+            below one thread block's points, d = 5 (K1 with 5 length lanes;
+            K3 and K4 without sentinel lanes), G = 1 (K1), K = 1 and dl = 0
+            (K2), K2 at d = 3 with dl = 1 and sentinel lanes, K4 with 9
+            candidates sharing one target and diagonal or each with its own,
+            and blocks with a non-positive pivot, which must come out NaN
+            where the plain version's do.
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -168,22 +173,10 @@ def phase_build():
     t0 = time.perf_counter()
     cv.build()
     plans = {f"{dt}/{k}": cv.launch_plan(k, getattr(torch, dt), M_TRAIN + 1, 2)
-             for dt in ("float64", "float32")
-             for k in ("block_nllik_grad_parts_t", "block_loglik_multi_t")}
-    ptxas = [dict(p, warps_per_sm_by_registers=_warps_by_registers(p["registers"]))
-             for p in cv.build_info["ptxas"]]
+             for dt in ("float64", "float32") for k in SOURCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cv.build_info["seconds"],
-          "ptxas": ptxas, "launch_plans_m1_26_d2": plans})
-
-
-def _warps_by_registers(regs, block_warps=4):
-    """Warps one H100 SM holds for a kernel of ``regs`` registers a thread
-    in blocks of ``block_warps`` warps (K3 and K4: 128 threads), from the
-    registers alone: 65536 a SM, allocated per warp in units of 256, at
-    most 64 warps."""
-    per_warp = -(-regs * 32 // 256) * 256
-    return min(64, 65536 // per_warp // block_warps * block_warps)
+          "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans})
 
 
 def _slice_inputs(dtype, device, nugget):
@@ -333,34 +326,51 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
     return rows + [row32]
 
 
-# Edges of the warp-per-block mapping of K1 and K2.  K1: (m1, n, G, d,
-# n_length, nugget_est); K2: (m1, n, d, dl, K).
+# Edges of the warp-per-block mapping.  K1: (m1, n, G, d, n_length,
+# nugget_est); K2: (m1, n, d, dl, K); K3: (m1, n, d); K4: (m1, n, d, K,
+# targets) with K = 0 for no candidate axis and the targets and diagonals
+# "shared" by all candidates ((m1, n)) or each candidate's "own" ((K, m1, n)).
 EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True))
 EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3))
+EDGE_K3 = ((32, 2001, 2), (2, 3, 2), (26, 2001, 5))
+EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, "shared"),
+           (26, 2001, 2, 9, "shared"), (26, 2001, 2, 9, "own"))
 NAN_K1 = (26, 300, 2, 2, 2, True)
 NAN_K2 = (26, 300, 2, 1, 3)
+NAN_K3 = (26, 300, 2)
+NAN_K4 = (26, 300, 2, 3, "own")
+EDGES = (("block_nllik_grad_parts_t", EDGE_K1, NAN_K1), ("block_loglik_multi_t", EDGE_K2, NAN_K2),
+         ("cond_weights_t", EDGE_K3, NAN_K3), ("block_loglik_parts_t", EDGE_K4, NAN_K4))
 
 
 def _edge_inputs(kname, shape, seed, bad=False):
-    """Well-conditioned random blocks (float64 numpy) for K1 or K2 at an edge
-    shape: coordinates in [-2, 2] (pre-scaled), 15% sentinel lanes (none
-    where a correlation factor spans more than 2 dims), nugget 0.1.  With
-    ``bad``, every 7th point's block gets a non-positive pivot (diagonal 0
-    in the middle row, or -1 in the first)."""
+    """Well-conditioned random blocks (float64 numpy) for a kernel at an
+    edge shape: coordinates in [-2, 2] (pre-scaled), 15% sentinel lanes
+    (none where a correlation factor spans more than 2 dims), nugget 0.1.
+    With ``bad``, every 7th point's block gets a non-positive pivot
+    (diagonal 0 in the middle row, or -1 in the first)."""
     rs = np.random.RandomState(seed)
+    xlead = ()                               # leading axes of K3/K4's X
     if kname == "block_nllik_grad_parts_t":
         m1, n, G, d = shape[:4]
         lead = (G,)
         wide = d
-    else:
+    elif kname == "block_loglik_multi_t":
         m1, n, d, dl = shape[:4]
         lead = ()
         dlc = d if dl == 0 or dl >= d else dl
         wide = max(dlc, d - dlc)
-    # K1's correlation is one product over all d dims, K2's two, split at dl
-    # (the d = 3, dl = 1 case: 1 + 2 dims).  In float32, Matern-2.5's
-    # product of per-dim factors at a sentinel distance overflows over 3
-    # dims (inf * 0 = NaN), in the plain version as in the kernel
+    else:
+        m1, n, d = shape[:3]
+        if kname == "block_loglik_parts_t" and shape[3]:
+            xlead = (shape[3],)
+        lead = xlead if kname == "block_loglik_parts_t" and shape[4] == "own" else ()
+        wide = d
+    # K1, K3 and K4 build one correlation factor over all d dims, K2 two,
+    # split at dl (the d = 3, dl = 1 case: 1 + 2 dims).  In float32,
+    # Matern-2.5's product of per-dim factors at a sentinel distance
+    # overflows over 3 dims (inf * 0 = NaN), in the plain version as in the
+    # kernel
     valid = rs.uniform(size=lead + (m1, n)) > (0.15 if wide <= 2 else 0.0)
     valid[..., -1, :] = True
     sent = 1e7 + np.arange(n)[None, :] * 1e3 + np.arange(m1)[:, None] * 7e2
@@ -373,6 +383,10 @@ def _edge_inputs(kname, shape, seed, bad=False):
         X = rs.uniform(-2, 2, lead + (m1, d, n))
         X = np.where(valid[..., :, None, :], X, sent[:, None, :])
         return X, y, diag, np.where(valid, 0.1, 0.0)
+    if kname in ("cond_weights_t", "block_loglik_parts_t"):
+        X = rs.uniform(-2, 2, xlead + (m1, d, n))
+        X = np.where(valid[..., :, None, :], X, sent[:, None, :])
+        return (X, diag) if kname == "cond_weights_t" else (X, y, diag)
     K = shape[4]
     A = np.zeros((m1, d, n))
     B = np.zeros((m1, d, n))
@@ -390,20 +404,20 @@ def _edge_inputs(kname, shape, seed, bad=False):
 def _edge_kw(kname, shape, name):
     if kname == "block_nllik_grad_parts_t":
         return {"name": name, "n_length": shape[4], "nugget_est": shape[5]}
-    return {"name": name, "dl": shape[3]}
+    if kname == "block_loglik_multi_t":
+        return {"name": name, "dl": shape[3]}
+    return {"name": name}
 
 
 def _compare_edges(dev):
-    """K1 and K2 against their plain versions at the edge shapes, float64
+    """Each kernel against its plain version at the edge shapes, float64
     per value and float32 against the float64 plain version, and the NaN
     pattern of blocks with a non-positive pivot."""
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     rows = []
-    cases = ([("block_nllik_grad_parts_t", s, False) for s in EDGE_K1]
-             + [("block_nllik_grad_parts_t", NAN_K1, True)]
-             + [("block_loglik_multi_t", s, False) for s in EDGE_K2]
-             + [("block_loglik_multi_t", NAN_K2, True)])
+    cases = [(kname, s, bad) for kname, edges, nan in EDGES
+             for s, bad in [(s, False) for s in edges] + [(nan, True)]]
     for name in ("sexp", "matern2.5"):
         for seed, (kname, shape, bad) in enumerate(cases):
             kern = getattr(cv, kname)
@@ -533,19 +547,20 @@ def phase_kernels(dev):
         if not r["ok"]:
             failures.append(r)
     # times at the main path's configuration (sexp; K2 with K=9, dl=1; K4
-    # as the single (26, 2, 2000) call)
+    # as the single (26, 2, 2000) call and with its 9 candidates); the
+    # summary line takes each kernel's case of its own name
     timing = {}
     for dt, ins in (("float64", in64), ("float32", in32)):
-        for kname, _, kw in cases:
-            if (dt, kname) in timing:
+        for kname, case, kw in cases:
+            if case == "block_loglik_multi_t/dl=d":
                 continue
             kern = getattr(cv, kname)
             plain = getattr(cv, kname + "_plain")
             kw = dict(kw, name="sexp")
-            args = ins[kname]
+            args = ins[case]
             blocks = _blocks_of(kname, args)
             bound, by = _bound_ms(kname, args, dt)
-            timing[(dt, kname)] = {
+            timing[f"{dt}/{case}"] = {
                 "ms": cuda_ms(lambda: kern(*args, **kw)),
                 "ms_one_call": cuda_ms(lambda: kern(*args, **kw), inner=1),
                 "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
@@ -555,10 +570,8 @@ def phase_kernels(dev):
                 "bound_ms": bound, "bound_by": by,
                 "shape": list(args[0].shape)}
     for kname in results:
-        results[kname].update(timing[("float64", kname)])
-    emit({"phase": "kernels", "timing_ms": {f"{dt}/{k}": v
-                                            for (dt, k), v in timing.items()},
-          "seconds": time.perf_counter() - t0})
+        results[kname].update(timing["float64/" + kname])
+    emit({"phase": "kernels", "timing_ms": timing, "seconds": time.perf_counter() - t0})
     if failures:
         raise SystemExit(f"kernel comparisons failed: {len(failures)}")
     return results

@@ -97,7 +97,7 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   warp_build<T, KN>(x, live ? dgs[me] : T(0), ls, m1, d, d, lane);
   T ly = live ? ys[me] : T(0);
   const T lii = warp_cholesky(ls, ls + m1 * LDS, invd, ly, m1, lane);
-  const T z = warp_backward_last(ls, invd, m1, lane);
+  const T z = warp_backward(ls, invd, lane == m1 - 1 ? T(1) : T(0), m1, lane);   // L^-T e_last
   const T yl = __shfl_sync(FULL_MASK, ly, m1 - 1);
   if (lane == m1 - 1) {
     logdet[(long long)g * n + p] = T(2) * d_log(lii);

@@ -9,66 +9,118 @@
 //
 // What bounds it on an H100: per point it reads m1*(d+1) values and writes
 // m1, about 0.6 KB at the slice's m1 = 26, d = 1 in float64, against about
-// m1^3/6 + m1^2 ~ 3.6k fused multiply-adds and m1^2/2 exponentials.  That
-// is near the card's float64 ridge for device-memory traffic, but the real
-// limit is elsewhere: the factor's 351 values live in per-thread local
-// memory, and each of the ~2.9k Cholesky updates reads two of them, so the
-// kernel is bound by L1/L2 traffic and latency, and at the slice's n = 2000
-// it runs only 2000 threads (16 blocks on 132 SMs).
+// m1^3/6 + m1^2 ~ 3.6k fused multiply-adds and m1^2/2 exponentials.
+// Neither bytes nor operations bound it: the factorisation and the backward
+// substitution are chains of m1 dependent steps across the lanes (a
+// shuffle, a reciprocal square root or a reciprocal multiply, the update),
+// and at n = 2000 the 2000 chains fit on the card at once, so one call
+// lasts about one point's two chains plus the launch.
 //
-// What the design does about it: one thread per point keeps every global
-// read coalesced and needs no synchronisation; the correlation columns are
-// built on the fly (no block-matrix scratch in device memory), and only the
-// outputs are written.  Keeping L in registers or shared memory, and more
-// threads per point, are for the PRs that make this kernel fast.
-#include "vecchia_common.cuh"
+// What the design does about it (vecchia_warp.cuh): one warp per point.  The
+// block's correlations are spread evenly over the 32 lanes (one product
+// over all d dims, as in the TPU kernel); the column Cholesky runs across
+// the lanes, each lane's unfactored row in registers, and leaves L and
+// 1 / L[j][j] in the warp's shared memory; the backward substitution reads
+// L transposed, lane i starting from L[m1-1][i], as the TPU kernel solves
+// it directly.  A thread block stages the X and diag tiles of its P points
+// (coalesced), collects its points' weights in shared memory and writes
+// them back with consecutive threads on consecutive points.
+#include "vecchia_warp.cuh"
 
 namespace dgp {
 
+// the warp's shared values: its block and 1 / L[j][j]
+__host__ __device__ inline int condw_warp_scratch(int m1) { return block_scratch(m1) + M1_MAX; }
+
+// shared values of one point: its X tile, diag, weights and the warp's scratch
+__host__ __device__ inline int condw_per_point(int m1, int d) {
+  return m1 * d + m1 + (m1 - 1) + condw_warp_scratch(m1);
+}
+
 template <typename T, int KN>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(WARP * WARPS_MAX)
 cond_weights_kernel(const T* __restrict__ Xg, const T* __restrict__ diag, T* __restrict__ w,
                     T* __restrict__ sigma, int m1, int d, int n) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  T L[TRI_MAX];
-  const PlainCoords<T> x{Xg, d, n, p};
-  const auto col = [&](int i, int j) { return corr<T, KN>(x, i, j, 0, d); };
-  column_cholesky<T>(col, diag, n, p, m1, L);
-  backward_last_row<T>(L, w, n, p, m1);
-  sigma[p] = L[tri(m1 - 1, m1 - 1)];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int P = blockDim.x / WARP;
+  const int warp = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  const int p0 = blockIdx.x * P;
+  const int m = m1 - 1;
+  T* Xs = sm;
+  T* ds = Xs + m1 * d * P;
+  T* ws = ds + m1 * P;                                     // (P, m)
+  T* ls = ws + m * P + warp * condw_warp_scratch(m1);      // (m1, LDS)
+  T* invd = ls + block_scratch(m1);
+  stage(Xg, Xs, m1, d, n, p0, P);
+  stage(diag, ds, m1, 1, n, p0, P);
+  __syncthreads();
+
+  const int p = p0 + warp;
+  if (p < n) {
+    const TileCoords<T> x{Xs + warp * m1 * d, d};
+    warp_build<T, KN>(x, lane < m1 ? ds[warp * m1 + lane] : T(0), ls, m1, d, d, lane);
+    T b = T(0);                          // no right-hand side rides along
+    const T lii = warp_cholesky(ls, ls + m1 * LDS, invd, b, m1, lane);
+    // L[m1-1][lane] sits at (m1-1, lane)
+    const T wi = warp_backward(ls, invd, lane < m ? ls[lane * LDS + m] : T(0), m, lane);
+    if (lane < m) ws[warp * m + lane] = wi;
+    if (lane == m) sigma[p] = lii;
+  }
+  __syncthreads();
+  unstage(ws, w, m, n, p0, P);
+}
+
+template <typename T, int KN>
+static int launch_kn(const T* x, const T* dg, T* wo, T* so, int m1, int d, int n,
+                     cudaStream_t stream) {
+  const auto kern = cond_weights_kernel<T, KN>;
+  int P;
+  size_t bytes;
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * condw_per_point(m1, d), &P,
+                                     &bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(n + P - 1) / P, P * WARP, bytes, stream>>>(x, dg, wo, so, m1, d, n);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-static void launch(int kname, const void* Xg, const void* diag, void* w, void* sigma, int m1,
-                   int d, int n, cudaStream_t stream) {
-  const dim3 grid(blocks_for(n));
+static int launch(int kname, const void* Xg, const void* diag, void* w, void* sigma, int m1,
+                  int d, int n, cudaStream_t stream) {
   const auto* x = static_cast<const T*>(Xg);
   const auto* dg = static_cast<const T*>(diag);
   auto* wo = static_cast<T*>(w);
   auto* so = static_cast<T*>(sigma);
-  if (kname == SEXP)
-    cond_weights_kernel<T, SEXP><<<grid, THREADS, 0, stream>>>(x, dg, wo, so, m1, d, n);
-  else
-    cond_weights_kernel<T, MATERN25><<<grid, THREADS, 0, stream>>>(x, dg, wo, so, m1, d, n);
+  if (kname == SEXP) return launch_kn<T, SEXP>(x, dg, wo, so, m1, d, n, stream);
+  return launch_kn<T, MATERN25>(x, dg, wo, so, m1, d, n, stream);
 }
 
 }  // namespace dgp
 
 // dtype: 0 float32, 1 float64.  kname: 0 sexp, 1 matern2.5.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int dgp_cond_weights(int dtype, int kname, const void* Xg, const void* diag, void* w,
                                 void* sigma, int m1, int d, int n, void* stream) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1 || n < 1 || (kname != 0 && kname != 1))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dgp::launch<double>(kname, Xg, diag, w, sigma, m1, d, n, s);
+  if (dtype == 0) return dgp::launch<float>(kname, Xg, diag, w, sigma, m1, d, n, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch plan of the sexp kernel at (m1, d): out[0] points (warps) per
+// thread block, out[1] its shared bytes, out[2] blocks resident per SM.
+extern "C" int dgp_cond_weights_plan(int dtype, int m1, int d, int* out) {
+  if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    dgp::launch<double>(kname, Xg, diag, w, sigma, m1, d, n, s);
-  else if (dtype == 0)
-    dgp::launch<float>(kname, Xg, diag, w, sigma, m1, d, n, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)dgp::plan_report((const void*)dgp::cond_weights_kernel<double, dgp::SEXP>,
+                                 sizeof(double) * dgp::condw_per_point(m1, d), out);
+  if (dtype == 0)
+    return (int)dgp::plan_report((const void*)dgp::cond_weights_kernel<float, dgp::SEXP>,
+                                 sizeof(float) * dgp::condw_per_point(m1, d), out);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dgp_vecchia_m1_max() { return dgp::M1_MAX; }

@@ -1,13 +1,15 @@
 // Warp-level device code of the Vecchia block kernels K1
-// (block_nllik_grad.cu) and K2 (block_loglik_multi.cu): one warp factors one
-// block, lane i owning row i (m1 <= M1_MAX <= 32; what lanes >= m1 compute
-// is never read).
+// (block_nllik_grad.cu), K2 (block_loglik_multi.cu), K3 (cond_weights.cu)
+// and K4 (block_loglik_parts.cu): one warp factors one block, lane i owning
+// row i (m1 <= M1_MAX <= 32; what lanes >= m1 compute is never read).
 //
 // Staging.  The JAX layout puts the point axis last, so the lanes of a warp
 // that each read one row of the same point would read at stride n.  A thread
 // block therefore serves P consecutive points (one warp each) and first copies
 // their tiles into shared memory, consecutive threads reading consecutive
-// points (`stage`); a point's tile keeps its (m1, d) layout there.
+// points (`stage`); a point's tile keeps its (m1, d) layout there.  An
+// output with one value per row (K3's weights) goes back the same way
+// (`unstage`).
 //
 // The block.  `warp_build` writes it into the warp's shared (m1, LDS) array,
 // element (r, c) at c * LDS + r: the m1 (m1 - 1) / 2 correlations below the
@@ -84,6 +86,20 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, T* dst, int nro
   const int total = nrows * d;
   for (int rt = threadIdx.x / P; rt < total; rt += WARP)
     dst[w * total + rt] = p < n ? src[(long long)rt * n + p] : T(0);
+}
+
+// The reverse of `stage` for one value per row: copies src laid out
+// (P, nrows) to rows 0 .. nrows-1 of points p0 .. p0+P-1 of a (nrows, n)
+// array, consecutive threads writing consecutive points; points past n are
+// not written.
+template <typename T>
+__device__ __forceinline__ void unstage(const T* src, T* __restrict__ dst, int nrows, int n,
+                                        int p0, int P) {
+  const int w = threadIdx.x % P;
+  const int p = p0 + w;
+  if (p >= n) return;
+  for (int r = threadIdx.x / P; r < nrows; r += WARP)
+    dst[(long long)r * n + p] = src[w * nrows + r];
 }
 
 // Writes the warp's block into its shared (m1, LDS) array `ls`: corr(i, k)
@@ -175,13 +191,13 @@ __device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[
   }
 }
 
-// z = L^-T e_last by backward substitution, lane i ending with z_i; L is the
-// warp's shared (m1, LDS) array, read transposed (lane i reads L[k][i]).
+// Backward substitution L_m^T z = r with L_m the leading (m, m) block of the
+// warp's shared (m1, LDS) array, read transposed (lane i reads L[k][i]), and
+// 1 / L[j][j] in invd: lane i brings r_i (i < m) as `acc` and ends with z_i.
 template <typename T>
-__device__ __forceinline__ T warp_backward_last(const T* ls, const T* invd, int m1, int lane) {
-  T acc = lane == m1 - 1 ? T(1) : T(0);
+__device__ __forceinline__ T warp_backward(const T* ls, const T* invd, T acc, int m, int lane) {
   T z = T(0);
-  for (int k = m1 - 1; k >= 0; --k) {
+  for (int k = m - 1; k >= 0; --k) {
     const T zk = __shfl_sync(FULL_MASK, acc, k) * invd[k];
     if (lane == k)
       z = zk;

@@ -160,7 +160,8 @@ def build():
     lib.dgp_block_nllik_grad.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, ci, vp]
     lib.dgp_block_nllik_grad.restype = ci
-    for fn in (lib.dgp_block_nllik_grad_plan, lib.dgp_block_loglik_multi_plan):
+    for fn in (lib.dgp_block_nllik_grad_plan, lib.dgp_block_loglik_multi_plan,
+               lib.dgp_cond_weights_plan, lib.dgp_block_loglik_parts_plan):
         fn.argtypes = [ci, ci, ci, vp]
         fn.restype = ci
     for fn in (lib.dgp_vecchia_m1_max, lib.dgp_vecchia_nlen_max):
@@ -182,13 +183,15 @@ def _library():
 
 
 def launch_plan(kname, dtype, m1, d):
-    """How the warp-per-block kernel ``kname`` (K1 "block_nllik_grad_parts_t"
-    or K2 "block_loglik_multi_t") launches at (m1, d) in ``dtype``: points
-    (warps) per thread block, its shared bytes, and the blocks and warps one
-    SM holds (registers, shared memory and warps together)."""
+    """How the kernel ``kname`` (the name of its wrapper, e.g.
+    "cond_weights_t") launches at (m1, d) in ``dtype``: points (warps) per
+    thread block, its shared bytes, and the blocks and warps one SM holds
+    (registers, shared memory and warps together)."""
     lib = _library()
     fn = {"block_nllik_grad_parts_t": lib.dgp_block_nllik_grad_plan,
-          "block_loglik_multi_t": lib.dgp_block_loglik_multi_plan}[kname]
+          "block_loglik_multi_t": lib.dgp_block_loglik_multi_plan,
+          "cond_weights_t": lib.dgp_cond_weights_plan,
+          "block_loglik_parts_t": lib.dgp_block_loglik_parts_plan}[kname]
     out = (ctypes.c_int * 3)()
     err = fn(_DTYPE[dtype], m1, d, ctypes.cast(out, ctypes.c_void_p))
     if err != 0:

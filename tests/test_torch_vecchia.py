@@ -2,11 +2,12 @@
 dgp_tpu: neighbour sets (exactly), conditional weights (against both the
 XLA branch and the Pallas kernel in interpret mode), ancestral sampling
 with the same noise, Vecchia GP and linked-GP prediction, the K2 candidate
-evaluator, the K4 per-point parts and the K1 analytic gradient (each
-against its Pallas kernel in interpret mode), and the K1 objective
-against torch autograd of the port's own reference form; the K1 and K2
-cases include the edges of the warp kernels' mapping (m1 = 32 and 2,
-ragged n, K = 1, dl = 0, d = 5).  Also: the wrappers refuse shapes beyond
+evaluator, the K4 per-point parts, the K3 weights on given blocks and
+the K1 analytic gradient (each against its Pallas kernel in interpret
+mode), and the K1 objective against torch autograd of the port's own
+reference form; the cases of all four include the edges of the warp
+kernels' mapping (m1 = 32 and 2, ragged n, d = 5; K = 1 and dl = 0 for K2;
+candidates with their own targets and diagonals for K4).  Also: the wrappers refuse shapes beyond
 the kernels' bounds before any build, and the library's tag covers every
 source under csrc/.  Tolerances rtol 1e-9, atol 1e-12 for values and rtol
 1e-7, atol 1e-10 for gradients, as in tests/test_pallas.py."""
@@ -331,6 +332,57 @@ def test_block_loglik_parts_plain_matches_pallas(name):
         _close(cand[0][c], ref[0])
         _close(cand[1][c], ref[1])
     assert cv.block_loglik_parts_t.launches == 0
+
+
+def _edge_blocks(n, m, d, seed, nugget=1e-3):
+    """(Xg, yg, diag) from a real NN structure (its first rows have padded,
+    sentinel-encoded lanes), built by the JAX package's own gather."""
+    X, y, NN = _setup(n=n, d=d, m=m, seed=seed)
+    nd = np.random.RandomState(seed).uniform(0.5, 1.0, n)
+    out = pv.gather_scale_t(jnp.asarray(X), jnp.asarray(y), jnp.asarray(NN),
+                            jnp.asarray(np.linspace(0.4, 0.7, d)), nugget,
+                            jnp.asarray(nd), 0.0)
+    return tuple(np.asarray(a) for a in out)
+
+
+# (n, m, d): the edges of the warp kernels' mapping: a full warp (m1 = 32) at
+# a ragged n, a two-row block, and five dims
+EDGE_SHAPES = dict(argvalues=[(71, 31, 2), (37, 1, 2), (70, 9, 5)],
+                   ids=["m32-n71", "m2-n37", "d5"])
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+@pytest.mark.parametrize("n,m,d", **EDGE_SHAPES)
+def test_cond_weights_plain_matches_pallas(name, n, m, d):
+    """K3's plain version against the Pallas kernel on the same blocks."""
+    Xg, _, diag = _edge_blocks(n, m, d, seed=12)
+    w_t, s_t = cv.cond_weights_t(_t(Xg), _t(diag), name=name)
+    w_j, s_j = _jit(pv.cond_weights_t, 'name')(jnp.asarray(Xg), jnp.asarray(diag), name=name)
+    assert w_t.shape == (m, n)
+    _close(w_t, w_j)
+    _close(s_t, s_j)
+    assert cv.cond_weights_t.launches == 0  # CPU tensors: plain version
+
+
+@pytest.mark.parametrize("name", ["sexp", "matern2.5"])
+@pytest.mark.parametrize("n,m,d", **EDGE_SHAPES)
+def test_block_loglik_parts_plain_matches_pallas_at_edges(name, n, m, d):
+    """K4's plain version against the Pallas kernel at the edges, alone and
+    with a leading axis of three candidates that each bring their own
+    targets and diagonal ((K, m1, n)), one call against three."""
+    cands = [_edge_blocks(n, m, d, seed=13 + k, nugget=1e-3 * (1 + k)) for k in range(3)]
+    ref = _jit(pv.block_loglik_parts_t, 'name')
+    refs = [ref(*(jnp.asarray(a) for a in b), name=name) for b in cands]
+    one = cv.block_loglik_parts_t(*(_t(a) for a in cands[0]), name=name)
+    _close(one[0], refs[0][0])
+    _close(one[1], refs[0][1])
+    stacked = [_t(np.stack([b[i] for b in cands])) for i in range(3)]
+    out = cv.block_loglik_parts_t(*stacked, name=name)
+    assert out[0].shape == (3, n)
+    for c, r in enumerate(refs):
+        _close(out[0][c], r[0])
+        _close(out[1][c], r[1])
+    assert cv.block_loglik_parts_t.launches == 0  # CPU tensors: plain version
 
 
 @pytest.mark.parametrize("nugget_est", [True, False])

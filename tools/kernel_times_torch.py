@@ -1,0 +1,130 @@
+"""Time the hand-written kernels of a dgp_tpu_torch checkout on one CUDA
+device, by chip_smoke.py's method, so that two commits' kernels can be
+compared by one method in one chip call.
+
+The inputs, the library yardstick, the bound and the timing code are this
+repository's chip_smoke.py (the main path's shapes, sexp: K1 (2, 26, 2,
+2000) with 2 length lanes and the nugget lane, K2 (26, 2, 2000) with K=9,
+dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates;
+float64 and float32); the kernels are those of the checkout given.  For
+each case it measures CUDA-event time around 10 calls back to back and
+around one call alone (median of 20 each) and the host time per call (200
+calls queued without waiting); the first and the last again with the
+inputs made contiguous beforehand (the path's blocks may be views, which
+the wrapper copies); then the device time per call under
+torch.profiler (mean over 20 calls), and the same for
+torch.linalg.cholesky_ex of the same blocks.  Prints the card's name and
+power limit, then one JSON line.  Usage, from the repository root:
+
+    python3 tools/kernel_times_torch.py [CHECKOUT] [LABEL]
+
+CHECKOUT (default: this repository) is the root of a checkout whose
+dgp_tpu_torch is timed; it must take chip_smoke.py's inputs.
+"""
+import functools
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent.parent
+#: the kernel's symbol in the profiler's events, by wrapper name
+SYMBOLS = {"block_nllik_grad_parts_t": "block_nllik_grad_kernel",
+           "block_loglik_multi_t": "block_loglik_multi_kernel",
+           "cond_weights_t": "cond_weights_kernel",
+           "block_loglik_parts_t": "block_loglik_parts_kernel"}
+CASES = (("block_nllik_grad_parts_t", "block_nllik_grad_parts_t",
+          {"n_length": 2, "nugget_est": True}),
+         ("block_loglik_multi_t", "block_loglik_multi_t", {"dl": 1}),
+         ("cond_weights_t", "cond_weights_t", {}),
+         ("block_loglik_parts_t", "block_loglik_parts_t", {}),
+         ("block_loglik_parts_t", "block_loglik_parts_t/K=9", {}))
+
+
+def device_ms(fn, symbol=None, reps=20):
+    """Device time (ms) per call of ``fn``: the summed duration of the
+    kernels it ran (those whose name contains ``symbol``, if given) over
+    ``reps`` calls under torch.profiler, divided by ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type.name == "CUDA"
+          and (symbol is None or symbol in e.name)]
+    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3 if ev else None
+
+
+def host_ms(fn, reps=200):
+    """Host time (ms) per call of ``fn``, calls queued back to back without
+    waiting for the device (stops well before the launch queue fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("kernel_times_torch: CUDA is not available", file=sys.stderr)
+        return 1
+    checkout = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT
+    label = sys.argv[2] if len(sys.argv) > 2 else str(checkout)
+    sys.path.insert(0, str(checkout))
+    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    if not Path(cv.__file__).resolve().is_relative_to(checkout):
+        raise SystemExit(f"dgp_tpu_torch came from {cv.__file__}, not {checkout}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    cv.build()
+    calls = {}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[1]
+        ins = cs._slice_inputs(dt, dev, cs.NUGGET_BENCH)
+        for kname, case, kw in CASES:
+            args = ins[case]
+            blocks = cs._blocks_of(kname, args)
+            dense = [a.contiguous() for a in args]
+            calls[f"{dname}/{case}"] = (
+                kname, functools.partial(getattr(cv, kname), *args, **kw, name="sexp"),
+                functools.partial(getattr(cv, kname), *dense, **kw, name="sexp"),
+                functools.partial(torch.linalg.cholesky_ex, blocks),
+                cs._bound_ms(kname, args, dname), list(args[0].shape),
+                [a.is_contiguous() for a in args])
+    times = {}
+    for key, (kname, call, dense, library, (bound, by), shape, flat) in calls.items():
+        times[key] = {
+            "ms": cs.cuda_ms(call), "ms_one_call": cs.cuda_ms(call, inner=1),
+            "host_ms": host_ms(call), "ms_contiguous": cs.cuda_ms(dense),
+            "host_ms_contiguous": host_ms(dense), "library_ms": cs.cuda_ms(library),
+            "library_ms_one_call": cs.cuda_ms(library, inner=1),
+            "library_host_ms": host_ms(library),
+            "bound_ms": bound, "bound_by": by, "shape": shape, "inputs_contiguous": flat}
+    # profiled last: after a profiler session the calls timed in the same
+    # process took about twice as long on the host
+    for key, (kname, call, _, library, _, _, _) in calls.items():
+        times[key].update(device_ms=device_ms(call, SYMBOLS[kname]),
+                          library_device_ms=device_ms(library))
+    print(json.dumps({"checkout": label, "nvidia_smi": smi,
+                      "ptxas": cv.build_info["ptxas"], "times": times}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
