@@ -15,7 +15,10 @@ Phases, each printing its results (and its seconds) as one JSON line:
             shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
             with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
             K=9, dl=1 and dl=d; K3 at (26, 1, 2000); K4 at (26, 2, 2000) and
-            with a leading axis of 9 candidates -- for sexp and Matern-2.5,
+            with a leading axis of 9 candidates; and the gp phase's own
+            calls, K1 without a node axis at (26, 1, 2000) with one length
+            lane and the nugget lane, and K4 at (26, 1, 2000), on the gp's
+            Vecchia ordering -- for sexp and Matern-2.5,
             float64 and float32, with sentinel lanes; check them against
             each other; time kernel, plain version and the batched
             torch.linalg.cholesky_ex of the same blocks (CUDA events around
@@ -47,6 +50,29 @@ Phases, each printing its results (and its seconds) as one JSON line:
   nodewise  the same data with node-wise ESS (block=False): construction and
             4 SEM iterations.  Fails unless K4 was launched and the results
             are finite.
+  gp        the single-GP emulator on the same n=2000 data, under the
+            protocol of dgp_tpu_torch/data/gp_n2000.json (written by
+            tools/make_torch_gp_params.py with the JAX package): a dense gp
+            (sexp, scale and nugget estimated), train(), predict on the 1000
+            test points (RMSE) and on 20000 points (points per second),
+            loo(), ALM/MICE/VIGF on 1000 candidates; then to_vecchia(m=25),
+            train() (through K1), log_likelihood_func() (through K4) and
+            predict at m=50.  Fails unless K1 and K4 were launched by the
+            Vecchia steps, everything is finite, both RMSEs are at most
+            twice the JAX package's, the trained hyper-parameters (dense and
+            Vecchia) are within rtol 1e-6 of the JAX package's, the Vecchia
+            log-likelihood within rtol 1e-9 of its figure, and ALM/MICE/VIGF
+            pick the JAX package's candidates.
+  dense_dgp the parity row `2d` (tools/parity.py): a 4-layer dense sexp DGP
+            of 7 nodes, n=24, widths 2/2/2/1 with global connections;
+            train(N=500), emulator(N=50) and predict on the 100 diagonal
+            points.  Fails unless the RMSE against the truth is at most the
+            parity gate 0.0612 (1.15x dgpsi's 0.0532).
+  ref       bench.py's 2-layer Vecchia DGP with the 'ref' prior on both
+            nodes: construction and 4 SEM iterations.  The 'ref' layer's ESS
+            candidates go through K4 (no angle views, so K2 is not
+            launched); fails unless K1, K3 and K4 were launched, K2 was not,
+            and the results are finite.
 
 Then it prints the kernel summary line and, last, the device line.  Any
 failed phase exits non-zero.  Usage, from the repository root:
@@ -95,6 +121,16 @@ PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
 K_CAND = 9
 TRAIN_WARM, TRAIN_TIMED = 48, 152
 NODEWISE_ITERS = 4
+REF_ITERS = 4
+N_PRED = 20000
+# parity row `2d` (tools/parity.py:72-87): its gate is 1.15x dgpsi's RMSE
+# 0.0532 on the same draw (PARITY_r05.json; dgp_tpu gives 0.0361)
+TWOD_GATE = 0.0612
+TWOD_TRAIN, TWOD_IMPUTATIONS = 500, 50
+# gp phase against the JAX package's figures under the same protocol: the
+# trained hyper-parameters (the CPU tests hold train() to rtol 1e-6) and the
+# Vecchia log-likelihood at them
+GP_RTOL_PARAMS, GP_RTOL_LL = 1e-6, 1e-9
 SOURCES = {
     "block_nllik_grad_parts_t": ("dgp_tpu_torch/csrc/block_nllik_grad.cu",
                                  "dgp_tpu/ops/pallas_vecchia.py:515"),
@@ -124,6 +160,24 @@ def bench_data():
     return X, Y
 
 
+def twod_data():
+    """2d_fct.ipynb cell 2 (copied from tools/parity_data.py:29-43): n=24
+    points of a 2-D function and its diagonal test path."""
+    f = lambda x, y: np.sin(1 / ((0.7 * x + 0.3) * (0.7 * y + 0.3)))
+    X1 = np.array([0, .02, .075, .08, .14, .15, .155, .156, .18, .22, .29,
+                   .32, .36, .37, .42, .5, .57, .63, .72, .785, .8, .84,
+                   .925, 1])
+    X2 = np.array([.29, .02, .12, .58, .38, .87, .01, .12, .22, .08, .34,
+                   .185, .64, .02, .93, .15, .42, .71, 1, 0, .21, .5,
+                   .785, .21])
+    X = np.stack((X1, X2)).T
+    Y = f(X1, X2).reshape([-1, 1])
+    z1 = np.linspace(0, 1, 100)[:, None]
+    z = np.concatenate((z1, z1), axis=1)
+    truth = f(z1, z1).reshape(-1, 1)
+    return X, Y, z, truth
+
+
 def cuda_ms(fn, reps=20, warm=3, inner=10):
     """Milliseconds per call: the median over ``reps`` of CUDA-event time
     around ``inner`` calls made back to back, divided by ``inner``.  Queued
@@ -146,6 +200,18 @@ def cuda_ms(fn, reps=20, warm=3, inner=10):
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def _data_json(name):
+    from pathlib import Path
+    import dgp_tpu_torch
+    return json.loads((Path(dgp_tpu_torch.__file__).parent / "data" / name).read_text())
+
+
+def gp_order(protocol):
+    """The gp phase's Vecchia ordering: `to_vecchia` right after
+    np.random.seed(vecchia_ord_seed) draws np.random.permutation(n)."""
+    return np.random.RandomState(protocol["vecchia_ord_seed"]).permutation(N_TRAIN)
 
 
 def launch_counts():
@@ -187,7 +253,10 @@ def _slice_inputs(dtype, device, nugget):
     as in CompiledDGP._node_operands + mstep._vecch_fg (both nodes of the
     M-step group, the layer-1 input zero-padded to the group's 2 dims), K4
     as in vecchia.core.vecchia_llik (the layer-2 node, alone and for 9
-    candidates of a node-wise ESS round)."""
+    candidates of a node-wise ESS round), and the gp phase's K1 and K4 as
+    vecchia.api.objective and log_likelihood_func_vecch build them (one
+    node, d = 1, the gp's ordering, the JAX package's trained Vecchia
+    lengthscale from gp_n2000.json)."""
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     from dgp_tpu_torch.vecchia import core as vcore
@@ -265,9 +334,21 @@ def _slice_inputs(dtype, device, nugget):
     Xg1, diag1, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, lengths,
                                          t([nugget, nugget]), jit)
     k1 = (Xg1, yg1, diag1, dnug)
+
+    # the gp path: K1 with no node axis, K4 at d = 1
+    gpj = _data_json("gp_n2000.json")
+    ordg = gp_order(gpj["protocol"])
+    lg = gpj["jax"]["vecchia"]["length"][0]
+    NNg = torch.as_tensor(vnn.nn(X[ordg] / lg, gpj["protocol"]["vecchia_m"],
+                                 device=device), device=device)
+    Xg_raw, ygg, nugg, validg = cv.gather_raw_t(t(X[ordg]), t(Y[ordg, 0]), NNg, ones)
+    Xgg, diagg, dnugg = cv.scale_blocks_t(Xg_raw, nugg, validg, t([lg]), nugget, jit)
+    k4_gp = cv.gather_scale_t(t(X[ordg]), t(Y[ordg, 0]), NNg, t([lg]), nugget, ones, jit)
     return {"cond_weights_t": k3, "block_loglik_multi_t": k2,
             "block_loglik_multi_t/dl=d": k2_full, "block_loglik_parts_t": k4,
-            "block_loglik_parts_t/K=9": k4_cand, "block_nllik_grad_parts_t": k1}
+            "block_loglik_parts_t/K=9": k4_cand, "block_nllik_grad_parts_t": k1,
+            "block_nllik_grad_parts_t/gp": (Xgg, ygg, diagg, dnugg),
+            "block_loglik_parts_t/gp": k4_gp}
 
 
 def _err64(out, ref, per_value):
@@ -472,12 +553,13 @@ def _blocks_of(kname, ins, name="sexp"):
     return K.reshape(-1, K.shape[-2], K.shape[-1]).contiguous()
 
 
-def _bound_ms(kname, ins, dtype_name):
+def _bound_ms(kname, ins, dtype_name, kw):
     """Least time (ms) the card could take for one call on these inputs,
     and which of bytes or operations bounds it.  Operations count the sexp
     pipeline's floating-point work per block (an exponential or a square
     root counts as one): the correlation pairs, the column Cholesky, the
-    substitutions and, for K1, the derivative blocks and their solves."""
+    substitutions and, for K1, the derivative blocks and their solves
+    (``kw``: the call's n_length and nugget_est)."""
     m1 = ins[0].shape[-3]
     d = ins[0].shape[-2]
     n = ins[0].shape[-1]
@@ -497,8 +579,10 @@ def _bound_ms(kname, ins, dtype_name):
         blocks = ins[0].numel() // (m1 * d)
         per = corr + chol + solve
         out_elems = 2 * blocks
-    else:                                            # K1: n_length 2 + nugget
-        G, p, nlen = ins[0].shape[0], 3, 2
+    else:                                            # K1
+        G = ins[0].shape[0] if ins[0].ndim == 4 else 1
+        nlen = kw["n_length"]
+        p = nlen + int(kw["nugget_est"])
         blocks = G * n
         per = (corr + chol + 2 * solve + pairs * nlen * 6 + m1
                + p * (solve + 2 * m1 + 4))
@@ -525,7 +609,10 @@ def phase_kernels(dev):
              ("block_loglik_multi_t", "block_loglik_multi_t/dl=d", {"dl": 2}),
              ("block_loglik_parts_t", "block_loglik_parts_t", {}),
              ("block_loglik_parts_t", "block_loglik_parts_t/K=9", {}),
-             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t", grad_kw))
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t", grad_kw),
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/gp",
+              {"n_length": 1, "nugget_est": True}),
+             ("block_loglik_parts_t", "block_loglik_parts_t/gp", {}))
     for name in ("sexp", "matern2.5"):
         for kname, case, kw in cases:
             kern = getattr(cv, kname)
@@ -547,8 +634,8 @@ def phase_kernels(dev):
         if not r["ok"]:
             failures.append(r)
     # times at the main path's configuration (sexp; K2 with K=9, dl=1; K4
-    # as the single (26, 2, 2000) call and with its 9 candidates); the
-    # summary line takes each kernel's case of its own name
+    # as the single (26, 2, 2000) call and with its 9 candidates) and the gp
+    # phase's; the summary line takes each kernel's case of its own name
     timing = {}
     for dt, ins in (("float64", in64), ("float32", in32)):
         for kname, case, kw in cases:
@@ -559,7 +646,7 @@ def phase_kernels(dev):
             kw = dict(kw, name="sexp")
             args = ins[case]
             blocks = _blocks_of(kname, args)
-            bound, by = _bound_ms(kname, args, dt)
+            bound, by = _bound_ms(kname, args, dt, kw)
             timing[f"{dt}/{case}"] = {
                 "ms": cuda_ms(lambda: kern(*args, **kw)),
                 "ms_one_call": cuda_ms(lambda: kern(*args, **kw), inner=1),
@@ -735,6 +822,202 @@ def phase_nodewise(dev):
     return launches
 
 
+def phase_gp(dev):
+    import torch
+    from dgp_tpu_torch import gp, kernel, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    ref = _data_json("gp_n2000.json")
+    p, jax_res = ref["protocol"], ref["jax"]
+    X, Y = bench_data()
+    z = np.linspace(-1, 1, p["n_test"]).reshape(-1, 1)
+    zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
+    cand = np.random.RandomState(p["cand_seed"]).uniform(-1, 1, (p["n_cand"], 1))
+    nb_seed(123)
+    cv.reset_launch_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    k = kernel(length=np.array([p["length"]]), name=p["kernel"], nugget=p["nugget"],
+               scale_est=p["scale_est"], nugget_est=p["nugget_est"])
+    m, t_build = timed(lambda: gp(X, Y, k, device=dev))
+    _, t_train = timed(m.train)
+    (mu, var), _ = timed(lambda: m.predict(z))
+    rmse = float(np.sqrt(np.mean((mu - func(z)) ** 2)))
+    (mu_p, var_p), t_pred = timed(lambda: m.predict(zp))
+    (lm, lv), t_loo = timed(m.loo)
+    picks, finite = {}, []
+    for meth in ("ALM", "MICE", "VIGF"):
+        (idx, val), t_m = timed(lambda: m.metric(cand, method=meth))
+        picks[meth] = {"index": int(np.ravel(idx)[0]), "value": float(np.ravel(val)[0]),
+                       "jax_index": jax_res["dense"][meth]["index"], "seconds": t_m}
+        finite.append(np.isfinite(val).all())
+    dense = {"train_s": t_train, "build_s": t_build, "rmse": rmse,
+             "rmse_gate": 2.0 * jax_res["dense"]["rmse"],
+             "predict_20000_s": t_pred, "predict_pts_per_s": N_PRED / t_pred,
+             "loo_s": t_loo, "loo_rmse": float(np.sqrt(np.mean((lm - Y) ** 2))),
+             "scale": float(m.kernel.scale[0]), "length": m.kernel.length.tolist(),
+             "nugget": float(m.kernel.nugget[0]), "metric": picks}
+    launches_dense = launch_counts()
+    np.random.seed(p["vecchia_ord_seed"])
+    m.to_vecchia(m=p["vecchia_m"])
+    before = launch_counts()
+    _, t_vtrain = timed(m.train)
+    after_train = launch_counts()
+    ll, t_ll = timed(m.kernel.log_likelihood_func)
+    after_ll = launch_counts()
+    (mu_v, var_v), _ = timed(lambda: m.predict(z, m=p["pred_m"]))
+    rmse_v = float(np.sqrt(np.mean((mu_v - func(z)) ** 2)))
+    (mu_vp, var_vp), t_vpred = timed(lambda: m.predict(zp, m=p["pred_m"]))
+    k1 = "block_nllik_grad_parts_t"
+    k4 = "block_loglik_parts_t"
+    ordering = bool(np.array_equal(m.kernel.ord, gp_order(p)))
+    vecch = {"train_s": t_vtrain, "log_likelihood": ll, "log_likelihood_s": t_ll,
+             "jax_log_likelihood": jax_res["vecchia"]["log_likelihood"],
+             "K1_launches_per_train": after_train[k1] - before[k1],
+             "K4_launches_per_log_likelihood": after_ll[k4] - after_train[k4],
+             "rmse": rmse_v, "rmse_gate": 2.0 * jax_res["vecchia"]["rmse"],
+             "predict_20000_s": t_vpred, "predict_pts_per_s": N_PRED / t_vpred,
+             "scale": float(m.kernel.scale[0]), "length": m.kernel.length.tolist(),
+             "nugget": float(m.kernel.nugget[0])}
+    launches = launch_counts()
+    arrays = (mu, var, mu_p, var_p, lm, lv, mu_v, var_v, mu_vp, var_vp)
+
+    def params_close(ours, jax_ref):
+        return all(np.allclose(np.atleast_1d(ours[k]), np.atleast_1d(jax_ref[k]),
+                               rtol=GP_RTOL_PARAMS, atol=0.0)
+                   for k in ("scale", "length", "nugget"))
+    checks = {
+        "dense_no_kernels": not any(launches_dense.values()),
+        "launches": vecch["K1_launches_per_train"] > 0
+        and vecch["K4_launches_per_log_likelihood"] > 0,
+        "shapes": mu.shape == (p["n_test"], 1) and mu_p.shape == (N_PRED, 1)
+        and lm.shape == (N_TRAIN, 1) and mu_vp.shape == (N_PRED, 1),
+        "finite": bool(all(np.isfinite(a).all() for a in arrays) and all(finite)
+                       and np.isfinite(ll)),
+        "variance_positive": bool(all((v > 0).all() for v in (var, var_p, lv, var_v))),
+        "rmse": rmse <= dense["rmse_gate"] and rmse_v <= vecch["rmse_gate"],
+        "params_vs_jax": params_close(dense, jax_res["dense"])
+        and params_close(vecch, jax_res["vecchia"]),
+        "log_likelihood_vs_jax": bool(np.isclose(ll, jax_res["vecchia"]["log_likelihood"],
+                                                 rtol=GP_RTOL_LL, atol=0.0)),
+        "metric_picks": all(v["index"] == v["jax_index"] for v in picks.values()),
+        "ordering": ordering,
+    }
+    emit({"phase": "gp", "n": N_TRAIN, "dtype": "float64", "dense": dense,
+          "vecchia": vecch, "jax": jax_res, "launches": launches, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"gp phase checks failed: {checks}")
+    return launches
+
+
+def phase_dense_dgp(dev):
+    import torch
+    from dgp_tpu_torch import combine, dgp, emulator, kernel, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    X, Y, z, truth = twod_data()
+    nb_seed(99)
+    cv.reset_launch_counts()
+
+    def k(**kw):
+        return kernel(length=np.array([1]), name='sexp', **kw)
+
+    all_layer = combine([k(), k()], [k(connect=np.arange(2)), k(connect=np.arange(2))],
+                        [k(connect=np.arange(2)), k(connect=np.arange(2))],
+                        [k(scale_est=True, connect=np.arange(2))])
+    t0 = time.perf_counter()
+    m = dgp(X, [Y], all_layer, device=dev)
+    torch.cuda.synchronize()
+    t_dgp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.train(N=TWOD_TRAIN, disable=True)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emu = emulator(m.estimate(), N=TWOD_IMPUTATIONS, device=dev)
+    torch.cuda.synchronize()
+    t_emu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mu, var = emu.predict(z)
+    t_pred = time.perf_counter() - t0
+    rmse = float(np.sqrt(np.mean((mu.flatten() - truth.flatten()) ** 2)))
+    launches = launch_counts()
+    checks = {
+        "dense_no_kernels": not any(launches.values()),
+        "iterations": m.N == TWOD_TRAIN
+        and all(len(nd.para_path) == 1 + m.N for layer in m.all_layer for nd in layer),
+        "finite": bool(np.isfinite(mu).all() and np.isfinite(var).all()
+                       and all(np.isfinite(nd.para_path).all() for layer in m.all_layer
+                               for nd in layer)),
+        "variance_positive": bool((var > 0).all()),
+        "rmse": rmse <= TWOD_GATE,
+    }
+    emit({"phase": "dense_dgp", "config": "parity 2d", "n": len(X), "layers": [2, 2, 2, 1],
+          "dgp_construct_s": t_dgp, "train_s": t_train,
+          "sem_it_per_s": TWOD_TRAIN / t_train, "emulator_build_s": t_emu,
+          "predict_100_s": t_pred, "rmse_vs_truth_diag": rmse, "rmse_gate": TWOD_GATE,
+          "launches": launches, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"dense_dgp phase checks failed: {checks}")
+    return launches
+
+
+def phase_ref(dev):
+    import torch
+    from dgp_tpu_torch import combine, dgp, kernel, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    X, Y = bench_data()
+    nb_seed(123)
+    cv.reset_launch_counts()
+    layers = combine([kernel(length=np.array([0.5]), name='sexp', nugget=1e-4,
+                             prior_name='ref')],
+                     [kernel(length=np.array([0.5]), name='sexp', nugget=1e-4,
+                             nugget_est=True, scale_est=True, connect=np.arange(1),
+                             prior_name='ref')])
+    t0 = time.perf_counter()
+    m = dgp(X, Y, layers, vecchia=True, m=M_TRAIN, device=dev)
+    torch.cuda.synchronize()
+    t_dgp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.train(N=REF_ITERS, disable=True, chunk_size=16)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = launch_counts()
+    checks = {
+        "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
+                                                  "cond_weights_t",
+                                                  "block_loglik_parts_t"))
+        and launches["block_loglik_multi_t"] == 0,
+        "finite": all(np.isfinite(nd.para_path).all() for layer in m.all_layer
+                      for nd in layer)
+        and all(np.isfinite(nd.output).all() for layer in m.all_layer[:-1]
+                for nd in layer),
+        "iterations": m.N == REF_ITERS,
+    }
+    emit({"phase": "ref", "n": N_TRAIN, "m": M_TRAIN, "prior": "ref",
+          "dgp_construct_s": t_dgp, "train_s": t_train,
+          "sem_it_per_s": REF_ITERS / t_train, "launches": launches,
+          "prior_coef": [nd.prior_coef.tolist() for layer in m.all_layer for nd in layer],
+          "para_last": [nd.para_path[-1].tolist() for layer in m.all_layer
+                        for nd in layer],
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"ref phase checks failed: {checks}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -747,7 +1030,8 @@ def main():
     phase_build()
     results = phase_kernels(dev)
     launches = {k: 0 for k in SOURCES}
-    for phase in (phase_main, phase_train, phase_nodewise):
+    for phase in (phase_main, phase_train, phase_nodewise, phase_gp, phase_dense_dgp,
+                  phase_ref):
         for k, v in phase(dev).items():
             launches[k] += v
     emit({"kernels": [

@@ -1,12 +1,16 @@
-"""Carry a DGP structure across from plain data (for example from the JAX
-package's node attributes, which are numpy already, or from a JSON file).
+"""Carry a DGP structure, or a trained gp, across from plain data (for
+example from the JAX package's node attributes, which are numpy already, or
+from a JSON file).
 
 The input is a list of layers, each a list of per-node dicts of numpy
 arrays, numbers and strings with the keys of `NODE_KEYS`; a missing key
 leaves the node's default (so a dict of hyper-parameters alone gives a
-node that `dgp` can initialise).  The training traces (``para_path``,
-``R2``) come across too, so that a model trained in one package can be
-estimated by, or continue training in, the other.
+node that `dgp` can initialise).  Priors come across as stored: the
+coefficients are the node's adjusted ones (and, for 'ref', already
+extended by the initialisation), so the constructor does not adjust them
+again.  The training traces (``para_path``, ``R2``) come across too, so
+that a model trained in one package can be estimated by, or continue
+training in, the other.
 """
 import numpy as np
 
@@ -14,22 +18,31 @@ from .models.node import kernel
 
 #: node attributes carried across
 NODE_KEYS = ('name', 'scale', 'length', 'nugget', 'nugget_est', 'scale_est',
-             'input_dim', 'connect', 'input', 'global_input', 'output', 'ord',
-             'NNarray', 'm', 'para_path', 'R2')
-_ARRAYS = ('input', 'global_input', 'output', 'para_path', 'R2')
+             'prior_name', 'prior_coef', 'bds', 'cl', 'input_dim', 'connect',
+             'input', 'global_input', 'output', 'W_diag', 'sum_residual', 'rep',
+             'vecch', 'ord', 'NNarray', 'm', 'para_path', 'R2')
+_ARRAYS = ('input', 'global_input', 'output', 'para_path', 'R2', 'W_diag',
+           'sum_residual', 'cl')
 
 
 def node_from_numpy(d):
     """One `kernel` from a dict of its attributes."""
     node = kernel(length=np.asarray(d['length']), scale=d.get('scale', 1.0),
                   nugget=d.get('nugget', 1e-6), name=d.get('name', 'sexp'),
+                  prior_name=d.get('prior_name', 'ga'), bds=d.get('bds'),
                   nugget_est=bool(d.get('nugget_est', False)),
                   scale_est=bool(d.get('scale_est', False)),
                   input_dim=d.get('input_dim'), connect=d.get('connect'))
     dt = node.length.dtype
+    if d.get('prior_coef') is not None:
+        node.prior_coef = np.array(d['prior_coef'], dt)
     for key in _ARRAYS:
         if d.get(key) is not None:
             setattr(node, key, np.asarray(d[key], dt))
+    if d.get('rep') is not None:
+        node.rep = np.asarray(d['rep'], np.int64)
+    if d.get('vecch') is not None:
+        node.vecch = bool(d['vecch'])
     if d.get('ord') is not None:
         node.ord = np.asarray(d['ord'], np.int64)
         node.rev_ord = np.argsort(node.ord)
@@ -45,6 +58,11 @@ def node_from_numpy(d):
     return node
 
 
+def node_to_numpy(node):
+    """The dict of `NODE_KEYS` attributes of a node of either package."""
+    return {k: getattr(node, k, None) for k in NODE_KEYS}
+
+
 def layers_from_numpy(spec):
     """The port's ``all_layer`` (list of layers of `kernel`s) from a list of
     layers of per-node dicts."""
@@ -54,5 +72,35 @@ def layers_from_numpy(spec):
 def layers_to_numpy(all_layer):
     """The inverse of `layers_from_numpy` for any structure whose nodes
     carry the `NODE_KEYS` attributes (either package's)."""
-    return [[{k: getattr(node, k, None) for k in NODE_KEYS} for node in layer]
-            for layer in all_layer]
+    return [[node_to_numpy(node) for node in layer] for layer in all_layer]
+
+
+def gp_from_numpy(model, device=None):
+    """A port `gp` carrying the state of a gp of either package: its
+    (replicate-collapsed) data and its node with the trained
+    hyper-parameters, prior and, under Vecchia, ordering and neighbours.
+    The node is not re-initialised; a dense node's prediction statistics
+    are recomputed on ``device`` (default: the card)."""
+    from . import config
+    from .models.gp import gp
+
+    self = gp.__new__(gp)
+    self.device = config.resolve_device(device)
+    self.check_rep = model.check_rep
+    dt = config.np_dtype()
+    self.X, self.Y = np.asarray(model.X, dt), np.asarray(model.Y, dt)
+    self.indices = model.indices
+    if self.indices is not None:
+        self.W_diag = np.asarray(model.W_diag, dt)
+        self.sum_residual = np.asarray(model.sum_residual, dt)
+    self.n_data = self.X.shape[0]
+    self.vecch = bool(model.vecch)
+    self.m = int(model.m)
+    self.ord_fun = model.ord_fun
+    self.kernel = node_from_numpy(node_to_numpy(model.kernel))
+    self.kernel.device = self.device
+    self.kernel.vecch = self.vecch
+    self.kernel.target = 'gp'
+    if not self.vecch:
+        self.kernel.compute_stats()
+    return self

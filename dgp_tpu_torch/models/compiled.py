@@ -16,23 +16,28 @@ all on the engine's device.  The JAX package traces a chunk of SEM
 iterations into one program; here `train_chunk` is a plain loop that runs
 eagerly, with the ESS rounds' host checks as its only synchronisations.
 
-The kernels carry the hot paths on every device (on the CPU their wrappers
-run the plain versions): K2 evaluates the ESS candidates of a layer through
-maintained angle views (`_build_angle_plan` / `_plan_ll`), K3 gives the
-prior draws' conditional weights (`vecchia.core.cond_weights`), K4 the
-per-node log-likelihood of node-wise ESS (`_gp_loglik`), and K1 every
-objective and gradient of the M-step (`models/mstep.py`).
+The kernels carry the Vecchia hot paths on every device (on the CPU their
+wrappers run the plain versions): K2 evaluates the ESS candidates of a
+layer through maintained angle views (`_build_angle_plan` / `_plan_ll`), K3
+gives the prior draws' conditional weights (`vecchia.core.cond_weights`),
+K4 the per-node log-likelihood (`_gp_loglik`) of node-wise ESS and of the
+block ESS of layers the angle views do not cover (upper nodes with the
+'ref' prior or dense), and K1 every objective and gradient of a Vecchia
+M-step group (`models/mstep.py`).  Dense GP nodes factor their (n, n)
+matrices with torch.linalg (prior draws, log-likelihoods, the batched dense
+M-step), as the JAX package does with XLA.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-likelihood nodes and their exact Gibbs steps (O2), dense GP nodes and the
-'ref' prior (O1), approximate-NN refresh (O5).
+likelihood nodes and their exact Gibbs steps (O2), approximate-NN refresh
+(O5).
 """
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, gp_core
 from ..ess import ess_update
 from ..ops import cuda_vecchia as cv
+from ..ops import kernels as kops
 from ..ops import linalg
 from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
@@ -80,8 +85,6 @@ class CompiledDGP:
         self.device = config.resolve_device(device)
         self.spec = [[NodeSpec(node, l, self.n_layer) for node in layer]
                      for l, layer in enumerate(all_layer)]
-        if not all(sp.vecch for layer in self.spec for sp in layer):
-            raise _not_ported("dense (non-Vecchia) GP nodes", "O1")
         self.dtype = config.default_dtype()
         self._extract_data()
 
@@ -186,8 +189,12 @@ class CompiledDGP:
         built = {}
         for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
             for k, (node, sp) in enumerate(zip(layer, specs)):
+                if not sp.vecch:
+                    built[(l, k)] = None
+                    continue
                 share = next(((l, j) for j in range(k)
-                              if (self.spec[l][j].n_length == 1 and sp.n_length == 1
+                              if (self.spec[l][j].vecch
+                                  and self.spec[l][j].n_length == 1 and sp.n_length == 1
                                   and self.spec[l][j].input_dim == sp.input_dim
                                   and self.spec[l][j].connect == sp.connect
                                   and layer[j].m == node.m)), None)
@@ -237,19 +244,32 @@ class CompiledDGP:
             n, dtype=self.dtype, device=self.device)
 
     def _gp_loglik(self, l, k, latents, params, nn_state):
-        """Vecchia log-likelihood of node (l, k) through K4: a scalar, or
-        (K,) when latents[l - 1] carries K candidates (one launch)."""
+        """Log-likelihood of node (l, k): a scalar, or (K,) when
+        latents[l - 1] carries K candidates.  A Vecchia node goes through
+        K4 (one launch), a dense node through one batched Cholesky; the
+        'ref' prior adds its term at the characteristic length of each
+        candidate's input."""
         sp = self.spec[l][k]
-        if sp.prior_name == 'ref':
-            raise _not_ported("the 'ref' prior", "O1")
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
         y = self.y_final[k] if sp.is_final else latents[l][:, k]
+        ref_coef = self._t(sp.prior_coef) if sp.prior_name == 'ref' else None
+        if not sp.vecch:
+            w_diag = self.w_diag[k] if (sp.is_final and sp.has_rep) else None
+            return gp_core.log_lik_fixed(Xn, y, p['length'], p['scale'], p['nugget'],
+                                         name=sp.name, w_diag=w_diag,
+                                         ref_prior_coef=ref_coef,
+                                         n_length=sp.n_length, vecch=False)
         ns = nn_state[l][k]
         nd = self._nd(k, sp, Xn.shape[-2])
         o = ns['ord']
-        return vcore.vecchia_llik(Xn[..., o, :], y[o], ns['NN'], p['scale'],
-                                  p['length'], p['nugget'], nd[o], sp.name)
+        ll = vcore.vecchia_llik(Xn[..., o, :], y[o], ns['NN'], p['scale'],
+                                p['length'], p['nugget'], nd[o], sp.name)
+        if ref_coef is not None:
+            cl = gp_core.compute_cl(Xn, Xn.shape[-2], sp.n_length, True)
+            ll = ll + gp_core.log_prior(p['length'], p['nugget'], prior_name='ref',
+                                        prior_coef=ref_coef, nugget_est=False, cl=cl)
+        return ll
 
     def _upper_loglik(self, l, latents, params, nn_state):
         total = torch.zeros((), dtype=torch.float64, device=self.device)
@@ -294,12 +314,14 @@ class CompiledDGP:
         return cs
 
     def _draw_prior_node(self, l, k, latents, params, nn_state, gen):
-        """nu ~ N(0, scale * K) for one hidden Vecchia node."""
+        """nu ~ N(0, scale * K) for one hidden node (Vecchia ancestral
+        sampling, or a dense Cholesky)."""
         sp = self.spec[l][k]
-        if not sp.vecch:
-            raise _not_ported("dense prior draws", "O1")
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
+        if not sp.vecch:
+            K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+            return linalg.mvn_sample(gen, linalg.safe_cholesky(K))
         ns = nn_state[l][k]
         samp = vcore.fmvn_sp(gen, Xn[ns['ord']], ns['NN'], p['scale'],
                              p['length'], p['nugget'], sp.name)
@@ -311,11 +333,15 @@ class CompiledDGP:
         I-step (layer 0): one K3 launch and one ancestral pass for all the
         ESS sweeps of an I-step."""
         sp = self.spec[l][k]
-        if not sp.vecch:
-            raise _not_ported("dense prior draws", "O1")
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
         n = Xn.shape[0]
+        if not sp.vecch:
+            K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+            L = linalg.safe_cholesky(K)
+            eps = torch.randn((n, S), generator=gen, dtype=self.dtype,
+                              device=self.device)
+            return (L @ eps).T
         ns = nn_state[l][k]
         pre = None
         if cs is not None and l == 0 and (l, k) in cs:
@@ -349,7 +375,15 @@ class CompiledDGP:
             return self._upper_loglik(l, lat2, params, nn_state)
 
         if plan is None:
+            # the candidates of a round as one batch: K4 with a candidate
+            # axis for Vecchia upper nodes, one batched Cholesky for dense
+            def log_lik_angles(cosv, sinv):
+                c = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
+                sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
+                return log_lik(c[:, None, None] * f + sn[:, None, None] * nu)
+
             f_new = ess_update(host_gen, f, nu, log_lik,
+                               log_lik_angles=log_lik_angles,
                                spec=config.ess_spec(f.shape[0]))
             return latents[:l] + (f_new,) + latents[l + 1:], views
 
@@ -562,6 +596,8 @@ class CompiledDGP:
         if sp.bds is not None:
             lb[:sp.n_length] = np.log(sp.bds[0]) if sp.bds[0] > 0 else -big
             ub[:sp.n_length] = np.log(sp.bds[1])
+        elif sp.prior_name == 'ref':
+            ub[:sp.n_length] = 13.0
         if sp.nugget_est:
             lb[p_k - 1] = np.log(1e-8)
             ub[p_k - 1] = big
@@ -571,10 +607,10 @@ class CompiledDGP:
 
     def _node_operands(self, l, k, sp, latents, params, d_max, p_max, cs):
         """Stackable operands of GP node (l, k) for the batched M-step:
-        (op dict, lt0, lb, ub, maxfun).  The blocks splice the latent
-        columns, gathered here, with the chunk-static views of ``cs``."""
-        if sp.prior_name == 'ref':
-            raise _not_ported("the 'ref' prior", "O1")
+        (op dict, lt0, lb, ub, maxfun).  A Vecchia node's blocks splice the
+        latent columns, gathered here, with the chunk-static views of
+        ``cs``; a dense node brings its zero-padded input, target and
+        replicate diagonal."""
         dt = self.dtype
         p = params[l][k]
         d_k = sp.D
@@ -607,7 +643,32 @@ class CompiledDGP:
             'sum_res': torch.tensor(self.sum_res[k] if has_rep else 0.0, **f64),
             'n_orig': torch.tensor(self.n_orig if has_rep else float(self.n), **f64),
             'fixed_scale64': p['scale'].to(torch.float64),
+            'cl': torch.zeros(d_max, dtype=dt, device=self.device),
         }
+        if sp.prior_name == 'ref' or not sp.vecch:
+            Xn = self._node_input(l, k, latents)
+        if sp.prior_name == 'ref':
+            cl = gp_core.compute_cl(Xn, self.n, sp.n_length, sp.vecch)
+            op['cl'][:cl.shape[0]] = cl
+        if not sp.vecch:
+            op.update(X=torch.nn.functional.pad(Xn, (0, d_max - d_k)),
+                      y=self.y_final[k] if sp.is_final else latents[l][:, k],
+                      w_diag=self._nd(k, sp, self.n))
+        else:
+            self._vecch_operands(op, l, k, sp, latents, d_max, cs)
+        lt0 = torch.log(p['length'])
+        if sp.nugget_est:
+            lt0 = torch.cat([lt0, torch.log(p['nugget'])[None]])
+        lt0 = torch.nn.functional.pad(lt0, (0, p_max - p_k))
+        lb, ub = self._node_bounds(sp, p_max)
+        # the reference budget (kernel_class.py:542), capped
+        maxfun = min(max(30, 20 + 5 * sp.D), config.MSTEP_MAXFUN_CAP)
+        return op, lt0, lb, ub, maxfun
+
+    def _vecch_operands(self, op, l, k, sp, latents, d_max, cs):
+        """A Vecchia node's M-step blocks in the kernels' layout."""
+        dt = self.dtype
+        d_k = sp.D
         st = cs[(l, k)]
         valid = st['validT']
         m1, n = valid.shape
@@ -624,34 +685,27 @@ class CompiledDGP:
                   yg=st['yg_stat'] if sp.is_final else torch.where(valid, Gd[:, -1], 0.0),
                   nug_g=st['nd_g'], valid=valid)
 
-        lt0 = torch.log(p['length'])
-        if sp.nugget_est:
-            lt0 = torch.cat([lt0, torch.log(p['nugget'])[None]])
-        lt0 = torch.nn.functional.pad(lt0, (0, p_max - p_k))
-        lb, ub = self._node_bounds(sp, p_max)
-        # the reference budget (kernel_class.py:542), capped
-        maxfun = min(max(30, 20 + 5 * sp.D), config.MSTEP_MAXFUN_CAP)
-        return op, lt0, lb, ub, maxfun
-
     def _m_step(self, latents, params, nn_state, cs):
         """Per-node bounded L-BFGS of every GP node, one batched
-        optimisation per (kernel name, m + 1) group."""
+        optimisation per (mode, kernel name, m + 1) group."""
         groups = {}
         for l, layer in enumerate(self.spec):
             for k, sp in enumerate(layer):
-                m1 = nn_state[l][k]['NN'].shape[1]
-                groups.setdefault((sp.name, m1), []).append((l, k, sp))
+                key = (('vecch', sp.name, nn_state[l][k]['NN'].shape[1]) if sp.vecch
+                       else ('dense', sp.name, 0))
+                groups.setdefault(key, []).append((l, k, sp))
         results = {}
-        for (name, _m1), es in groups.items():
+        for (mode, name, _m1), es in groups.items():
             d_max = max(sp.D for _, _, sp in es)
             p_max = max(sp.n_length + (1 if sp.nugget_est else 0) for _, _, sp in es)
             built = [self._node_operands(l, k, sp, latents, params, d_max, p_max, cs)
                      for l, k, sp in es]
             ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
             lt0, lb, ub = (torch.stack([b[i] for b in built]) for i in (1, 2, 3))
-            lt, scale, ok = mstep.run_group(ops, lt0, lb, ub, [b[4] for b in built],
-                                            name=name, mode='vecch', d_max=d_max,
-                                            n=self.n)
+            lt, scale, ok = mstep.run_group(
+                ops, lt0, lb, ub, [b[4] for b in built], name=name, mode=mode,
+                d_max=d_max, n=self.n,
+                has_ref=any(sp.prior_name == 'ref' for _, _, sp in es))
             for i, (l, k, _) in enumerate(es):
                 results[(l, k)] = (lt[i], scale[i], ok[i], lt0[i])
 

@@ -1,13 +1,14 @@
 """Deep-GP model; the counterpart of `dgp_tpu/models/dgp.py`.
 
 Ported: the constructor (data checks, replicate detection, default
-structure), `initialize` for GP-only hierarchies, the Vecchia wiring of
+structure), `initialize` for GP-only hierarchies of dense (the default) or
+Vecchia nodes, with the 'ref' prior's coefficients, the Vecchia wiring of
 each node, the initial imputation (10 burn-in sweeps on the model's
-device), SEM training (`train`) with the NN refresh schedule and restarts,
-`compute_r2`, `aggregate_r2` and `estimate`.  Not ported yet: the
-likelihood-specific latent initialisers and the kernel-PCA initialiser of
-narrowing layers (O2), and multi-device training (`ptrain`,
-``sharded=True``; O7).
+device), SEM training (`train`) with the NN refresh schedule of Vecchia
+models and restarts, `compute_r2`, `aggregate_r2` and `estimate`.  Not
+ported yet: the likelihood-specific latent initialisers and the kernel-PCA
+initialiser of narrowing layers (O2), `update_xy` (O6), and multi-device
+training (`ptrain`, ``sharded=True``; O7).
 """
 import copy
 import sys
@@ -108,6 +109,7 @@ class dgp:
                         raise Exception('The local and global input should not overlap.')
                     node.global_input = global_in[:, node.connect]
                 node.vecch, node.m = self.vecch, self.m
+                node.device = self.device
                 if self.ord_fun is not None:
                     node.ord_fun = self.ord_fun
                 node.D = node.input.shape[1]
@@ -127,6 +129,13 @@ class dgp:
                         node.sum_residual = (residual.T @ residual).flatten()
                 else:
                     node.output = np.asarray(Out[:, [k]], dt)
+                if node.prior_name == 'ref' and len(node.prior_coef) == 1:
+                    p = node.input.shape[1]
+                    if node.global_input is not None:
+                        p += node.global_input.shape[1]
+                    b = 1 / len(node.output) ** (1 / p) * (node.prior_coef + p)
+                    node.prior_coef = np.concatenate((node.prior_coef, b))
+                    node.compute_cl()
                 node.para_path = np.atleast_2d(
                     np.concatenate((node.scale, node.length, node.nugget)))
                 if node.vecch:
@@ -155,9 +164,10 @@ class dgp:
         """SEM training: N iterations of ESS-within-Gibbs imputation
         (``ess_burn`` + 1 sweeps) and a per-node bounded L-BFGS M-step, in
         chunks of at most ``chunk_size`` iterations on the model's device.
-        The Vecchia orderings and neighbours are rebuilt after every
-        power-of-2 global iteration g > 1 (reference dgp.py:1388), including
-        at the end of a call, so that a later call continues on schedule.
+        In a Vecchia model the orderings and neighbours are rebuilt after
+        every power-of-2 global iteration g > 1 (reference dgp.py:1388),
+        including at the end of a call, so that a later call continues on
+        schedule.
         A non-finite hyper-parameter, R^2 or latent restarts the call from
         re-initialised latents, at most 3 times (dgp.py:1402-1412).
         ``disable`` silences the per-chunk progress line on stderr."""
@@ -175,13 +185,15 @@ class dgp:
             done = 0
             ok = True
             while done < N:
-                # stop chunks at the next power-of-2 global iteration, so
-                # that the NN refresh happens on schedule
-                g = N0 + done
-                nxt = 1
-                while nxt <= g:
-                    nxt *= 2
-                this = min(chunk_size, N - done, nxt - g)
+                this = min(chunk_size, N - done)
+                if self.vecch:
+                    # stop chunks at the next power-of-2 global iteration,
+                    # so that the NN refresh happens on schedule
+                    g = N0 + done
+                    nxt = 1
+                    while nxt <= g:
+                        nxt *= 2
+                    this = min(this, nxt - g)
                 state, para, r2 = engine.train_chunk(state, gens, this, ess_burn,
                                                      nn_state=nn_dev)
                 ok = bool(torch.stack([torch.isfinite(t).all()
@@ -195,7 +207,7 @@ class dgp:
                 if not disable:
                     print(f"dgp.train: {done}/{N}", file=sys.stderr, flush=True)
                 g = N0 + done
-                if g > 1 and (g & (g - 1)) == 0:
+                if self.vecch and g > 1 and (g & (g - 1)) == 0:
                     if engine.supports_device_refresh():
                         nn_dev = engine.refresh_nn(state, gens[0])
                     else:

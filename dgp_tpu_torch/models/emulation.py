@@ -4,9 +4,9 @@ counterpart of `dgp_tpu/models/emulation.py`.
 The constructor draws N imputations of the latent layers (on the
 emulator's device) and stores them; `predict` propagates mean and variance
 layer by layer through each imputation (models/ensemble.py) and aggregates
-them as a Gaussian mixture.  Ported: the constructor on the Vecchia path
-and ``predict(method='mean_var')``; the other methods of the JAX emulator
-(sampling, LOO, nllik, design metrics) are not ported yet.
+them as a Gaussian mixture.  Ported: the constructor for dense and Vecchia
+structures and ``predict(method='mean_var')``; the other methods of the JAX
+emulator (sampling, LOO, nllik, design metrics) are not ported yet (O6).
 """
 import copy
 
@@ -24,18 +24,18 @@ class emulator:
         self.all_layer = all_layer
         self.n_layer = len(all_layer)
         self.vecch = bool(self.all_layer[0][0].vecch)
-        if not self.vecch:
-            raise NotImplementedError(
-                "the dense emulator is not ported to dgp_tpu_torch yet "
-                "(ROADMAP.md, O1)")
         self.block = block
         self.device = config.resolve_device(device)
         self.imp = imputer(self.all_layer, block, self.device)
-        self.imp.update_ord_nn()
-        self.imp.sample(burnin=20)
+        if self.vecch:
+            self.imp.update_ord_nn()
+            self.imp.sample(burnin=20)
+        else:
+            self.imp.sample(burnin=50)
         self.all_layer_set = []
         for _ in range(N):
-            self.imp.update_ord_nn()
+            if self.vecch:
+                self.imp.update_ord_nn()
             self.imp.sample()
             self.all_layer_set.append(copy.deepcopy(self.all_layer))
         self._ens = None

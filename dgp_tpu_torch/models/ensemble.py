@@ -1,27 +1,29 @@
-"""Multi-imputation ensemble prediction on the Vecchia path; the counterpart
-of `dgp_tpu/models/ensemble.py`.
+"""Multi-imputation ensemble prediction; the counterpart of
+`dgp_tpu/models/ensemble.py`.
 
 The N imputations' latent layers are stacked on a leading axis and the
-whole ensemble propagation -- per-layer prediction-NN search, Vecchia GP and
-linked-GP moments, for every imputation -- runs in plain torch per query
-chunk of `_CHUNK` points on the engine's device.  Layer-0 inputs are shared
-across imputations (the global X), so its NN search runs once per chunk;
-deeper layers search each imputation's own latent inputs.
+whole ensemble propagation -- per-layer prediction-NN search, Vecchia or
+dense GP and linked-GP moments, for every imputation -- runs in plain torch
+per query chunk on the engine's device.  Layer-0 inputs are shared across
+imputations (the global X), so its NN search runs once per chunk, and its
+dense inverse once for all chunks; deeper layers work on each imputation's
+own latent inputs, and a dense node's inverses, one per imputation, are
+also computed once.  A dense linked layer holds (n, n) second moments per
+query, so a chunk holds as many queries as a fixed memory budget allows
+(`_chunk_size`).
 
-Not ported yet: dense GP nodes (O1), likelihood nodes (O2) and the IVF
-approximate search (O5).
+Not ported yet: likelihood nodes (O2) and the IVF approximate search (O5).
 """
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, gp_core
 from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
 
 _CHUNK = 2048
-#: extra block diagonals tried, in order, for chunks whose factorisation
-#: comes out non-finite (prediction blocks can be larger than the training m)
-_JITTER_RUNGS = (3e-4, 3e-3)
+#: bytes a chunk's dense linked layer may hold (the JAX package's budget)
+_DENSE_LINK_BUDGET = int(1.5e9)
 
 
 def supported(all_layer_set):
@@ -30,13 +32,11 @@ def supported(all_layer_set):
         for node in layer:
             if node.type != 'gp':
                 return 'likelihood nodes are not ported (ROADMAP.md, O2)'
-            if not node.vecch:
-                return 'dense GP nodes are not ported (ROADMAP.md, O1)'
     return None
 
 
 class CompiledEnsemble:
-    """Chunked ensemble predictor for a trained Vecchia DGP."""
+    """Chunked ensemble predictor for a trained DGP."""
 
     def __init__(self, all_layer_set, device=None):
         why = supported(all_layer_set)
@@ -77,7 +77,7 @@ class CompiledEnsemble:
                 lay_y.append(ys)
                 w_diag = getattr(node, 'W_diag', None)
                 lay_spec.append(dict(
-                    name=node.name,
+                    name=node.name, vecch=bool(node.vecch),
                     input_dim=tuple(int(i) for i in node.input_dim),
                     connect=(None if node.connect is None
                              else tuple(int(i) for i in node.connect)),
@@ -90,6 +90,48 @@ class CompiledEnsemble:
             self.spec.append(lay_spec)
         # F[l] (N, n, width_l): column-stacked gp-node outputs of layer l
         self.F = [torch.stack(self.y_stack[l], dim=2) for l in range(self.n_layer - 1)]
+        # live bytes per query of a dense linked layer: the (n, n) J-moments
+        # and their products of one imputation, since the imputations and
+        # the nodes run one after another (the JAX package, which vmaps the
+        # imputations, counts all N: ensemble.py:114-128)
+        itemsize = torch.finfo(self.dtype).bits // 8
+        self._dense_link_bytes_per_query = max(
+            (3 * self.y_stack[l][k].shape[1] ** 2 * itemsize
+             for l in range(1, self.n_layer) for k, nd in enumerate(self.spec[l])
+             if not nd['vecch']), default=0)
+        # each dense node's (Rinv, Rinv_y), once for every query chunk
+        for l in range(self.n_layer):
+            for k, nd in enumerate(self.spec[l]):
+                if not nd['vecch']:
+                    nd['Rinv'], nd['Rinv_y'] = self._dense_stats(l, nd, self.y_stack[l][k])
+        # only Vecchia nodes take the extra diagonal of the jitter retry
+        self._any_vecch = any(nd['vecch'] for layer in self.spec for nd in layer)
+
+    def _dense_stats(self, l, nd, y):
+        """(Rinv, Rinv_y) of a dense node with outputs y (N, n): layer 0's
+        one inverse (its inputs are global, as the JAX package uses) with
+        each imputation's Rinv_y (N, n); deeper, every imputation's (N, n,
+        n) and (N, n) in one batched call, with the replicate weights on
+        the final layer."""
+        W, _ = self._node_train_inputs(l, nd)
+        if l == 0:
+            Rinv, _ = gp_core.compute_stats(W, y[0], nd['length'], nd['nugget'],
+                                            name=nd['name'])
+            return Rinv, torch.stack([Rinv @ y[i] for i in range(self.N)])
+        w_diag = nd['nug_diag'] if l == self.n_layer - 1 else None
+        return gp_core.compute_stats(W, y, nd['length'], nd['nugget'], name=nd['name'],
+                                     w_diag=w_diag)
+
+    def _chunk_size(self):
+        """Queries per chunk: `_CHUNK`, halved (down to 32) until the
+        largest dense linked layer fits `_DENSE_LINK_BUDGET`."""
+        Mc = _CHUNK
+        per_q = self._dense_link_bytes_per_query
+        if per_q:
+            fit = _DENSE_LINK_BUDGET // per_q
+            while Mc > 32 and Mc > fit:
+                Mc //= 2
+        return Mc
 
     def _node_train_inputs(self, l, nd):
         """(W, shared): training inputs (n, d) shared across imputations
@@ -121,7 +163,24 @@ class CompiledEnsemble:
                 m_eff = min(m_pred, y.shape[1])
                 W, _ = self._node_train_inputs(l, nd)
                 z = x[:, list(nd['connect'])] if nd['connect'] is not None else None
-                if l == 0:
+                if l == 0 and not nd['vecch']:
+                    xq = x[:, list(nd['input_dim'])]
+                    if z is not None:
+                        xq = torch.cat([xq, z], dim=1)
+                    out = [gp_core.gp_predict(xq, W, nd['Rinv'], nd['Rinv_y'][i],
+                                              nd['scale'], nd['length'], nd['nugget'],
+                                              name=nd['name'])
+                           for i in range(self.N)]
+                elif not nd['vecch']:
+                    dl = len(nd['input_dim'])
+                    out = [gp_core.linkgp_predict(
+                        in_mean[i][:, list(nd['input_dim'])],
+                        in_var[i][:, list(nd['input_dim'])], z, W[i][:, :dl],
+                        W[i][:, dl:] if z is not None else None, nd['Rinv'][i],
+                        nd['Rinv_y'][i], nd['scale'], nd['length'], nd['nugget'],
+                        name=nd['name'])
+                        for i in range(self.N)]
+                elif l == 0:
                     xq = x[:, list(nd['input_dim'])]
                     if z is not None:
                         xq = torch.cat([xq, z], dim=1)
@@ -155,14 +214,15 @@ class CompiledEnsemble:
         layer an (N, M, width) numpy array."""
         x = torch.as_tensor(np.asarray(x, config.np_dtype()), device=self.device)
         M = x.shape[0]
+        Mc = self._chunk_size()
         means = [[] for _ in range(self.n_layer)]
         vars_ = [[] for _ in range(self.n_layer)]
-        for s in range(0, M, _CHUNK):
-            xc = x[s:s + _CHUNK]
+        for s in range(0, M, Mc):
+            xc = x[s:s + Mc]
             mc, vc = self._chunk(xc, m_pred, loo, 0.0)
-            # jitter escalation for chunks that factorised non-finite; keep
-            # the healthy entries
-            for extra in _JITTER_RUNGS:
+            # jitter escalation for chunks whose Vecchia blocks factorised
+            # non-finite; keep the healthy entries
+            for extra in vcore.PRED_JITTER_RUNGS if self._any_vecch else ():
                 if all(bool(torch.isfinite(a).all()) for a in mc + vc):
                     break
                 m2, v2 = self._chunk(xc, m_pred, loo, extra)

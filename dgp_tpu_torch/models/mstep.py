@@ -21,36 +21,55 @@ These are unified so that a group shares one batched objective:
     isotropic length is tied lanes);
   * scale profiling and replicate corrections use per-node flags: with
     sum_res = 0 and n_orig = n the replicate terms vanish;
-  * ga and inv_ga priors are both evaluated and selected by a per-node
-    prior id.
+  * ga and inv_ga priors are evaluated per lane and selected by a
+    per-node prior id; the 'ref' prior works on the expanded per-dim
+    lengths and the nugget lane with a zero-padded characteristic length.
 
-Groups are keyed by (kernel name, m + 1).  Not ported yet: dense groups and
-the 'ref' prior (ROADMAP.md, O1).
+Groups are keyed by (mode, kernel name, m + 1): Vecchia groups evaluate
+every objective and gradient through one K1 launch; dense groups (m + 1 =
+0) factor the G nodes' (n, n) matrices in one batched Cholesky and take the
+gradient from autograd.
 """
 import torch
 
+from .. import gp_core
 from ..ops import cuda_vecchia as cv
+from ..ops import kernels as kops
 from ..ops import lbfgs, linalg
 from ..vecchia import core as vcore
 
 #: prior ids of the per-node selector (0: no prior)
-PRIOR_ID = {'ga': 1, 'inv_ga': 2}
+PRIOR_ID = {'ga': 1, 'inv_ga': 2, 'ref': 3}
 
 
-def _prior_lp(lt, op):
-    """Log-prior over each node's own (masked) parameter lanes, and its
-    gradient, in closed form: lt (G, p_max) -> ((G,), (G, p_max))."""
+def _prior_lp(lt, op, ref_lanes):
+    """Log-prior of each node and its gradient with respect to the node's
+    parameters, in closed form: lt (G, p_max) -> ((G,), (G, p_max)).  ga
+    and inv_ga act on the node's own (masked) lanes; 'ref' on the full
+    lanes ``ref_lanes`` = (lengths (G, d_max), nugget (G,)) of lt,
+    contracted back through the tying matrix.  ``ref_lanes`` is None for a
+    group without a 'ref' node, which skips that term."""
     mask = op['param_mask']
     c0, c1 = op['prior_coef'][:, :1], op['prior_coef'][:, 1:]
     lt_safe = lt * mask
     pid = op['prior_id'][:, None]
     lp = torch.zeros_like(lt)
     dlp = torch.zeros_like(lt)
-    for name, i in PRIOR_ID.items():
+    for name in ('ga', 'inv_ga'):
         v, dv = vcore.prior_lanes(lt_safe, name, c0, c1)
-        lp = torch.where(pid == i, v, lp)
-        dlp = torch.where(pid == i, dv, dlp)
-    return (mask * lp).sum(-1), mask * mask * dlp
+        lp = torch.where(pid == PRIOR_ID[name], v, lp)
+        dlp = torch.where(pid == PRIOR_ID[name], dv, dlp)
+    lp, dlp = (mask * lp).sum(-1), mask * mask * dlp
+    if ref_lanes is None:
+        return lp, dlp
+    length_full, nugget = ref_lanes
+    ref, dlen, dnug = gp_core.ref_prior_lanes(length_full, nugget, op['cl'],
+                                              c0[:, 0], c1[:, 0])
+    dref = torch.einsum('gfp,gf->gp', op['A'],
+                        torch.cat([dlen, dnug[:, None]], dim=1))
+    is_ref = pid[:, 0] == PRIOR_ID['ref']
+    return (torch.where(is_ref, ref, lp),
+            torch.where(is_ref[:, None], dref, dlp))
 
 
 def _assemble(logdet, quad, nugget64, op, n):
@@ -76,10 +95,11 @@ def _lanes(lt, op):
     return torch.exp(lt_full[:, :-1]), torch.exp(lt_full[:, -1])
 
 
-def _vecch_fg(lt, op, *, name, d_max, n):
+def _vecch_fg(lt, op, *, name, d_max, n, has_ref):
     """(nll (G,), grad (G, p_max), scale (G,)) of every node of the group
     through one K1 launch.  Operands are in the kernels' transposed
-    (G, m1, ..., n) layout."""
+    (G, m1, ..., n) layout; ``has_ref`` says whether a node of the group
+    has the 'ref' prior."""
     length_full, nugget = _lanes(lt, op)
     Xg, diag, dnug = cv.scale_blocks_t(op['Xg_raw'], op['nug_g'], op['valid'],
                                        length_full, nugget,
@@ -95,26 +115,51 @@ def _vecch_fg(lt, op, *, name, d_max, n):
                                       + (op['n_orig'] - n))
     g_full = torch.cat([g_full[:, :-1], (g_full[:, -1] + g_last)[:, None]], dim=1)
     g_node = torch.einsum('gfp,gf->gp', op['A'].to(torch.float64), g_full).to(lt.dtype)
-    lp, dlp = _prior_lp(lt, op)
+    lp, dlp = _prior_lp(lt, op, (length_full, nugget) if has_ref else None)
     return nll - lp, g_node - dlp, scale
 
 
-def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n):
+def _dense_fg(lt, op, *, name, n, has_ref):
+    """(nll (G,), grad (G, p_max), scale (G,)) of every dense node of the
+    group (gp_core.neg_log_lik semantics with per-node flags): one batched
+    plain Cholesky of the (G, n, n) matrices, the likelihood's gradient by
+    autograd, the prior's in closed form.  A matrix that is not positive
+    definite gives a NaN objective, which fails the L-BFGS Armijo test (the
+    JAX package's dense M-step has no jitter retry either)."""
+    with torch.enable_grad():
+        lt_ = lt.detach().requires_grad_(True)
+        length_full, nugget = _lanes(lt_, op)
+        K = kops.k_matrix(op['X'], length_full[:, None, :], nugget[:, None], name,
+                          op['w_diag'])
+        L = linalg.cholesky(K)
+        logdet = linalg.logdet_from_chol(L)
+        Kinv_y = linalg.cho_solve(L, op['y'][..., None])[..., 0]
+        quad = linalg.sum64(op['y'] * Kinv_y, dim=-1)
+        nll, scale = _assemble(logdet, quad, nugget.to(torch.float64), op, n)
+        g, = torch.autograd.grad(nll.sum(), lt_)
+    lp, dlp = _prior_lp(lt, op, (length_full.detach(), nugget.detach())
+                        if has_ref else None)
+    return nll.detach() - lp, g - dlp, scale.detach()
+
+
+def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref):
     """Batched bounded L-BFGS over one node group.
 
     Args:
         ops: dict of stacked per-node operands (leading axis G).
+        mode: 'vecch' (operands in the kernels' block layout) or 'dense'
+            (the node inputs X (G, n, d_max), y and w_diag (G, n)).
         lt0/lb/ub: (G, p_max) initial log-params and box bounds.
         maxfun: G per-node function-evaluation budgets (host ints).
+        has_ref: whether a node of the group has the 'ref' prior (decided
+            on the host, so that other groups skip its lanes).
     Returns:
         (lt (G, p_max), scale (G,), ok (G,)), ``ok`` marking a finite result.
     """
-    if mode != 'vecch':
-        raise NotImplementedError("the dense M-step is not ported to "
-                                  "dgp_tpu_torch yet (ROADMAP.md, O1)")
-
     def fg(lt):
-        return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n)
+        if mode == 'dense':
+            return _dense_fg(lt, ops, name=name, n=n, has_ref=has_ref)
+        return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n, has_ref=has_ref)
 
     # history=4: the node problems have 1-3 parameters, so a short curvature
     # memory loses nothing.  The profiled scale rides along as aux.

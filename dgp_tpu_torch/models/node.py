@@ -4,14 +4,19 @@
 The node keeps the JAX package's attribute names and numpy attributes
 (hyper-parameters, inputs, outputs, Vecchia ordering and neighbours), so a
 structure can be carried across between the two packages
-(`dgp_tpu_torch.interop`).  The compute lives in the engines
-(models/compiled.py, models/ensemble.py).  Not ported yet: `maximise`, the
-likelihood and prediction methods of a single node, and the dense-GP
-statistics.
+(`dgp_tpu_torch.interop`).  Its single-node methods (`maximise`, `llik`,
+`log_likelihood_func`, `compute_stats`, `gp_prediction`) compute on the
+node's device, ``node.device``, which the gp and dgp classes set (default:
+the card); the SEM engine and the ensemble keep their own copies of the
+state (models/compiled.py, models/ensemble.py).  Not ported yet: the
+linked predictions of a single node (`linkgp_prediction*`, O4).
 """
 import numpy as np
+import torch
 
-from .. import config
+from .. import config, gp_core
+from ..ops import kernels as kops
+from ..ops import lbfgs
 
 
 class kernel:
@@ -52,22 +57,83 @@ class kernel:
         self.input = None
         self.output = None
         self.rep = None
+        self.Rinv = None
+        self.Rinv_y = None
         self.vecch = False
         self.D = None
         self.ord = None
         self.rev_ord = None
         self.m = 25
+        self.pred_m = None
         self.NNarray = None
+        self.nn_method = 'exact'
         self.ord_fun = None
+        self.iter_count = 0
+        self.target = 'dgp'
         self.bds = bds
         self.R2 = None
         self.loo_state = False
         self.sum_residual = None
         self.W_diag = None
+        #: where the single-node methods compute (None: the card)
+        self.device = None
 
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
     @property
     def n_length(self):
         return len(self.length)
+
+    def _X(self):
+        """Node input with the connected global input appended."""
+        if self.global_input is not None:
+            return np.concatenate((self.input, self.global_input), axis=1)
+        return self.input
+
+    def _has_rep(self):
+        return self.W_diag is not None
+
+    def _n_orig(self):
+        return float(len(self.rep)) if self.rep is not None else float(len(self.output))
+
+    def _dev(self):
+        return config.resolve_device(self.device)
+
+    def _t(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or config.default_dtype(),
+                               device=self._dev())
+
+    def _nugget_diag(self):
+        """Per-point nugget multipliers: the replicate weights, or ones."""
+        if self._has_rep():
+            return self._t(self.W_diag)
+        return torch.ones(len(self.output), dtype=config.default_dtype(),
+                          device=self._dev())
+
+    def _core_kw(self):
+        """Keyword arguments of `gp_core.neg_log_lik` for this node."""
+        has_rep = self._has_rep()
+        return dict(name=self.name, n_length=self.n_length, scale_est=self.scale_est,
+                    nugget_est=self.nugget_est, fixed_scale=float(self.scale[0]),
+                    fixed_nugget=float(self.nugget[0]), prior_name=self.prior_name,
+                    prior_coef=(None if self.prior_coef is None
+                                else self._t(self.prior_coef)),
+                    w_diag=self._t(self.W_diag) if has_rep else None,
+                    sum_residual=(float(np.ravel(self.sum_residual)[0])
+                                  if has_rep and self.sum_residual is not None else None),
+                    n_orig=self._n_orig(),
+                    cl=(self._t(self.cl) if self.prior_name == 'ref'
+                        and self.cl is not None else None))
+
+    # ------------------------------------------------------------------
+    # reference-parity methods
+    # ------------------------------------------------------------------
+    def compute_cl(self):
+        """Characteristic length for the 'ref' prior (kernel_class.py:207),
+        kept as a numpy array."""
+        self.cl = gp_core.compute_cl(self._t(self._X()), len(self.output), self.n_length,
+                                     self.vecch).cpu().numpy()
 
     def r2(self, overwritten=False):
         """R^2 of the linear regression global_input -> input
@@ -93,9 +159,146 @@ class kernel:
         else:
             self.R2 = np.vstack((self.R2, rsq))
 
+    def log_t(self):
+        if self.nugget_est:
+            return np.log(np.concatenate((self.length, self.nugget)))
+        return np.log(self.length)
+
+    def update(self, log_theta):
+        theta = np.exp(log_theta)
+        if self.nugget_est:
+            self.length = theta[:-1]
+            self.nugget = theta[[-1]]
+        else:
+            self.length = theta
+
+    def k_matrix(self):
+        """Correlation matrix of the node input, as a numpy array."""
+        w_diag = self._t(self.W_diag) if self._has_rep() else None
+        K = kops.k_matrix(self._t(self._X()), self._t(self.length),
+                          float(self.nugget[0]), self.name, w_diag)
+        return K.cpu().numpy()
+
+    def llik(self, x):
+        """Negative log-likelihood and its gradient with respect to the
+        log-parameters x (kernel_class.py:403); updates a profiled scale."""
+        if self.prior_name == 'ref' and self.cl is None:
+            self.compute_cl()
+        nll, g, scale = gp_core.neg_log_lik_and_grad(
+            self._t(x), self._t(self._X()), self._t(self.output[:, 0]),
+            **self._core_kw())
+        if self.scale_est:
+            self.scale = np.atleast_1d(float(scale)).astype(config.np_dtype())
+        return np.atleast_1d(float(nll)), g.cpu().numpy()
+
+    def _bounds(self):
+        """Optimisation bounds in log space (kernel_class.py:522-578)."""
+        p = len(self.log_t())
+        lb = np.full(p, -np.inf)
+        ub = np.full(p, np.inf)
+        n_len = p - 1 if self.nugget_est else p
+        if self.bds is not None:
+            with np.errstate(divide='ignore'):
+                lb[:n_len] = np.log(self.bds[0])
+                ub[:n_len] = np.log(self.bds[1])
+        elif self.prior_name == 'ref':
+            ub[:n_len] = 13.0
+        if self.nugget_est:
+            lb[-1] = np.log(1e-8)
+        has_bounds = np.any(np.isfinite(lb)) or np.any(np.isfinite(ub))
+        if not has_bounds:
+            return None, None, False
+        big = np.finfo(config.np_dtype()).max / 4
+        return np.clip(lb, -big, big), np.clip(ub, -big, big), True
+
+    def maximise(self, method='L-BFGS-B'):
+        """Maximum-a-posteriori update of the hyper-parameters: bounded
+        L-BFGS (maxiter 100, maxfun max(30, 20 + 5D)) on the node's device;
+        a Vecchia node's objective goes through K1."""
+        if self.vecch:
+            from ..vecchia import api as vecchia_api
+            fg = vecchia_api.objective(self)
+        else:
+            fg = self._dense_objective()
+        lb, ub, has_bounds = self._bounds()
+        maxfun = int(max(30, 20 + 5 * (self.D or self._X().shape[1])))
+        lt, _, _, scale = lbfgs.minimize(
+            fg, self._t(self.log_t())[None],
+            self._t(lb)[None] if has_bounds else None,
+            self._t(ub)[None] if has_bounds else None,
+            maxiter=100, maxfun=maxfun, has_aux=True)
+        lt = lt[0].cpu().numpy()
+        scale = float(scale[0])
+        if np.all(np.isfinite(lt)):
+            self.update(lt)
+            if self.scale_est and np.isfinite(scale):
+                self.scale = np.atleast_1d(np.asarray(scale, config.np_dtype()))
+        self.add_to_path()
+
+    def _dense_objective(self):
+        """The dense M-step objective: fg(lt (1, p)) -> (nll, grad, scale),
+        each with a leading axis of one (`gp_core.neg_log_lik_and_grad`)."""
+        if self.prior_name == 'ref' and self.cl is None:
+            self.compute_cl()
+        X, y, kw = self._t(self._X()), self._t(self.output[:, 0]), self._core_kw()
+
+        def fg(lt):
+            nll, g, scale = gp_core.neg_log_lik_and_grad(lt[0], X, y, **kw)
+            return nll[None], g[None], scale[None]
+        return fg
+
+    def add_to_path(self):
+        para = np.concatenate((self.scale, self.length, self.nugget))
+        if self.para_path is None:
+            self.para_path = np.atleast_2d(para)
+        else:
+            self.para_path = np.vstack((self.para_path, para))
+
+    def log_likelihood_func(self):
+        """Marginal log-likelihood at the current parameters: the ESS
+        acceptance target (a Vecchia node's through K4)."""
+        if self.vecch:
+            from ..vecchia import api as vecchia_api
+            return vecchia_api.log_likelihood_func_vecch(self)
+        ref = self.prior_name == 'ref'
+        return float(gp_core.log_lik_fixed(
+            self._t(self._X()), self._t(self.output[:, 0]), self._t(self.length),
+            float(self.scale[0]), float(self.nugget[0]), name=self.name,
+            w_diag=self._t(self.W_diag) if self._has_rep() else None,
+            ref_prior_coef=self._t(self.prior_coef) if ref else None,
+            n_length=self.n_length, vecch=False))
+
+    def compute_stats(self):
+        """Cache Rinv and Rinv_y (numpy) for dense prediction
+        (kernel_class.py:735)."""
+        Rinv, Rinv_y = gp_core.compute_stats(
+            self._t(self._X()), self._t(self.output[:, 0]), self._t(self.length),
+            float(self.nugget[0]), name=self.name,
+            w_diag=self._t(self.W_diag) if self._has_rep() else None)
+        self.Rinv, self.Rinv_y = Rinv.cpu().numpy(), Rinv_y.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # predictions
+    # ------------------------------------------------------------------
+    def gp_prediction(self, x, z):
+        """Dense or Vecchia GP prediction at x (M, d) with global input z:
+        (mean (M,), var (M,)) as numpy arrays."""
+        if self.vecch:
+            from ..vecchia import api as vecchia_api
+            return vecchia_api.gp_prediction_vecch(self, x, z)
+        if z is not None:
+            x = np.concatenate((x, z), axis=1)
+        if self.Rinv is None:
+            self.compute_stats()
+        m, v = gp_core.gp_predict(self._t(x), self._t(self._X()), self._t(self.Rinv),
+                                  self._t(self.Rinv_y), float(self.scale[0]),
+                                  self._t(self.length), float(self.nugget[0]),
+                                  name=self.name)
+        return m.cpu().numpy(), v.cpu().numpy()
+
     def ord_nn(self, ord=None, NNarray=None, device=None):
         """Vecchia ordering and neighbours (kernel_class.py:245); the NN
-        search runs on ``device``."""
+        search runs on ``device`` (default: the node's)."""
         from ..vecchia import api as vecchia_api
         vecchia_api.ord_nn(self, ord=ord, NNarray=NNarray, device=device)
         # invalidates the engines' cached device copies

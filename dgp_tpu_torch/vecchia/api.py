@@ -1,17 +1,26 @@
-"""Vecchia integration with the kernel class: ordering and neighbour
-construction (reference kernel_class.ord_nn); the counterpart of the
-ordering part of `dgp_tpu/vecchia/api.py`.  Not ported yet: the
-node-level M-step and prediction entry points (the SEM M-step lives in
-models/mstep.py) and the self-excluded neighbour sets of the Hetero exact
-posterior (``pointer``).
+"""Vecchia integration with the kernel and gp classes; the counterpart of
+`dgp_tpu/vecchia/api.py`.
+
+Ordering and neighbour construction (reference kernel_class.ord_nn), and
+the single-node entry points: the log-likelihood at fixed parameters (the
+ESS target, through K4), the M-step objective of `kernel.maximise`
+(objective and gradient through K1, one node as a group of one),
+prediction and the gp class's LOO.  All run on the node's device (``node.device``; default: the card).
+Not ported yet: the self-excluded neighbour sets of the Hetero exact
+posterior (``pointer``, O3), the node's linked prediction (O4) and the
+approximate search (``nn_method='approx'``, O5).
 """
 import numpy as np
+import torch
 
-from . import nn as nnmod
+from .. import config, gp_core
+from ..ops import cuda_vecchia as cv
+from . import core, nn as nnmod
 
 
 def ord_nn(node, ord=None, NNarray=None, device=None):
-    """Set the Vecchia ordering and neighbour structure on a GP node."""
+    """Set the Vecchia ordering and neighbour structure on a GP node; the
+    search runs on ``device`` (default: the node's)."""
     if ord is None:
         if node.ord_fun is None:
             node.ord = np.random.permutation(node.input.shape[0])
@@ -22,14 +31,97 @@ def ord_nn(node, ord=None, NNarray=None, device=None):
     node.rev_ord = np.argsort(node.ord)
     if NNarray is None:
         X = _scaled_input(node)
-        node.NNarray = nnmod.nn(X[node.ord], node.m, device=device)
+        dev = config.resolve_device(device if device is not None else node.device)
+        node.NNarray = nnmod.nn(X[node.ord], node.m, device=dev)
     else:
         node.NNarray = np.asarray(NNarray)
 
 
 def _scaled_input(node):
-    if node.global_input is not None:
-        X = np.concatenate((node.input, node.global_input), axis=1)
-    else:
-        X = node.input
-    return X / node.length
+    return node._X() / node.length
+
+
+def _with_jitter_retry(f, *args):
+    """Run a (mean, var) prediction ``f(*args, extra_jit)``, again with the
+    larger diagonals of `core.PRED_JITTER_RUNGS` for the rows that come out
+    non-finite; returns numpy arrays."""
+    mean, var = f(*args, 0.0)
+    bad = ~(torch.isfinite(mean) & torch.isfinite(var))
+    for extra in core.PRED_JITTER_RUNGS:
+        if not bool(bad.any()):
+            break
+        m2, v2 = f(*args, extra)
+        mean = torch.where(bad, m2, mean)
+        var = torch.where(bad, v2, var)
+        bad = ~(torch.isfinite(mean) & torch.isfinite(var))
+    return mean.cpu().numpy(), var.cpu().numpy()
+
+
+# ----------------------------------------------------------------------
+# node-level entry points
+# ----------------------------------------------------------------------
+def log_likelihood_func_vecch(node):
+    """Vecchia log-likelihood of the node at its parameters (one K4 launch),
+    with the 'ref' prior term at the characteristic length of its input."""
+    ordv = node._t(node.ord, torch.int64)
+    X = node._t(node._X()[node.ord])
+    ll = core.vecchia_llik(X, node._t(node.output[node.ord, 0]),
+                           node._t(node.NNarray, torch.int64), float(node.scale[0]),
+                           node._t(node.length), float(node.nugget[0]),
+                           node._nugget_diag()[ordv], node.name)
+    if node.prior_name == 'ref':
+        cl = gp_core.compute_cl(X, X.shape[0], node.n_length, True)
+        ll = ll + gp_core.log_prior(node._t(node.length), float(node.nugget[0]),
+                                    prior_name='ref', prior_coef=node._t(node.prior_coef),
+                                    nugget_est=False, cl=cl)
+    return float(ll)
+
+
+def objective(node):
+    """A Vecchia node's M-step objective for `kernel.maximise`: fg(lt (1,
+    p)) -> (nll, grad, scale), each with a leading axis of one.  The blocks
+    are gathered once; every evaluation is one K1 launch
+    (`core.vecchia_nllik_fg`)."""
+    ordv = node._t(node.ord, torch.int64)
+    Xo = node._t(node._X()[node.ord])
+    yo = node._t(node.output[node.ord, 0])
+    NN = node._t(node.NNarray, torch.int64)
+    nd = node._nugget_diag()[ordv]
+    kw = node._core_kw()
+    del kw['w_diag'], kw['cl']      # replicates enter through nd; cl from Xo
+    kw['raw'] = cv.gather_raw_t(Xo, yo, NN, nd)
+
+    def fg(lt):
+        nll, g, scale = core.vecchia_nllik_fg(lt[0], Xo, yo, NN, nd, **kw)
+        return nll[None], g[None], torch.as_tensor(scale)[None]
+    return fg
+
+
+def gp_prediction_vecch(node, x, z):
+    """Vecchia GP prediction at x (M, d) with global input z: the m
+    nearest training points of each query (``node.pred_m``, default 50;
+    one fewer, the query itself, in the LOO state)."""
+    if z is not None:
+        x = np.concatenate((x, z), axis=1)
+    w = node._X()
+    NNarray = nnmod.get_pred_nn(x / node.length, w / node.length,
+                                node.pred_m or 50, device=node._dev())
+    if node.loo_state:
+        NNarray = NNarray[:, 1:]
+    return _with_jitter_retry(
+        core.gp_vecch, node._t(x), node._t(w), node._t(NNarray, torch.int64),
+        node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),
+        float(node.nugget[0]), node._nugget_diag(), node.name)
+
+
+def loo_gp(gp_model, m):
+    """Vecchia LOO for the gp class (reference gp.loo, Vecchia path)."""
+    node = gp_model.kernel
+    X = gp_model.X
+    X_scale = X / node.length
+    NNarray = nnmod.get_pred_nn(X_scale, X_scale, m + 1, device=node._dev())
+    mean, var = _with_jitter_retry(
+        core.loo_gp_vecch, node._t(X), node._t(NNarray, torch.int64),
+        node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),
+        float(node.nugget[0]), node._nugget_diag(), node.name)
+    return mean.reshape(-1, 1), var.reshape(-1, 1)

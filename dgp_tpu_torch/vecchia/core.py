@@ -13,11 +13,12 @@ objective with its analytic gradient (`vecchia_nllik_fg`, K1) and the
 conditional weights of ancestral sampling (`cond_weights`, K3).
 `vecchia_nllik` keeps the masked-block form with an autograd gradient as
 the reference for K1.  Prediction (`gp_vecch`, `link_gp_vecch`) is
-batched torch.linalg.
+batched torch.linalg, and so is the closed-form LOO (`loo_gp_vecch`).
 """
 import numpy as np
 import torch
 
+from .. import gp_core
 from ..ops import cuda_vecchia as cv
 from ..ops import kernels as kops
 from ..ops import linalg
@@ -29,6 +30,13 @@ def _f32_jitter(dtype):
     3e-5 floor (small against the usual 1e-4..1e-2 estimated nuggets,
     invisible in float64) keeps the factorisations finite."""
     return 3e-5 if dtype == torch.float32 else 0.0
+
+
+#: extra block diagonals that callers of the predictions (`gp_vecch`,
+#: `link_gp_vecch`, `loo_gp_vecch`) try, in order, for rows whose
+#: factorisation comes out non-finite (prediction blocks can be larger than
+#: the training m); the healthy rows are kept
+PRED_JITTER_RUNGS = (3e-4, 3e-3)
 
 
 def _eye_like(K):
@@ -116,27 +124,32 @@ def prior_lanes(lt, prior_name, c0, c1):
     """Per-lane log-prior of log-parameters lt and its derivative, for the
     gamma ('ga') and inverse-gamma ('inv_ga') priors with the adjusted
     coefficients (c0, c1) the nodes store (reference kernel_class.py:
-    367-401).  The 'ref' prior depends on the inputs and is not ported."""
+    367-401).  The 'ref' prior couples the lanes through the inputs'
+    characteristic length: `gp_core.ref_prior_lanes`."""
     if prior_name == 'ga':
         e = torch.exp(lt)
         return c0 * lt - c1 * e, c0 - c1 * e
     if prior_name == 'inv_ga':
         e = torch.exp(-lt)
         return -c0 * lt - c1 * e, -c0 + c1 * e
-    if prior_name == 'ref':
-        raise NotImplementedError("the 'ref' prior is not ported to dgp_tpu_torch "
-                                  "yet (ROADMAP.md, O1)")
-    raise ValueError(f"unknown prior: {prior_name}")
+    raise ValueError(f"no per-lane form for the prior: {prior_name}")
 
 
 def vecchia_nllik_fg(log_theta, X, y, NNarray, nugget_diag, *, name, n_length,
                      scale_est, nugget_est, fixed_scale, fixed_nugget, n_orig,
-                     sum_residual, prior_name=None, prior_coef=None):
+                     sum_residual, prior_name=None, prior_coef=None, raw=None):
     """Profiled Vecchia negative log-likelihood AND its gradient with
     respect to the log-parameters, through the K1 kernel's analytic
-    gradient (dgpsi/vecchia.py:182-242).  Returns (nll, grad, scale)."""
+    gradient (dgpsi/vecchia.py:182-242).  Returns (nll, grad, scale).
+
+    ``raw`` optionally carries the parameter-independent block gathers of
+    `cv.gather_raw_t`, so that the evaluations of one optimisation gather
+    once.  The 'ref' prior's characteristic length comes from X as the
+    Vecchia node computes it (`gp_core.compute_cl` with vecch=True)."""
     length, nugget = _params(log_theta, nugget_est, fixed_nugget)
-    Xg_raw, yg, nug_g, valid = cv.gather_raw_t(X, y, NNarray, nugget_diag)
+    if raw is None:
+        raw = cv.gather_raw_t(X, y, NNarray, nugget_diag)
+    Xg_raw, yg, nug_g, valid = raw
     Xg, diag, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, length, nugget,
                                        _f32_jitter(X.dtype))
     logdet_i, quad_i, dlogdet_i, dquad_i = cv.block_nllik_grad_parts_t(
@@ -153,8 +166,15 @@ def vecchia_nllik_fg(log_theta, X, y, NNarray, nugget_diag, *, name, n_length,
         g[-1] = g[-1] + 0.5 * (-sum_residual / (scale * nug64) + (n_orig - n))
     if prior_name is not None:
         c = torch.as_tensor(prior_coef, dtype=log_theta.dtype, device=log_theta.device)
-        lp, dlp = prior_lanes(log_theta, prior_name, c[0], c[1])
-        nll = nll - lp.sum()
+        if prior_name == 'ref':
+            cl = gp_core.compute_cl(X, n, n_length, True)
+            nug = torch.as_tensor(nugget, dtype=log_theta.dtype, device=log_theta.device)
+            lp, dlen, dnug_lp = gp_core.ref_prior_lanes(length, nug, cl, c[0], c[1])
+            dlp = torch.cat([dlen, dnug_lp[None]]) if nugget_est else dlen
+        else:
+            lp, dlp = prior_lanes(log_theta, prior_name, c[0], c[1])
+            lp = lp.sum()
+        nll = nll - lp
         g = g - dlp
     return nll, g.to(log_theta.dtype), scale
 
@@ -295,6 +315,29 @@ def gp_vecch(x, w_train, NNarray, y, scale, length, nugget, nugget_diag, name,
     K = K + extra_jit * _eye_like(K)
     L = linalg.chol_small(K)
     Ly = linalg.fwd_solve_small(L[:, :-1, :-1], yi)
+    mean = torch.einsum('ij,ij->i', L[:, -1, :-1], Ly)
+    var = scale * L[:, -1, -1] ** 2
+    return mean, var
+
+
+def loo_gp_vecch(x, NNarray, y, scale, length, nugget, nugget_diag, name,
+                 extra_jit=0.0):
+    """Batched LOO under Vecchia (reference loo_gp_vecch): NNarray rows are
+    self-inclusive NN (self first); the block is reversed so self sits last
+    and is predicted from the others."""
+    rev = torch.flip(NNarray, dims=(1,))
+    valid = rev >= 0
+    safe = torch.where(valid, rev, 0)
+    Xi = x[safe]
+    yi = torch.where(valid, y[safe], 0.0)
+    nug = nugget * nugget_diag[safe]
+    K = kops.k_cross(Xi, Xi, length, name)
+    both = valid[:, :, None] & valid[:, None, :]
+    K = torch.where(both, K, _eye_like(K))
+    K = kops.set_diag(K, torch.where(valid, 1.0 + nug + _f32_jitter(K.dtype), 1.0))
+    K = K + extra_jit * _eye_like(K)
+    L = linalg.chol_small(K)
+    Ly = linalg.fwd_solve_small(L[:, :-1, :-1], yi[:, :-1])
     mean = torch.einsum('ij,ij->i', L[:, -1, :-1], Ly)
     var = scale * L[:, -1, -1] ** 2
     return mean, var

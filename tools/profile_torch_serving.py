@@ -6,12 +6,15 @@ m=25, hyper-parameters from dgp_tpu_torch/data/vecchia_si_n2000.json) once
 to warm up, then profiles `emulator(..., N=5)` and `predict` on 20000
 points separately; then trains chip_smoke.py's training configuration
 (bench.py's starting hyper-parameters) for 48 warm-up iterations and
-profiles 4 warm SEM iterations (`train(N=4)`, no NN refresh inside).  For
-each window it prints one JSON line: wall seconds, the summed device time
-of all kernels, their share of the wall time, the launches of each
-hand-written kernel, and the top operators by device time and by host
-time.  With a directory argument it also writes
-each window's Chrome trace there.  Usage, from the repository root:
+profiles 4 warm SEM iterations (`train(N=4)`, no NN refresh inside).  Then
+chip_smoke.py's dense DGP (the parity row `2d`): 20 warm-up iterations and
+5 profiled ones; and its gp phase's protocol: the dense `train()` and, after
+`to_vecchia(m=25)`, the Vecchia `train()`.  For each window it prints one
+JSON line: wall seconds, the summed device time of all kernels, their share
+of the wall time, the kernel launches (all, and of each hand-written
+kernel), and the top operators by device time and by host time.  With a
+directory argument it also writes each window's Chrome trace there.
+Usage, from the repository root:
 
     python3 tools/profile_torch_serving.py [TRACE_DIR]
 """
@@ -54,8 +57,10 @@ def window(name, fn, out_dir):
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
+    all_launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
     print(json.dumps({"window": name, "wall_s": wall, "device_kernel_s": busy,
                       "device_busy_share": busy / wall, "launches": launches,
+                      "cuda_launch_kernel_calls": all_launches,
                       "top_device": _top(ev, "self_device_time_total"),
                       "top_host": _top(ev, "self_cpu_time_total")}), flush=True)
 
@@ -90,6 +95,30 @@ def main():
     mt.train(N=chip_smoke.TRAIN_WARM, disable=True, chunk_size=16)
     # iterations 49-52: no power-of-2 boundary, so no NN refresh inside
     window("sem4", lambda: mt.train(N=4, disable=True, chunk_size=16), out_dir)
+
+    X2, Y2, _, _ = chip_smoke.twod_data()
+    nb_seed(99)
+
+    def k(**kw):
+        return dgp_tpu_torch.kernel(length=np.array([1]), name='sexp', **kw)
+
+    md = dgp(X2, [Y2], dgp_tpu_torch.combine(
+        [k(), k()], [k(connect=np.arange(2)), k(connect=np.arange(2))],
+        [k(connect=np.arange(2)), k(connect=np.arange(2))],
+        [k(scale_est=True, connect=np.arange(2))]), device=dev)
+    md.train(N=20, disable=True)
+    window("dense_sem5", lambda: md.train(N=5, disable=True), out_dir)
+
+    p = json.loads((Path(dgp_tpu_torch.__file__).parent / "data"
+                    / "gp_n2000.json").read_text())["protocol"]
+    kern = dgp_tpu_torch.kernel(length=np.array([p["length"]]), name=p["kernel"],
+                                nugget=p["nugget"], scale_est=p["scale_est"],
+                                nugget_est=p["nugget_est"])
+    g = dgp_tpu_torch.gp(X, Y, kern, device=dev)
+    window("gp_dense_train", g.train, out_dir)
+    np.random.seed(p["vecchia_ord_seed"])
+    g.to_vecchia(m=p["vecchia_m"])
+    window("gp_vecchia_train", g.train, out_dir)
     return 0
 
 
