@@ -4,10 +4,12 @@ The same model code as the JAX package (`dgp_tpu`), on tensors, with the
 JAX package's Pallas kernels replaced by hand-written CUDA kernels for
 NVIDIA Hopper (ops/cuda_vecchia.py, csrc/).  It covers the single-GP emulator
 `gp` (dense or Vecchia: training, prediction, LOO, the ALM/MICE/VIGF
-design criteria) and GP-only DGPs of dense or Vecchia nodes with the ga,
-inv_ga and 'ref' priors: construction with the initial imputation, SEM
-training (`dgp.train`, block or node-wise ESS), the emulator's imputation
-draws and its mean/variance prediction.  What is not ported yet is listed
+design criteria) and DGPs of dense or Vecchia GP nodes with the ga,
+inv_ga and 'ref' priors, with or without a final likelihood layer
+(Poisson, Hetero, NegBin, Categorical, ZIP, ZINB): construction with the
+initial imputation, SEM training (`dgp.train`, block or node-wise ESS, the
+exact draw of the Hetero mean), the emulator's imputation draws, its
+mean/variance prediction and `nllik`.  What is not ported yet is listed
 in ROADMAP.md.
 
 Every entry point runs on the current CUDA device unless its ``device``
@@ -19,6 +21,7 @@ from . import config  # noqa: F401  (sets the TF32 switches)
 from .config import set_default_dtype, default_dtype  # noqa: F401
 from .rng import nb_seed  # noqa: F401
 from .models.node import kernel, combine  # noqa: F401
+from .likelihoods import Poisson, Hetero, NegBin, Categorical, ZIP, ZINB  # noqa: F401
 from .models.gp import gp  # noqa: F401
 from .models.dgp import dgp  # noqa: F401
 from .models.emulation import emulator  # noqa: F401

@@ -223,9 +223,14 @@ inline cudaError_t plan_block(const void* kernel, size_t per_point, int* warps, 
   while (w > 1 && w * per_point > SMEM_DEFAULT) w /= 2;
   *warps = w;
   *bytes = w * per_point;
-  if (*bytes > SMEM_DEFAULT)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*bytes);
+  if (*bytes > SMEM_DEFAULT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+    // a refused opt-in is reported here; it must not stay behind as the
+    // error that the next launch's check reads
+    if (err != cudaSuccess) cudaGetLastError();
+    return err;
+  }
   return cudaSuccess;
 }
 

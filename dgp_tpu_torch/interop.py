@@ -10,23 +10,51 @@ coefficients are the node's adjusted ones (and, for 'ref', already
 extended by the initialisation), so the constructor does not adjust them
 again.  The training traces (``para_path``, ``R2``) come across too, so
 that a model trained in one package can be estimated by, or continue
-training in, the other.
+training in, the other.  A likelihood node comes across by its ``type``
+and ``name`` with the keys of `LIK_KEYS` (a Categorical node's label
+encoder as its ``classes``).
 """
 import numpy as np
 
+from . import likelihoods, utils
 from .models.node import kernel
 
 #: node attributes carried across
 NODE_KEYS = ('name', 'scale', 'length', 'nugget', 'nugget_est', 'scale_est',
              'prior_name', 'prior_coef', 'bds', 'cl', 'input_dim', 'connect',
              'input', 'global_input', 'output', 'W_diag', 'sum_residual', 'rep',
-             'vecch', 'ord', 'NNarray', 'm', 'para_path', 'R2')
+             'vecch', 'ord', 'NNarray', 'imp_NNarray', 'm', 'para_path', 'R2')
+#: likelihood-node attributes carried across (besides type and name)
+LIK_KEYS = ('input_dim', 'input', 'output', 'rep', 'exact_post_idx', 'link',
+            'num_classes', 'robustmax_eps')
 _ARRAYS = ('input', 'global_input', 'output', 'para_path', 'R2', 'W_diag',
            'sum_residual', 'cl')
 
 
+def _lik_from_numpy(d):
+    """One likelihood node from a dict of its attributes."""
+    cls = getattr(likelihoods, d['name'])
+    if d['name'] == 'Categorical':
+        node = cls(num_classes=d.get('num_classes'), link=d.get('link'),
+                   robustmax_eps=d.get('robustmax_eps', 1e-3))
+        if d.get('classes') is not None:
+            node.class_encoder = utils.LabelEncoder()
+            node.class_encoder.classes_ = np.asarray(d['classes'])
+    else:
+        node = cls()
+    for key in ('input_dim', 'input', 'output', 'exact_post_idx'):
+        if d.get(key) is not None:
+            setattr(node, key, np.asarray(d[key]))
+    if d.get('rep') is not None:
+        node.rep = np.asarray(d['rep'], np.int64)
+    return node
+
+
 def node_from_numpy(d):
-    """One `kernel` from a dict of its attributes."""
+    """One node from a dict of its attributes: a `kernel`, or a likelihood
+    node when ``d['type']`` says so."""
+    if d.get('type') == 'likelihood':
+        return _lik_from_numpy(d)
     node = kernel(length=np.asarray(d['length']), scale=d.get('scale', 1.0),
                   nugget=d.get('nugget', 1e-6), name=d.get('name', 'sexp'),
                   prior_name=d.get('prior_name', 'ga'), bds=d.get('bds'),
@@ -48,6 +76,8 @@ def node_from_numpy(d):
         node.rev_ord = np.argsort(node.ord)
         node.NNarray = np.asarray(d['NNarray'], np.int64)
         node.vecch = True
+    if d.get('imp_NNarray') is not None:
+        node.imp_NNarray = np.asarray(d['imp_NNarray'], np.int64)
     if d.get('m') is not None:
         node.m = int(d['m'])
     if node.input is not None:
@@ -59,12 +89,19 @@ def node_from_numpy(d):
 
 
 def node_to_numpy(node):
-    """The dict of `NODE_KEYS` attributes of a node of either package."""
+    """The dict of a node of either package: the `NODE_KEYS` attributes of a
+    GP node, or type, name and the `LIK_KEYS` of a likelihood node."""
+    if node.type == 'likelihood':
+        d = {k: getattr(node, k, None) for k in LIK_KEYS}
+        enc = getattr(node, 'class_encoder', None)
+        d.update(type='likelihood', name=node.name,
+                 classes=None if enc is None else np.asarray(enc.classes_))
+        return d
     return {k: getattr(node, k, None) for k in NODE_KEYS}
 
 
 def layers_from_numpy(spec):
-    """The port's ``all_layer`` (list of layers of `kernel`s) from a list of
+    """The port's ``all_layer`` (list of layers of nodes) from a list of
     layers of per-node dicts."""
     return [[node_from_numpy(d) for d in layer] for layer in spec]
 

@@ -16,9 +16,11 @@ all on the engine's device.  The JAX package traces a chunk of SEM
 iterations into one program; here `train_chunk` is a plain loop that runs
 eagerly, with the ESS rounds' host checks as its only synchronisations.
 
-The kernels carry the Vecchia hot paths on every device (on the CPU their
-wrappers run the plain versions): K2 evaluates the ESS candidates of a
-layer through maintained angle views (`_build_angle_plan` / `_plan_ll`), K3
+The kernels carry the Vecchia hot paths (on the CPU their wrappers run
+the plain versions; on the card, blocks outside the kernels' bounds --
+`ops.cuda_vecchia.use_kernel` -- are refused): K2 evaluates the ESS
+candidates of a layer through maintained angle views
+(`_build_angle_plan` / `_plan_ll`), K3
 gives the prior draws' conditional weights (`vecchia.core.cond_weights`),
 K4 the per-node log-likelihood (`_gp_loglik`) of node-wise ESS and of the
 block ESS of layers the angle views do not cover (upper nodes with the
@@ -27,14 +29,20 @@ M-step group (`models/mstep.py`).  Dense GP nodes factor their (n, n)
 matrices with torch.linalg (prior draws, log-likelihoods, the batched dense
 M-step), as the JAX package does with XLA.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-likelihood nodes and their exact Gibbs steps (O2), approximate-NN refresh
-(O5).
+A final layer may hold likelihood nodes (`likelihoods.py`): their
+log-likelihood of the last hidden layer is a term of that layer's ESS
+target (evaluated on all candidates of a round in one call), they have no
+hyper-parameters, and the mean of a Hetero node is drawn exactly
+(`_post_het`, or `vecchia.core.post_het_vecch` for a Vecchia node), which
+makes its layer node-wise.
+
+Not ported yet: the approximate-NN search and its refresh (O5); `dgp` and
+`gp` raise NotImplementedError at the data sizes that would need it.
 """
 import numpy as np
 import torch
 
-from .. import config, gp_core
+from .. import config, gp_core, likelihoods
 from ..ess import ess_update
 from ..ops import cuda_vecchia as cv
 from ..ops import kernels as kops
@@ -44,23 +52,24 @@ from ..vecchia import nn as vnn
 from . import mstep
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to dgp_tpu_torch yet "
-                               f"(ROADMAP.md, {item})")
-
-
 class NodeSpec:
-    """Static description of one GP node."""
+    """Static description of one node (GP or likelihood)."""
 
     def __init__(self, obj, layer, n_layer):
-        self.kind = obj.type
-        if self.kind != 'gp':
-            raise _not_ported("likelihood nodes", "O2")
+        self.kind = obj.type  # 'gp' | 'likelihood'
         self.name = obj.name
         self.input_dim = tuple(int(i) for i in obj.input_dim)
         self.connect = None if getattr(obj, 'connect', None) is None else \
             tuple(int(i) for i in obj.connect)
         self.is_final = layer == n_layer - 1
+        if self.kind != 'gp':
+            self.link = getattr(obj, 'link', None)
+            self.num_classes = getattr(obj, 'num_classes', None)
+            self.robustmax_eps = getattr(obj, 'robustmax_eps', 1e-3)
+            self.exact_post_idx = getattr(obj, 'exact_post_idx', None)
+            self.has_rep = obj.rep is not None
+            self.vecch = False
+            return
         self.n_length = len(obj.length)
         self.scale_est = bool(obj.scale_est)
         self.nugget_est = bool(obj.nugget_est)
@@ -86,6 +95,8 @@ class CompiledDGP:
         self.spec = [[NodeSpec(node, l, self.n_layer) for node in layer]
                      for l, layer in enumerate(all_layer)]
         self.dtype = config.default_dtype()
+        #: exact Hetero-mean draws made so far, by path
+        self.exact_draws = {'dense': 0, 'vecchia': 0}
         self._extract_data()
 
     def _t(self, a, dtype=None):
@@ -114,15 +125,33 @@ class CompiledDGP:
                     X[:, list(sp.connect)] = node.global_input
         self.X = self._t(X)
         self.n = n
-        self.y_final, self.w_diag, self.sum_res = [], [], []
-        self.n_orig = float(n)
+        self.y_final, self.w_diag, self.sum_res, self.y_lik = [], [], [], []
+        rep = None
         for node, sp in zip(self.all_layer[-1], self.spec[-1]):
-            self.y_final.append(self._t(node.output[:, 0]))
-            self.w_diag.append(self._t(node.W_diag) if sp.has_rep else None)
+            is_gp = sp.kind == 'gp'
+            self.y_final.append(self._t(node.output[:, 0]) if is_gp else None)
+            self.y_lik.append(None if is_gp else self._t(node.output))
+            self.w_diag.append(self._t(node.W_diag) if is_gp and sp.has_rep else None)
             self.sum_res.append(float(np.ravel(node.sum_residual)[0])
-                                if sp.has_rep else None)
+                                if is_gp and sp.has_rep else None)
             if sp.has_rep:
-                self.n_orig = float(len(node.rep))
+                rep = np.asarray(node.rep)
+        self.n_orig = float(n) if rep is None else float(len(rep))
+        self.rep = None if rep is None else self._t(rep, torch.int64)
+        if rep is not None:
+            # (n, most replicates) observation indices of each site, padded:
+            # sums over a site's replicates as a gather and a row sum, which
+            # add in the same order on every run (an index_add_ on the card
+            # adds atomically, in no fixed order)
+            order = np.argsort(rep, kind='stable')
+            counts = np.bincount(rep, minlength=n)
+            col = np.arange(len(rep)) - np.repeat(np.cumsum(counts) - counts, counts)
+            pad = np.zeros((n, int(counts.max())), np.int64)
+            mask = np.zeros(pad.shape, bool)
+            pad[rep[order], col] = order
+            mask[rep[order], col] = True
+            self._rep_pad = self._t(pad, torch.int64)
+            self._rep_mask = self._t(mask, torch.bool)
 
     def get_state(self):
         dt = config.np_dtype()
@@ -132,7 +161,8 @@ class CompiledDGP:
         params = tuple(
             tuple({'length': self._t(node.length),
                    'nugget': self._t(node.nugget[0]),
-                   'scale': self._t(node.scale[0])} for node in layer)
+                   'scale': self._t(node.scale[0])} if node.type == 'gp' else None
+                  for node in layer)
             for layer in self.all_layer)
         return latents, params
 
@@ -149,9 +179,12 @@ class CompiledDGP:
             lay = []
             for node, sp in zip(layer, specs):
                 if sp.vecch:
-                    lay.append({'ord': self._t(node.ord, torch.int64),
-                                'rev': self._t(np.argsort(node.ord), torch.int64),
-                                'NN': self._t(node.NNarray, torch.int64)})
+                    d = {'ord': self._t(node.ord, torch.int64),
+                         'rev': self._t(np.argsort(node.ord), torch.int64),
+                         'NN': self._t(node.NNarray, torch.int64)}
+                    if node.imp_NNarray is not None:
+                        d['impNN'] = self._t(node.imp_NNarray, torch.int64)
+                    lay.append(d)
                 else:
                     lay.append(None)
             out.append(tuple(lay))
@@ -169,6 +202,8 @@ class CompiledDGP:
                 node.ord = d['ord'].cpu().numpy()
                 node.rev_ord = np.argsort(node.ord)
                 node.NNarray = d['NN'].cpu().numpy()
+                if 'impNN' in d:
+                    node.imp_NNarray = d['impNN'].cpu().numpy()
                 node.nn_version = getattr(node, 'nn_version', 0) + 1
 
     def supports_device_refresh(self):
@@ -184,7 +219,9 @@ class CompiledDGP:
         device (the role of imputation.update_ord_nn, reference
         dgp.py:1388-1389): a random permutation from ``gen`` and an exact
         NN search of the length-scaled, reordered inputs.  Same-wiring
-        isotropic nodes of a layer share one ordering (dgp.py:643-663)."""
+        isotropic nodes of a layer share one ordering (dgp.py:643-663),
+        but for a node that carries the self-excluded neighbour sets of the
+        Hetero exact draw (``imp_NNarray``), which are rebuilt with it."""
         latents, params = state
         built = {}
         for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
@@ -192,8 +229,10 @@ class CompiledDGP:
                 if not sp.vecch:
                     built[(l, k)] = None
                     continue
+                needs_imp = node.imp_NNarray is not None
                 share = next(((l, j) for j in range(k)
-                              if (self.spec[l][j].vecch
+                              if (self.spec[l][j].vecch and not needs_imp
+                                  and layer[j].imp_NNarray is None
                                   and self.spec[l][j].n_length == 1 and sp.n_length == 1
                                   and self.spec[l][j].input_dim == sp.input_dim
                                   and self.spec[l][j].connect == sp.connect
@@ -206,6 +245,8 @@ class CompiledDGP:
                 Xo = (Xn / params[l][k]['length'])[ordv]
                 built[(l, k)] = {'ord': ordv, 'rev': torch.argsort(ordv),
                                  'NN': vnn._nn_ordered_impl(Xo, int(node.m))}
+                if needs_imp:
+                    built[(l, k)]['impNN'] = vnn._pred_nn_impl(Xo, Xo, int(node.m))[:, 1:]
         return tuple(tuple(built[(l, k)] for k in range(len(layer)))
                      for l, layer in enumerate(self.spec))
 
@@ -216,11 +257,13 @@ class CompiledDGP:
             In = None if l == 0 else latents[l - 1]
             for k, (node, sp) in enumerate(zip(layer, specs)):
                 p = params[l][k]
-                node.length = np.atleast_1d(p['length'].cpu().numpy())
-                node.nugget = np.atleast_1d(p['nugget'].cpu().numpy())
-                node.scale = np.atleast_1d(p['scale'].cpu().numpy())
+                if p is not None:
+                    node.length = np.atleast_1d(p['length'].cpu().numpy())
+                    node.nugget = np.atleast_1d(p['nugget'].cpu().numpy())
+                    node.scale = np.atleast_1d(p['scale'].cpu().numpy())
                 if l > 0:
-                    node.input = In[:, list(sp.input_dim)]
+                    rows = In[node.rep] if sp.kind != 'gp' and sp.has_rep else In
+                    node.input = rows[:, list(sp.input_dim)]
                 if l < self.n_layer - 1:
                     node.output = latents[l][:, [k]].copy()
 
@@ -271,10 +314,29 @@ class CompiledDGP:
                                         prior_coef=ref_coef, nugget_est=False, cl=cl)
         return ll
 
+    def _lik_loglik(self, k, latents):
+        """Log-likelihood of the final layer's likelihood node k given the
+        last hidden layer: a scalar, or (K,) when that layer's latents carry
+        K candidates, (K, n, M), all evaluated in one call."""
+        sp = self.spec[-1][k]
+        f = latents[self.n_layer - 2]
+        if sp.has_rep:
+            f = f[..., self.rep, :]
+        f = f[..., list(sp.input_dim)]
+        if sp.name == 'Categorical':
+            fn = likelihoods.llik_fn(sp.name, num_classes=sp.num_classes,
+                                     link=sp.link, robustmax_eps=sp.robustmax_eps)
+        else:
+            fn = likelihoods.llik_fn(sp.name)
+        return fn(f, self.y_lik[k])
+
     def _upper_loglik(self, l, latents, params, nn_state):
         total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for k in range(len(self.spec[l + 1])):
-            total = total + self._gp_loglik(l + 1, k, latents, params, nn_state)
+        for k, sp in enumerate(self.spec[l + 1]):
+            if sp.kind == 'gp':
+                total = total + self._gp_loglik(l + 1, k, latents, params, nn_state)
+            else:
+                total = total + self._lik_loglik(k, latents)
         return total
 
     def _chunk_static(self, nn_state):
@@ -401,9 +463,18 @@ class CompiledDGP:
         return latents[:l] + (f_new,) + latents[l + 1:], views
 
     def _angle_applicable(self, l):
-        """The angle evaluator (K2) applies when every upper GP node is
-        Vecchia and carries no input-dependent ('ref') prior term."""
-        return all(sp.vecch and sp.prior_name != 'ref' for sp in self.spec[l + 1])
+        """The angle evaluator applies when every upper GP node is Vecchia,
+        carries no input-dependent ('ref') prior term and has blocks that
+        K2 takes (`cv.use_kernel`); likelihood nodes above do not matter."""
+        for j, sp in enumerate(self.spec[l + 1]):
+            if sp.kind != 'gp':
+                continue
+            if not sp.vecch or sp.prior_name == 'ref':
+                return False
+            if not cv.use_kernel("K2", int(self.all_layer[l + 1][j].m) + 1, sp.D,
+                                 dtype=self.dtype):
+                return False
+        return True
 
     @staticmethod
     def _gather_latent_view(nd_, M):
@@ -427,13 +498,16 @@ class CompiledDGP:
         gathered targets are fixed for the I-step; the A views start here
         and are maintained across sweeps by the accepted-angle combine, and
         layer-0 nu views are gathered for all S sweeps at once."""
-        if not (config.ess_spec(latents[l].shape[0]) > 1
+        if not (self.block and not self._layer_is_exact(l)
+                and config.ess_spec(latents[l].shape[0]) > 1
                 and self._angle_applicable(l)):
             return None
         dt = self.dtype
         n = latents[l].shape[0]
         nodes = []
         for j, sp in enumerate(self.spec[l + 1]):
+            if sp.kind != 'gp':
+                continue
             p = params[l + 1][j]
             ns = nn_state[l + 1][j]
             st = cs.get((l + 1, j)) if cs is not None else None
@@ -489,12 +563,14 @@ class CompiledDGP:
             else:
                 nd_['A0'] = self._gather_latent_view(nd_, latents[l])
             nodes.append(nd_)
-        return dict(nodes=nodes)
+        lik_nodes = [j for j, sp in enumerate(self.spec[l + 1]) if sp.kind != 'gp']
+        return dict(nodes=nodes, lik=lik_nodes)
 
     def _plan_ll(self, plan, l, latents, nu, A_list, B_list):
         """Angle evaluator from maintained views: (cos (K,), sin (K,)) ->
         (K,) float64 upper-layer log-liks of the candidates cos*f + sin*nu,
-        one K2 launch per upper node."""
+        one K2 launch per upper GP node, and one call on all K candidates
+        per likelihood node."""
         def ll(cosv, sinv):
             cosv = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
             sinv = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
@@ -512,19 +588,103 @@ class CompiledDGP:
                 total = total - 0.5 * (linalg.sum64(ld, dim=1)
                                        + linalg.sum64(q, dim=1)
                                        / nd_['scale'].to(torch.float64))
+            if plan['lik']:
+                cand = cosv[:, None, None] * latents[l] + sinv[:, None, None] * nu
+                lat2 = latents[:l] + (cand,) + latents[l + 1:]
+                for j in plan['lik']:
+                    total = total + self._lik_loglik(j, lat2)
             return total
 
         return ll
 
+    # -- Hetero exact conditional posterior ----------------------------
+    def _site_sum(self, v):
+        """Sum of the per-observation values v over each site's replicates,
+        (n,); in a fixed order (see `_extract_data`)."""
+        return torch.where(self._rep_mask, v[self._rep_pad], 0.0).sum(dim=1)
+
+    def _het_site_noise(self, logvar, y, has_rep):
+        """Per-site noise variance and effective observation of a Hetero
+        node from the per-site log-variance column: with replicates the
+        precision-weighted ones (likelihood_class.post_het2)."""
+        if not has_rep:
+            return torch.exp(logvar), y
+        invG = torch.exp(-logvar[self.rep])
+        d = 1.0 / self._site_sum(invG)
+        return d, d * self._site_sum(invG * y)
+
+    def _post_het(self, v, Gamma, y, gen, normals=None):
+        """One draw of the Hetero mean from its exact Gaussian conditional
+        (likelihood_class.post_het1/post_het2): prior covariance v (n, n),
+        per-site noise variances Gamma and (effective) observations y, both
+        (n,) (`_het_site_noise`).  ``normals`` (n, 2) replaces the draw from
+        ``gen``."""
+        N = v.shape[0]
+        L = linalg.safe_cholesky(v + torch.diag(Gamma))
+        L1 = linalg.safe_cholesky(v)
+
+        def solve(b):
+            return linalg.cho_solve(L, b[:, None])[:, 0]
+
+        mu = v @ solve(y)
+        sd = normals if normals is not None else torch.randn(
+            (N, 2), generator=gen, dtype=self.dtype, device=self.device)
+        u = L1 @ sd[:, 0]
+        w = torch.sqrt(Gamma) * sd[:, 1]
+        return mu + u - v @ solve(u + w)
+
+    def _exact_draw(self, l, k, usp, j, latents, params, nn_state, gen):
+        """The exact Gibbs draw of hidden node (l, k), the mean under the
+        Hetero node j: through the stacked Vecchia factor when the node
+        carries its self-excluded neighbour sets, dense otherwise."""
+        sp = self.spec[l][k]
+        p = params[l][k]
+        Xn = self._node_input(l, k, latents)
+        Gamma, y_eff = self._het_site_noise(latents[l][:, usp.input_dim[1]],
+                                            self.y_lik[j][:, 0], usp.has_rep)
+        ns = nn_state[l][k]
+        if sp.vecch and ns is not None and 'impNN' in ns:
+            o = ns['ord']
+            self.exact_draws['vecchia'] += 1
+            return vcore.post_het_vecch(gen, Xn[o], ns['impNN'], Gamma[o], y_eff[o],
+                                        p['scale'], p['length'], p['nugget'],
+                                        sp.name)[ns['rev']]
+        v = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+        self.exact_draws['dense'] += 1
+        return self._post_het(v, Gamma, y_eff, gen)
+
+    def _nodewise_loglik(self, l, k, linked, F, latents, params, nn_state):
+        """Log-likelihood of the upper nodes ``linked`` to hidden node (l, k)
+        with its column set to F: (n,) -> a scalar, (K, n) -> (K,)."""
+        lat = latents[l].expand(F.shape[:-1] + latents[l].shape).clone()
+        lat[..., k] = F
+        lat2 = latents[:l] + (lat,) + latents[l + 1:]
+        total = torch.zeros(F.shape[:-1], dtype=torch.float64, device=self.device)
+        for j in linked:
+            if self.spec[l + 1][j].kind == 'gp':
+                total = total + self._gp_loglik(l + 1, j, lat2, params, nn_state)
+            else:
+                total = total + self._lik_loglik(j, lat2)
+        return total
+
     def _ess_nodewise_layer(self, l, latents, params, nn_state, gens,
                             pre_nu=None, s=None):
-        """One ESS transition per node of layer l, each against the upper
-        GP nodes wired to it.  The speculative candidates of a round go
-        through one K4 launch per linked upper node."""
+        """One transition per node of layer l against the upper nodes wired
+        to it: the exact draw for the mean of a Hetero node, else ESS, whose
+        speculative candidates of a round go through one K4 launch per
+        linked upper GP node and one call per linked likelihood node."""
         gen, host_gen = gens
         for k in range(len(self.spec[l])):
             linked = [j for j, usp in enumerate(self.spec[l + 1])
                       if k in usp.input_dim]
+            usp = self.spec[l + 1][linked[0]] if len(linked) == 1 else None
+            if (usp is not None and usp.kind != 'gp' and usp.exact_post_idx is not None
+                    and usp.input_dim.index(k) in list(np.atleast_1d(usp.exact_post_idx))):
+                f = self._exact_draw(l, k, usp, linked[0], latents, params, nn_state, gen)
+                lat = latents[l].clone()
+                lat[:, k] = f
+                latents = latents[:l] + (lat,) + latents[l + 1:]
+                continue
             if pre_nu is not None and (l, k) in pre_nu:
                 nu = pre_nu[(l, k)][s]
             else:
@@ -532,15 +692,7 @@ class CompiledDGP:
             f = latents[l][:, k]
 
             def log_lik(F, l=l, k=k, linked=linked):
-                # F: (n,) or (K, n) values of column k of layer l
-                lat = latents[l].expand(F.shape[:-1] + latents[l].shape).clone()
-                lat[..., k] = F
-                lat2 = latents[:l] + (lat,) + latents[l + 1:]
-                total = torch.zeros(F.shape[:-1], dtype=torch.float64,
-                                    device=self.device)
-                for j in linked:
-                    total = total + self._gp_loglik(l + 1, j, lat2, params, nn_state)
-                return total
+                return self._nodewise_loglik(l, k, linked, F, latents, params, nn_state)
 
             def log_lik_angles(cosv, sinv, f=f, nu=nu, log_lik=log_lik):
                 c = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
@@ -555,10 +707,16 @@ class CompiledDGP:
             latents = latents[:l] + (lat,) + latents[l + 1:]
         return latents
 
+    def _layer_is_exact(self, l):
+        """A layer under a likelihood node with an exact conditional (the
+        Hetero mean) goes node by node even with ``block=True``."""
+        return any(sp.kind != 'gp' and sp.exact_post_idx is not None
+                   for sp in self.spec[l + 1])
+
     def _sweep(self, latents, views, params, nn_state, gens, pre_nu=None,
                s=None, plans=None):
         for l in range(self.n_layer - 1):
-            if not self.block:
+            if not self.block or self._layer_is_exact(l):
                 latents = self._ess_nodewise_layer(l, latents, params, nn_state,
                                                    gens, pre_nu, s)
                 continue
@@ -578,7 +736,6 @@ class CompiledDGP:
                     0, k, latents, params, nn_state, gens[0], S, cs)
         plans = tuple(self._build_angle_plan(l, latents, params, nn_state,
                                              pre_nu if l == 0 else None, S, cs)
-                      if self.block else None
                       for l in range(self.n_layer - 1))
         views = tuple(None if plan is None else tuple(nd_['A0'] for nd_ in plan['nodes'])
                       for plan in plans)
@@ -691,6 +848,8 @@ class CompiledDGP:
         groups = {}
         for l, layer in enumerate(self.spec):
             for k, sp in enumerate(layer):
+                if sp.kind != 'gp':
+                    continue
                 key = (('vecch', sp.name, nn_state[l][k]['NN'].shape[1]) if sp.vecch
                        else ('dense', sp.name, 0))
                 groups.setdefault(key, []).append((l, k, sp))
@@ -713,6 +872,9 @@ class CompiledDGP:
         for l, layer in enumerate(self.spec):
             layer_p = []
             for k, sp in enumerate(layer):
+                if sp.kind != 'gp':
+                    layer_p.append(None)
+                    continue
                 p = params[l][k]
                 lt, scale, ok, lt0 = results[(l, k)]
                 lt = torch.where(ok, lt, lt0)
@@ -727,7 +889,7 @@ class CompiledDGP:
     def _para_vector(self, params):
         """Per GP node: (scale, lengths..., nugget), the para_path row."""
         return tuple(torch.cat([p['scale'][None], p['length'], p['nugget'][None]])
-                     for layer_p in params for p in layer_p)
+                     for layer_p in params for p in layer_p if p is not None)
 
     def _r2_vector(self, latents):
         """R^2 of the least-squares fit global input -> input, per GP node
@@ -736,7 +898,7 @@ class CompiledDGP:
         out = []
         for l in range(1, self.n_layer):
             for sp in self.spec[l]:
-                if sp.connect is None:
+                if sp.kind != 'gp' or sp.connect is None:
                     continue
                 G = self.X[:, list(sp.connect)]
                 G1 = torch.cat([G, torch.ones((G.shape[0], 1), dtype=self.dtype,

@@ -10,9 +10,11 @@ dense inverse once for all chunks; deeper layers work on each imputation's
 own latent inputs, and a dense node's inverses, one per imputation, are
 also computed once.  A dense linked layer holds (n, n) second moments per
 query, so a chunk holds as many queries as a fixed memory budget allows
-(`_chunk_size`).
+(`_chunk_size`).  Likelihood nodes may sit in the final layer: the ensemble
+propagates the GP nodes only, and the emulator applies the likelihood's
+closed-form moments on the host.
 
-Not ported yet: likelihood nodes (O2) and the IVF approximate search (O5).
+Not ported yet: the IVF approximate search (O5).
 """
 import numpy as np
 import torch
@@ -28,10 +30,14 @@ _DENSE_LINK_BUDGET = int(1.5e9)
 
 def supported(all_layer_set):
     """None if the ensemble can predict this structure, else a reason."""
-    for layer in all_layer_set[0]:
+    set0 = all_layer_set[0]
+    for l, layer in enumerate(set0):
         for node in layer:
-            if node.type != 'gp':
-                return 'likelihood nodes are not ported (ROADMAP.md, O2)'
+            if node.type == 'likelihood':
+                if l != len(set0) - 1:
+                    return 'likelihood node in a hidden layer'
+            elif node.type != 'gp':
+                return f'unknown node type {node.type}'
     return None
 
 
@@ -41,7 +47,7 @@ class CompiledEnsemble:
     def __init__(self, all_layer_set, device=None):
         why = supported(all_layer_set)
         if why is not None:
-            raise NotImplementedError(why)
+            raise ValueError(why)
         self.device = config.resolve_device(device)
         self.set0 = all_layer_set[0]
         self.N = len(all_layer_set)
@@ -55,7 +61,7 @@ class CompiledEnsemble:
         d_global = 0
         for layer in self.set0:
             for node in layer:
-                if node.connect is not None:
+                if getattr(node, 'connect', None) is not None:
                     d_global = max(d_global, int(np.max(node.connect)) + 1)
         for node in self.set0[0]:
             d_global = max(d_global, int(np.max(node.input_dim)) + 1)
@@ -65,14 +71,20 @@ class CompiledEnsemble:
             Xg[:, list(np.asarray(node.input_dim))] = node.input
         for layer in self.set0:
             for node in layer:
-                if node.connect is not None and node.global_input is not None:
+                if (getattr(node, 'connect', None) is not None
+                        and node.global_input is not None):
                     Xg[:, list(np.asarray(node.connect))] = node.global_input
         self._X_global = t(Xg)
-        # stacked per-imputation node outputs y_stack[l][k]: (N, n)
+        # stacked per-imputation node outputs y_stack[l][k]: (N, n); None,
+        # with no spec, for a likelihood node
         self.y_stack, self.spec = [], []
         for l in range(self.n_layer):
             lay_y, lay_spec = [], []
             for k, node in enumerate(self.set0[l]):
+                if node.type != 'gp':
+                    lay_y.append(None)
+                    lay_spec.append(None)
+                    continue
                 ys = t(np.stack([s[l][k].output[:, 0] for s in all_layer_set]))
                 lay_y.append(ys)
                 w_diag = getattr(node, 'W_diag', None)
@@ -98,14 +110,15 @@ class CompiledEnsemble:
         self._dense_link_bytes_per_query = max(
             (3 * self.y_stack[l][k].shape[1] ** 2 * itemsize
              for l in range(1, self.n_layer) for k, nd in enumerate(self.spec[l])
-             if not nd['vecch']), default=0)
+             if nd is not None and not nd['vecch']), default=0)
         # each dense node's (Rinv, Rinv_y), once for every query chunk
         for l in range(self.n_layer):
             for k, nd in enumerate(self.spec[l]):
-                if not nd['vecch']:
+                if nd is not None and not nd['vecch']:
                     nd['Rinv'], nd['Rinv_y'] = self._dense_stats(l, nd, self.y_stack[l][k])
         # only Vecchia nodes take the extra diagonal of the jitter retry
-        self._any_vecch = any(nd['vecch'] for layer in self.spec for nd in layer)
+        self._any_vecch = any(nd['vecch'] for layer in self.spec for nd in layer
+                              if nd is not None)
 
     def _dense_stats(self, l, nd, y):
         """(Rinv, Rinv_y) of a dense node with outputs y (N, n): layer 0's
@@ -149,7 +162,8 @@ class CompiledEnsemble:
 
     def _chunk(self, x, m_pred, loo, extra_jit):
         """One query chunk x (Mc, d_global) -> (means, vars): per layer an
-        (N, Mc, width) tensor."""
+        (N, Mc, width) tensor over the layer's GP nodes (width 0 for a layer
+        of likelihood nodes alone)."""
         def nn_search(q, w, m_eff):
             nn = vnn._pred_nn_impl(q, w, m_eff)
             return nn[:, 1:] if loo else nn
@@ -159,6 +173,8 @@ class CompiledEnsemble:
         for l in range(self.n_layer):
             cols_m, cols_v = [], []
             for k, nd in enumerate(self.spec[l]):
+                if nd is None:
+                    continue
                 y = self.y_stack[l][k]                        # (N, n)
                 m_eff = min(m_pred, y.shape[1])
                 W, _ = self._node_train_inputs(l, nd)
@@ -204,14 +220,16 @@ class CompiledEnsemble:
                             nd['nug_diag'], nd['name'], extra_jit))
                 cols_m.append(torch.stack([o[0] for o in out]))
                 cols_v.append(torch.abs(torch.stack([o[1] for o in out])))
-            means.append(torch.stack(cols_m, dim=2))
-            vars_.append(torch.stack(cols_v, dim=2))
+            empty = x.new_zeros((self.N, x.shape[0], 0))
+            means.append(torch.stack(cols_m, dim=2) if cols_m else empty)
+            vars_.append(torch.stack(cols_v, dim=2) if cols_v else empty)
             in_mean, in_var = means[l], vars_[l]
         return means, vars_
 
     def propagate(self, x, m_pred, loo=False):
         """Run the ensemble through all layers.  Returns (means, vars): per
-        layer an (N, M, width) numpy array."""
+        layer an (N, M, width) numpy array, or for a final layer that holds
+        likelihood nodes a {node index: (N, M)} dict of its GP nodes."""
         x = torch.as_tensor(np.asarray(x, config.np_dtype()), device=self.device)
         M = x.shape[0]
         Mc = self._chunk_size()
@@ -231,5 +249,11 @@ class CompiledEnsemble:
             for l in range(self.n_layer):
                 means[l].append(mc[l])
                 vars_[l].append(vc[l])
-        return ([torch.cat(p, dim=1).cpu().numpy() for p in means],
-                [torch.cat(p, dim=1).cpu().numpy() for p in vars_])
+        return tuple([self._layer_out(l, torch.cat(p[l], dim=1).cpu().numpy())
+                      for l in range(self.n_layer)] for p in (means, vars_))
+
+    def _layer_out(self, l, a):
+        gp_cols = [k for k, nd in enumerate(self.spec[l]) if nd is not None]
+        if len(gp_cols) == len(self.spec[l]):
+            return a
+        return {k: a[:, :, i] for i, k in enumerate(gp_cols)}

@@ -43,6 +43,7 @@ class imputer:
             for k, node in enumerate(layer):
                 if node.type != 'gp':
                     continue
+                pointer = node.imp_NNarray is not None
                 found = None
                 for j in range(k):
                     other = layer[j]
@@ -58,6 +59,6 @@ class imputer:
                         break
                 if found is not None:
                     node.ord_nn(ord=found.ord.copy(), NNarray=found.NNarray.copy(),
-                                device=self.device)
+                                pointer=pointer, device=self.device)
                 else:
-                    node.ord_nn(device=self.device)
+                    node.ord_nn(pointer=pointer, device=self.device)

@@ -66,6 +66,7 @@ class kernel:
         self.m = 25
         self.pred_m = None
         self.NNarray = None
+        self.imp_NNarray = None
         self.nn_method = 'exact'
         self.ord_fun = None
         self.iter_count = 0
@@ -296,11 +297,13 @@ class kernel:
                                   name=self.name)
         return m.cpu().numpy(), v.cpu().numpy()
 
-    def ord_nn(self, ord=None, NNarray=None, device=None):
-        """Vecchia ordering and neighbours (kernel_class.py:245); the NN
+    def ord_nn(self, ord=None, NNarray=None, pointer=False, device=None):
+        """Vecchia ordering and neighbours (kernel_class.py:245), with
+        ``pointer`` also the neighbour sets of the Hetero exact draw; the NN
         search runs on ``device`` (default: the node's)."""
         from ..vecchia import api as vecchia_api
-        vecchia_api.ord_nn(self, ord=ord, NNarray=NNarray, device=device)
+        vecchia_api.ord_nn(self, ord=ord, NNarray=NNarray, pointer=pointer,
+                           device=device)
         # invalidates the engines' cached device copies
         self.nn_version = getattr(self, 'nn_version', 0) + 1
 

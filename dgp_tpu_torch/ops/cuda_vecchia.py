@@ -19,13 +19,22 @@ package vmaps.  Invalid neighbour lanes carry sentinel coordinates
 (far from everything, including each other), a unit diagonal and a zero
 target, which decouples them exactly.
 
-Each public wrapper dispatches on the device of its tensors: a CPU tensor
-goes to the plain version (`*_plain`), a CUDA tensor to the kernel, and
-anything the kernel cannot take raises (shapes beyond its bounds before
-the device is looked at, then any device but the CPU and CUDA).  The
-library is built at first use into ``dgp_tpu_torch/_build/`` from the
-sources in the package; nothing is compiled or loaded when this module is
-imported.
+`use_kernel` is the gate, the counterpart of `pallas_vecchia.use_pallas`:
+from the kernel's id, the block shape and the dtype alone (never the
+device) it says whether the hand kernel takes a call -- m1 <= `M1_MAX`,
+for K1 at most `NLEN_MAX` length lanes, and staged tiles that fit one SM's
+shared memory (`shared_bytes`, the sources' own formula).  Every wrapper
+asks it first.  A CPU tensor always goes to the plain version (`*_plain`);
+outside the bound that adds one to the wrapper's ``plain_calls``, so a run
+on the CPU shows which calls the card would refuse.  A CUDA tensor inside
+the bound goes to the kernel (adding one to ``launches``); outside it the
+wrapper raises NotImplementedError before anything is built: no plain
+version runs on the card in a kernel's place (the two-rows-per-lane variant
+for 32 < m1 <= 64 is not written yet).  Any other device raises, and a
+kernel that fails to build or to launch raises too: the gate decides on
+shape, it is not a fallback.  The library is built at first use into
+``dgp_tpu_torch/_build/`` from the sources in the package; nothing is
+compiled or loaded when this module is imported.
 """
 import ctypes
 import hashlib
@@ -51,6 +60,11 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 #: most log-lengthscale lanes K1 differentiates (-DDGP_NLEN_MAX)
 NLEN_MAX = 8
+#: csrc/vecchia_warp.cuh: most points (warps) of a thread block, the stride
+#: of a warp's (m1, LDS) array, the dynamic shared memory a launch gets
+#: without opting in, and the most one SM gives a thread block (sm_90)
+_WARPS_MAX, _LDS, _WARP = 8, 33, 32
+_SMEM_DEFAULT, SMEM_MAX = 48 * 1024, 227 * 1024
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -182,6 +196,64 @@ def _library():
     return _lib if _lib is not None else build()
 
 
+def _per_point(kid, m1, d):
+    """Values one point keeps in shared memory: `grad_per_point`,
+    `multi_per_point`, `condw_per_point` and `parts_per_point` of the
+    sources."""
+    scratch = m1 * _LDS + 2 * _WARP                         # block_scratch
+    if kid == "K1":
+        return m1 * d + 3 * m1 + scratch + 2 * M1_MAX
+    if kid == "K2":
+        return 3 * m1 * d + 2 * m1 + d * m1 + scratch
+    if kid == "K3":
+        return m1 * d + m1 + (m1 - 1) + scratch + M1_MAX
+    if kid == "K4":
+        return m1 * d + 2 * m1 + scratch
+    raise ValueError(f"unknown kernel id: {kid}")
+
+
+def shared_bytes(kid, m1, d, dtype):
+    """Dynamic shared bytes of kernel ``kid``'s thread block at (m1, d):
+    `plan_block` of csrc/vecchia_warp.cuh in Python, so that the gate needs
+    no built library (`launch_plan` reports the library's own figure)."""
+    per_point = _per_point(kid, m1, d) * (torch.finfo(dtype).bits // 8)
+    w = _WARPS_MAX
+    while w > 1 and w * per_point > _SMEM_DEFAULT:
+        w //= 2
+    return w * per_point
+
+
+def use_kernel(kid, m1, d, n_length=1, dtype=torch.float64):
+    """The gate: whether the hand kernel ``kid`` ("K1" .. "K4") takes blocks
+    of m1 rows and d dims in ``dtype`` (K1: with ``n_length`` length lanes).
+    Decided from these alone, so it reads the same on every device."""
+    if m1 > M1_MAX or (kid == "K1" and n_length > NLEN_MAX):
+        return False
+    return shared_bytes(kid, m1, d, dtype) <= SMEM_MAX
+
+
+def _runs_plain(wrapper, kid, t, m1, d, n_length=1):
+    """Whether ``wrapper``'s call on tensor ``t`` runs the plain version: a
+    CPU tensor does (counted in ``plain_calls`` when the gate says the
+    kernel would not take it); a tensor on another device outside the
+    kernel's bound is refused."""
+    inside = use_kernel(kid, m1, d, n_length, t.dtype)
+    if t.device.type == "cpu":
+        if not inside:
+            wrapper.plain_calls += 1
+        return True
+    if not inside:
+        raise NotImplementedError(
+            f"{wrapper.__name__}: blocks of m1={m1} rows, d={d} dims"
+            + (f", {n_length} length lanes" if kid == "K1" else "")
+            + f" in {t.dtype} are outside the hand kernel's bound (m1 <= {M1_MAX}"
+            + f", at most {NLEN_MAX} length lanes, staged tiles within {SMEM_MAX} bytes"
+            + " of shared memory); the kernel variant for larger blocks is not"
+            + " written yet, and the plain version does not run in its place on"
+            + f" {t.device.type}: use m <= {M1_MAX - 1} or device='cpu'")
+    return False
+
+
 def launch_plan(kname, dtype, m1, d):
     """How the kernel ``kname`` (the name of its wrapper, e.g.
     "cond_weights_t") launches at (m1, d) in ``dtype``: points (warps) per
@@ -306,11 +378,9 @@ def block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, *, name, n_length,
 def cond_weights_t(Xg, diag, *, name):
     """K3: conditional weights (w (m1-1, n), sigma (n,)) of (m1, d, n)
     blocks with (m1, n) diagonals."""
-    if Xg.device.type == "cpu":
-        return cond_weights_t_plain(Xg, diag, name=name)
     m1, d, n = Xg.shape
-    if m1 > M1_MAX:
-        raise ValueError(f"cond_weights_t: m1={m1} exceeds the kernel bound {M1_MAX}")
+    if _runs_plain(cond_weights_t, "K3", Xg, m1, d):
+        return cond_weights_t_plain(Xg, diag, name=name)
     if diag.shape != (m1, n):
         raise ValueError(f"cond_weights_t: diag shape {tuple(diag.shape)} != {(m1, n)}")
     if Xg.device.type != "cuda":
@@ -332,6 +402,7 @@ def cond_weights_t(Xg, diag, *, name):
 
 
 cond_weights_t.launches = 0
+cond_weights_t.plain_calls = 0
 
 
 def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
@@ -339,14 +410,12 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     cos*A + sin*B + C.  A/B/C: (m1, d, n); yg/diag: (m1, n); cosv/sinv:
     (K,).  ``dl`` is the number of leading candidate-dependent dims (the
     rest are static and factored out); defaults to all dims."""
-    if A.device.type == "cpu":
+    m1, d, n = A.shape
+    if _runs_plain(block_loglik_multi_t, "K2", A, m1, d):
         return block_loglik_multi_t_plain(A, B, C, yg, diag, cosv, sinv,
                                           name=name, dl=dl)
-    m1, d, n = A.shape
     if dl is None:
         dl = d
-    if m1 > M1_MAX:
-        raise ValueError(f"block_loglik_multi_t: m1={m1} exceeds the kernel bound {M1_MAX}")
     if B.shape != A.shape or C.shape != A.shape:
         raise ValueError("block_loglik_multi_t: A, B and C must share one shape")
     if yg.shape != (m1, n) or diag.shape != (m1, n):
@@ -379,6 +448,7 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
 
 
 block_loglik_multi_t.launches = 0
+block_loglik_multi_t.plain_calls = 0
 
 
 def block_loglik_parts_t(Xg, yg, diag, *, name):
@@ -386,13 +456,11 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
     or (K, m1, d, n) for K candidate blocks in one launch; yg and diag are
     (m1, n) (shared by all candidates) or (K, m1, n).  Outputs (n,) or
     (K, n)."""
-    if Xg.device.type == "cpu":
-        return block_loglik_parts_t_plain(Xg, yg, diag, name=name)
     if Xg.ndim not in (3, 4):
         raise ValueError("block_loglik_parts_t: Xg must be (m1, d, n) or (K, m1, d, n)")
     K, m1, d, n = (1,) + tuple(Xg.shape) if Xg.ndim == 3 else tuple(Xg.shape)
-    if m1 > M1_MAX:
-        raise ValueError(f"block_loglik_parts_t: m1={m1} exceeds the kernel bound {M1_MAX}")
+    if _runs_plain(block_loglik_parts_t, "K4", Xg, m1, d):
+        return block_loglik_parts_t_plain(Xg, yg, diag, name=name)
     if yg.shape != diag.shape or tuple(yg.shape) not in ((m1, n), (K, m1, n)):
         raise ValueError("block_loglik_parts_t: yg and diag must both be (m1, n) "
                          "or (K, m1, n)")
@@ -417,6 +485,7 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
 
 
 block_loglik_parts_t.launches = 0
+block_loglik_parts_t.plain_calls = 0
 
 
 def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
@@ -427,26 +496,25 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
     with (m1, n) blocks.  Returns (logdet (G, n), quad (G, n), dlogdet
     (G, p, n), dquad (G, p, n)), without the G axis for unbatched input.
     ``n_length`` is 1 (isotropic: one lane for all dims) or at most d."""
-    if Xg.device.type == "cpu":
+    if Xg.ndim not in (3, 4):
+        raise ValueError("block_nllik_grad_parts_t: Xg must be (G, m1, d, n) or (m1, d, n)")
+    m1, d = Xg.shape[-3:-1]
+    n_length = int(n_length)
+    if not (n_length == 1 or 1 <= n_length <= d):
+        raise ValueError(f"block_nllik_grad_parts_t: n_length={n_length} must be 1 "
+                         f"or at most d={d}")
+    if _runs_plain(block_nllik_grad_parts_t, "K1", Xg, m1, d, n_length):
         return block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, name=name,
                                               n_length=n_length,
                                               nugget_est=nugget_est)
-    if Xg.ndim not in (3, 4):
-        raise ValueError("block_nllik_grad_parts_t: Xg must be (G, m1, d, n) or (m1, d, n)")
     single = Xg.ndim == 3
     if single:
         Xg, yg, diag, dnug = Xg[None], yg[None], diag[None], dnug[None]
     G, m1, d, n = Xg.shape
-    if m1 > M1_MAX:
-        raise ValueError(f"block_nllik_grad_parts_t: m1={m1} exceeds the kernel bound {M1_MAX}")
     for t in (yg, diag, dnug):
         if t.shape != (G, m1, n):
             raise ValueError(f"block_nllik_grad_parts_t: yg, diag and dnug must be "
                              f"{(G, m1, n)}, got {tuple(t.shape)}")
-    n_length = int(n_length)
-    if not (1 <= n_length <= NLEN_MAX and (n_length == 1 or n_length <= d)):
-        raise ValueError(f"block_nllik_grad_parts_t: n_length={n_length} must be 1 "
-                         f"or at most d={d} (and at most {NLEN_MAX})")
     if Xg.device.type != "cuda":
         raise ValueError(f"block_nllik_grad_parts_t: unsupported device {Xg.device}")
     _check_cuda("block_nllik_grad_parts_t", (Xg, yg, diag, dnug), Xg.dtype, Xg.device)
@@ -471,15 +539,29 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
 
 
 block_nllik_grad_parts_t.launches = 0
+block_nllik_grad_parts_t.plain_calls = 0
 
 #: every kernel wrapper, by the name its launch count is reported under
 WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
             block_loglik_parts_t)
 
 
+#: the gate's id of each wrapper
+KERNEL_ID = {"block_nllik_grad_parts_t": "K1", "block_loglik_multi_t": "K2",
+             "cond_weights_t": "K3", "block_loglik_parts_t": "K4"}
+
+
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
+        w.plain_calls = 0
+
+
+def launch_counts():
+    """Per wrapper, since the last reset: the kernel launches, and the calls
+    on CPU tensors that lay outside the kernel's bound."""
+    return {w.__name__: {"launches": w.launches, "plain_calls": w.plain_calls}
+            for w in WRAPPERS}
 
 
 # ----------------------------------------------------------------------

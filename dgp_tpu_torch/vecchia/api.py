@@ -5,10 +5,9 @@ Ordering and neighbour construction (reference kernel_class.ord_nn), and
 the single-node entry points: the log-likelihood at fixed parameters (the
 ESS target, through K4), the M-step objective of `kernel.maximise`
 (objective and gradient through K1, one node as a group of one),
-prediction and the gp class's LOO.  All run on the node's device (``node.device``; default: the card).
-Not ported yet: the self-excluded neighbour sets of the Hetero exact
-posterior (``pointer``, O3), the node's linked prediction (O4) and the
-approximate search (``nn_method='approx'``, O5).
+prediction and the gp class's LOO.  All run on the node's device
+(``node.device``; default: the card).  Not ported yet: the node's linked
+prediction (O4) and the approximate search (``nn_method='approx'``, O5).
 """
 import numpy as np
 import torch
@@ -18,9 +17,12 @@ from ..ops import cuda_vecchia as cv
 from . import core, nn as nnmod
 
 
-def ord_nn(node, ord=None, NNarray=None, device=None):
+def ord_nn(node, ord=None, NNarray=None, pointer=False, device=None):
     """Set the Vecchia ordering and neighbour structure on a GP node; the
-    search runs on ``device`` (default: the node's)."""
+    search runs on ``device`` (default: the node's).  ``pointer`` also
+    builds ``imp_NNarray``, the self-excluded unconstrained neighbours of
+    each ordered point that the Hetero mean's exact draw conditions on
+    (`core.post_het_vecch`; reference kernel_class.py:268-277)."""
     if ord is None:
         if node.ord_fun is None:
             node.ord = np.random.permutation(node.input.shape[0])
@@ -29,12 +31,14 @@ def ord_nn(node, ord=None, NNarray=None, device=None):
     else:
         node.ord = np.asarray(ord)
     node.rev_ord = np.argsort(node.ord)
+    dev = config.resolve_device(device if device is not None else node.device)
     if NNarray is None:
-        X = _scaled_input(node)
-        dev = config.resolve_device(device if device is not None else node.device)
-        node.NNarray = nnmod.nn(X[node.ord], node.m, device=dev)
+        node.NNarray = nnmod.nn(_scaled_input(node)[node.ord], node.m, device=dev)
     else:
         node.NNarray = np.asarray(NNarray)
+    if pointer:
+        Xo = _scaled_input(node)[node.ord]
+        node.imp_NNarray = nnmod.get_pred_nn(Xo, Xo, node.m, device=dev)[:, 1:]
 
 
 def _scaled_input(node):

@@ -13,7 +13,8 @@ objective with its analytic gradient (`vecchia_nllik_fg`, K1) and the
 conditional weights of ancestral sampling (`cond_weights`, K3).
 `vecchia_nllik` keeps the masked-block form with an autograd gradient as
 the reference for K1.  Prediction (`gp_vecch`, `link_gp_vecch`) is
-batched torch.linalg, and so is the closed-form LOO (`loo_gp_vecch`).
+batched torch.linalg, and so are the closed-form LOO (`loo_gp_vecch`) and
+the exact draw of the Hetero mean (`post_het_vecch`).
 """
 import numpy as np
 import torch
@@ -283,6 +284,62 @@ def fmvn_sp(gen, X, NNarray, scale, length, nugget, name, S=None):
            * sigma[None, :])
     x = ancestral_sample(eps, w, idx_asc)
     return x[0] if squeeze else x
+
+
+def post_het_vecch(gen, X, impNN, Gamma, y_eff, scale, length, nugget, name,
+                   normals=None):
+    """One draw from the exact conditional posterior of the Hetero mean
+    under the Vecchia approximation (reference `U_matrix_sp` +
+    `post_het_vecch`, dgpsi/vecchia.py:612-622, likelihood_class.py:153-182),
+    batched over the points.
+
+    Model: f ~ N(0, scale*K) (Vecchia-approximated), y_i = f_i + N(0,
+    Gamma_i).  The reference stacks (observations, latents) into a 2n
+    sequence and Vecchia-factorises the joint: column i conditions latent
+    f_i on its own observation y_i, the PRIOR latents among its m-1 nearest
+    neighbours, and the observations of its FUTURE neighbours.  With u_i =
+    L_i^{-T} e_last the sparse factor satisfies  f | y ~ N(-U_l^{-T} U_o^T y,
+    U_l^{-T} U_l^{-1}).  The upper-triangular solve has the form of the
+    ancestral recursion, so it runs through the blocked `ancestral_sample`.
+
+    All inputs in Vecchia order; returns an (n,) sample in the same order.
+    The n blocks of (m+1, m+1) factor in one batched library Cholesky.
+
+    Args:
+        gen: torch.Generator on X's device, the source of the n normals
+            unless ``normals`` (n,) brings them.
+        X: (n, d) ordered inputs.  impNN: (n, m-1) self-excluded NN indices.
+        Gamma: (n,) noise variances.  y_eff: (n,) effective observations.
+    """
+    n = X.shape[0]
+    dt = X.dtype
+    ar = torch.arange(n, device=X.device)
+    is_prev = impNN < ar[:, None]
+    idx = torch.cat([impNN, ar[:, None], ar[:, None]], dim=1)        # (n, m+1)
+    # slot s is a latent copy if it is a PRIOR neighbour, or the final self slot
+    is_lat = torch.cat([is_prev, torch.zeros((n, 1), dtype=torch.bool, device=X.device),
+                        torch.ones((n, 1), dtype=torch.bool, device=X.device)], dim=1)
+    Xi = X[idx]
+    scale = torch.as_tensor(scale, dtype=dt, device=X.device)
+    K = scale * kops.k_cross(Xi, Xi, length, name)
+    jitter = torch.clamp(_f32_jitter(dt) * scale, min=1e-10)
+    diag = (torch.diagonal(K, dim1=-2, dim2=-1)
+            + torch.where(is_lat, 0.0, Gamma[idx]) + jitter)
+    L = linalg.chol_small(kops.set_diag(K, diag))
+    e_last = torch.zeros((n, idx.shape[1]), dtype=dt, device=X.device)
+    e_last[:, -1] = 1.0
+    u = linalg.bwd_solve_small(L, e_last)            # (n, m+1) = L^{-T} e_last
+
+    # b_i = -(U_o^T y)_i + eps_i  over observation slots
+    obs_contrib = torch.sum(torch.where(is_lat, 0.0, u * y_eff[idx]), dim=1)
+    eps = normals if normals is not None else torch.randn(
+        (n,), generator=gen, dtype=dt, device=X.device)
+    u_self = u[:, -1]
+    b = (-obs_contrib + eps) / u_self
+    # prior-latent slots (the first m-1 NN entries) drive the recursion
+    w = torch.where(is_prev, -u[:, :impNN.shape[1]] / u_self[:, None], 0.0)
+    idx_prev = torch.where(is_prev, impNN, 0)
+    return ancestral_sample(b[None, :], w, idx_prev)[0]
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,203 @@
+"""The kernel gate of dgp_tpu_torch (`ops.cuda_vecchia.use_kernel`) and the
+size check of Vecchia models, on the CPU: the gate's decision from the
+kernel's id, the block shape and the dtype alone; the shared-memory formula
+it shares with the CUDA sources; the wrappers' ``plain_calls`` counters on
+the CPU and their refusal off it; a Vecchia DGP outside the bound (m = 40)
+on the CPU against dgp_tpu at rtol 1e-9; and
+the NotImplementedError of a Vecchia dgp at the size that needs the
+approximate NN search."""
+import re
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import dgp_tpu
+import dgp_tpu_torch
+from dgp_tpu.models import imputation as jimp
+from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
+from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.models.compiled import CompiledDGP
+from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+torch.set_num_threads(1)
+
+KIDS = ("K1", "K2", "K3", "K4")
+
+
+@pytest.mark.parametrize("m1,inside", [(26, True), (32, True), (33, False), (41, False)])
+@pytest.mark.parametrize("kid", KIDS)
+def test_gate_block_bound(kid, m1, inside):
+    for dtype in (torch.float64, torch.float32):
+        assert cv.use_kernel(kid, m1, 2, dtype=dtype) is inside
+        assert cv.use_kernel(kid, m1, 2, n_length=2, dtype=dtype) is inside
+
+
+def test_gate_length_lanes():
+    assert cv.use_kernel("K1", 26, 9, n_length=8)
+    assert not cv.use_kernel("K1", 26, 9, n_length=9)
+    assert cv.use_kernel("K1", 26, 9, n_length=1)
+    # only K1 differentiates length lanes
+    for kid in KIDS[1:]:
+        assert cv.use_kernel(kid, 26, 9, n_length=9)
+
+
+@pytest.mark.parametrize("kid,dtype,d_last", [
+    ("K2", torch.float64, 217), ("K2", torch.float32, 444), ("K1", torch.float64, 868),
+    ("K3", torch.float64, 870), ("K4", torch.float64, 871)])
+def test_gate_shared_memory_bound(kid, dtype, d_last):
+    """At m1 = 32 a one-point thread block fits the SM's 227 KB up to
+    d_last dims; wider blocks are outside the gate."""
+    assert cv.use_kernel(kid, 32, d_last, dtype=dtype)
+    assert not cv.use_kernel(kid, 32, d_last + 1, dtype=dtype)
+    assert cv.shared_bytes(kid, 32, d_last, dtype) <= cv.SMEM_MAX \
+        < cv.shared_bytes(kid, 32, d_last + 1, dtype)
+
+
+def test_shared_bytes_formula_is_the_sources():
+    """The gate's byte count repeats the CUDA sources' per-point formulas
+    and constants; the card's run holds it to `launch_plan`'s figure."""
+    src = {p.name: p.read_text() for p in cv._CSRC.glob("*.cu*")}
+    warp = src["vecchia_warp.cuh"]
+    assert f"constexpr int WARPS_MAX = {cv._WARPS_MAX};" in warp
+    assert "constexpr int LDS = WARP + 1;" in warp and cv._LDS == cv._WARP + 1
+    assert "constexpr size_t SMEM_DEFAULT = 48 * 1024;" in warp
+    assert "return m1 * LDS + 2 * WARP;" in warp
+    assert "return m1 * d + 3 * m1 + grad_warp_scratch(m1);" in src["block_nllik_grad.cu"]
+    assert "return block_scratch(m1) + 2 * M1_MAX;" in src["block_nllik_grad.cu"]
+    assert "return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch(m1);" \
+        in src["block_loglik_multi.cu"]
+    assert "return m1 * d + m1 + (m1 - 1) + condw_warp_scratch(m1);" in src["cond_weights.cu"]
+    assert re.search(r"condw_warp_scratch\(int m1\) \{ return block_scratch\(m1\) \+ M1_MAX; \}",
+                     src["cond_weights.cu"])
+    assert "return m1 * d + 2 * m1 + block_scratch(m1);" in src["block_loglik_parts.cu"]
+    # the main path's blocks in float64: 4 points of a thread block, below
+    # the default of 48 KB
+    assert cv.shared_bytes("K4", 26, 2, torch.float64) == 4 * 8 * (26 * 2 + 52 + 26 * 33 + 64)
+    assert cv.shared_bytes("K2", 26, 2, torch.float64) == 37824
+
+
+def _blocks(m1, d, n=12, seed=0):
+    rs = np.random.RandomState(seed)
+    X = torch.as_tensor(rs.uniform(-2, 2, (m1, d, n)))
+    y = torch.as_tensor(rs.uniform(-1, 1, (m1, n)))
+    diag = torch.full((m1, n), 1.1, dtype=torch.float64)
+    return X, y, diag
+
+
+def test_wrappers_count_plain_calls_only_outside_the_bound():
+    cv.reset_launch_counts()
+    X, y, diag = _blocks(9, 2)
+    cv.block_loglik_parts_t(X, y, diag, name='sexp')
+    cv.cond_weights_t(X, diag, name='sexp')
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in cv.launch_counts().values())
+    X, y, diag = _blocks(41, 2)
+    ld, q = cv.block_loglik_parts_t(X, y, diag, name='sexp')
+    ref = cv.block_loglik_parts_t_plain(X, y, diag, name='sexp')
+    np.testing.assert_array_equal(ld.numpy(), ref[0].numpy())
+    cv.cond_weights_t(X, diag, name='sexp')
+    cv.block_loglik_multi_t(X, X, X, y, diag, [1.0, 0.5], [0.0, 0.5], name='sexp')
+    cv.block_nllik_grad_parts_t(X, y, diag, 0.1 * diag, name='sexp', n_length=2,
+                                nugget_est=True)
+    assert all(c == {"launches": 0, "plain_calls": 1} for c in cv.launch_counts().values())
+    cv.reset_launch_counts()
+    assert all(c["plain_calls"] == 0 for c in cv.launch_counts().values())
+
+
+def test_wrappers_refuse_blocks_outside_the_bound_off_the_cpu(monkeypatch):
+    """Off the CPU no plain version stands in for a kernel: a call outside
+    the bound raises before anything is built, and counts nothing."""
+    monkeypatch.setattr(cv, "build", lambda: pytest.fail("the kernel library was built"))
+    monkeypatch.setattr(cv, "_lib", None)
+    cv.reset_launch_counts()
+    X, y, diag = (t.to('meta') for t in _blocks(41, 2))
+    for call in (lambda: cv.block_loglik_parts_t(X, y, diag, name='sexp'),
+                 lambda: cv.cond_weights_t(X, diag, name='sexp'),
+                 lambda: cv.block_loglik_multi_t(X, X, X, y, diag, [1.0], [0.0], name='sexp'),
+                 lambda: cv.block_nllik_grad_parts_t(X, y, diag, diag, name='sexp',
+                                                     n_length=2, nugget_est=True)):
+        with pytest.raises(NotImplementedError, match="m1=41 rows.*device='cpu'"):
+            call()
+    wide = torch.empty((32, 218, 4), device='meta', dtype=torch.float64)
+    v = torch.empty((32, 4), device='meta', dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        cv.block_loglik_multi_t(wide, wide, wide, v, v, [1.0], [0.0], name='sexp')
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in cv.launch_counts().values())
+
+
+def _func(x):
+    return np.sin(6 * x) + 0.5 * np.cos(11 * x)
+
+
+def _layers(pkg):
+    return pkg.combine([pkg.kernel(length=np.array([0.5]), nugget=1e-3)],
+                       [pkg.kernel(length=np.array([0.5]), nugget=1e-3, nugget_est=True,
+                                   scale_est=True, connect=np.arange(1))])
+
+
+@pytest.mark.parametrize("m,inside", [(40, False), (12, True)])
+def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
+    """On the CPU a Vecchia DGP at m = 40 runs (every wrapper's plain
+    version, counted as outside the bound) and its log-likelihoods agree
+    with dgp_tpu's; at m = 12 nothing is counted as a plain call, and the
+    angle evaluator applies."""
+    rs = np.random.RandomState(0)
+    X = rs.rand(90, 1) * 2 - 1
+    Y = _func(X) + 0.05 * rs.randn(90, 1)
+    dgp_tpu.nb_seed(0)
+    sample = jimp.imputer.sample
+    jimp.imputer.sample = lambda self, burnin=0: None
+    try:
+        mj = dgp_tpu.dgp(X, Y, _layers(dgp_tpu), vecchia=True, m=m)
+    finally:
+        jimp.imputer.sample = sample
+    eng_j = mj.imp._engine()
+    eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(mj.all_layer)), device='cpu')
+    assert eng_t._angle_applicable(0) is inside
+    assert cv.use_kernel("K2", m + 1, 2) is inside
+    lat_j, par_j = eng_j.get_state()
+    nn_j = eng_j.get_nn_state()
+    lat_t, par_t = eng_t.get_state()
+    nn_t = eng_t.get_nn_state()
+    cv.reset_launch_counts()
+    ref = jax.jit(lambda lat: eng_j._upper_loglik(0, (lat,), par_j, nn_j))
+    cands = np.asarray(lat_j[0])[None] + 0.1 * rs.normal(size=(3,) + tuple(lat_t[0].shape))
+    out = eng_t._upper_loglik(0, (torch.as_tensor(cands),), par_t, nn_t)
+    np.testing.assert_allclose(out.numpy(), [float(ref(jnp.asarray(c))) for c in cands],
+                               rtol=1e-9)
+    counts = cv.launch_counts()
+    assert counts["block_loglik_parts_t"]["plain_calls"] == (0 if inside else 1)
+    # the whole path on the port: imputation, SEM iterations, prediction
+    dgp_tpu_torch.nb_seed(0)
+    cv.reset_launch_counts()
+    mt = dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=True, m=m, device='cpu')
+    mt.train(N=3, disable=True)
+    mu, var = dgp_tpu_torch.emulator(mt.estimate(), N=2, device='cpu').predict(
+        np.linspace(-1, 1, 20)[:, None], m=50)
+    assert np.isfinite(mu).all() and np.isfinite(var).all()
+    counts = cv.launch_counts()
+    assert all(c["launches"] == 0 for c in counts.values())
+    if inside:
+        assert all(c["plain_calls"] == 0 for c in counts.values())
+    else:
+        assert all(counts[k]["plain_calls"] > 0 for k in
+                   ("block_nllik_grad_parts_t", "cond_weights_t", "block_loglik_parts_t"))
+        assert counts["block_loglik_multi_t"]["plain_calls"] == 0   # no angle views
+
+
+def test_large_vecchia_dgp_names_the_missing_search(monkeypatch):
+    """A Vecchia dgp at the size where dgp_tpu switches to the approximate
+    NN search raises until that search is ported; a dense one does not ask."""
+    with pytest.raises(NotImplementedError, match="O5"):
+        tdgp.check_vecchia_size(50_000)
+    tdgp.check_vecchia_size(49_999)
+    monkeypatch.setattr(tdgp, "APPROX_NN_N", 30)
+    rs = np.random.RandomState(1)
+    X, Y = rs.rand(30, 1), rs.rand(30, 1)
+    with pytest.raises(NotImplementedError, match="approximate NN search"):
+        dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=True, m=5, device='cpu')
+    dgp_tpu_torch.nb_seed(0)
+    m = dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=False, device='cpu')
+    assert m.n_data == 30

@@ -7,9 +7,9 @@ the K1 analytic gradient (each against its Pallas kernel in interpret
 mode), and the K1 objective against torch autograd of the port's own
 reference form; the cases of all four include the edges of the warp
 kernels' mapping (m1 = 32 and 2, ragged n, d = 5; K = 1 and dl = 0 for K2;
-candidates with their own targets and diagonals for K4).  Also: the wrappers refuse shapes beyond
-the kernels' bounds before any build, and the library's tag covers every
-source under csrc/.  Tolerances rtol 1e-9, atol 1e-12 for values and rtol
+candidates with their own targets and diagonals for K4).  Also: shapes beyond
+the kernels' bounds go to the plain versions before any build, and the
+library's tag covers every source under csrc/.  Tolerances rtol 1e-9, atol 1e-12 for values and rtol
 1e-7, atol 1e-10 for gradients, as in tests/test_pallas.py."""
 import numpy as np
 import jax
@@ -223,12 +223,19 @@ def _meta(*shape):
                                   "K1-nlen-d"])
 def test_kernel_wrappers_refuse_unsupported_shapes_before_build(case, monkeypatch):
     """Shapes beyond the kernels' bounds (m1 > M1_MAX = 32, more length
-    lanes than NLEN_MAX or than dims) raise before any library is built or
-    loaded."""
+    lanes than NLEN_MAX) are the gate's decision: off the CPU they are
+    refused, and on the CPU they reach the plain version, counted in
+    ``plain_calls``; no library is built or loaded either way.  More length
+    lanes than dims is an invalid call and raises, also before any build."""
     def no_build(*a, **k):
         raise AssertionError("the kernel library was built")
     monkeypatch.setattr(cv, "build", no_build)
     monkeypatch.setattr(cv, "_lib", None)
+    reached = []
+    for w in cv.WRAPPERS:
+        monkeypatch.setattr(cv, w.__name__ + "_plain",
+                            lambda *a, _n=w.__name__, **k: reached.append(_n))
+    cv.reset_launch_counts()
     m1 = cv.M1_MAX + 1 if case.endswith("m1") else 8
     d = cv.NLEN_MAX + 1 if case == "K1-nlen-max" else 2
     n_length = {"K1-nlen-max": cv.NLEN_MAX + 1, "K1-nlen-d": 3}.get(case, 2)
@@ -240,8 +247,22 @@ def test_kernel_wrappers_refuse_unsupported_shapes_before_build(case, monkeypatc
         "K3": lambda: cv.cond_weights_t(X, v, name='sexp'),
         "K4": lambda: cv.block_loglik_parts_t(X, v, v, name='sexp'),
     }
-    with pytest.raises(ValueError, match="kernel bound" if case.endswith("m1") else "n_length"):
+    if case == "K1-nlen-d":
+        with pytest.raises(ValueError, match="n_length"):
+            calls["K1"]()
+        assert reached == []
+        return
+    with pytest.raises(NotImplementedError, match="outside the hand kernel's bound"):
         calls[case[:2]]()
+    assert reached == [] and not any(c["plain_calls"] for c in cv.launch_counts().values())
+    X, v = torch.zeros((m1, d, 16), dtype=torch.float64), torch.zeros((m1, 16),
+                                                                      dtype=torch.float64)
+    calls[case[:2]]()
+    wrapper = next(w for w in cv.WRAPPERS if cv.KERNEL_ID[w.__name__] == case[:2])
+    assert reached == [wrapper.__name__]
+    counts = cv.launch_counts()
+    assert counts[wrapper.__name__] == {"launches": 0, "plain_calls": 1}
+    assert sum(c["plain_calls"] for c in counts.values()) == 1
 
 
 def test_build_tag_covers_every_source(tmp_path, monkeypatch):

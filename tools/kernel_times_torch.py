@@ -5,8 +5,9 @@ compared by one method in one chip call.
 The inputs, the library yardstick, the bound and the timing code are this
 repository's chip_smoke.py (the main path's shapes, sexp: K1 (2, 26, 2,
 2000) with 2 length lanes and the nugget lane, K2 (26, 2, 2000) with K=9,
-dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates;
-float64 and float32); the kernels are those of the checkout given.  For
+dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates, and
+the gp path's K1 without a node axis and K4, both at (26, 1, 2000); float64
+and float32); the kernels are those of the checkout given.  For
 each case it measures CUDA-event time around 10 calls back to back and
 around one call alone (median of 20 each) and the host time per call (200
 calls queued without waiting); the first and the last again with the
@@ -43,7 +44,10 @@ CASES = (("block_nllik_grad_parts_t", "block_nllik_grad_parts_t",
          ("block_loglik_multi_t", "block_loglik_multi_t", {"dl": 1}),
          ("cond_weights_t", "cond_weights_t", {}),
          ("block_loglik_parts_t", "block_loglik_parts_t", {}),
-         ("block_loglik_parts_t", "block_loglik_parts_t/K=9", {}))
+         ("block_loglik_parts_t", "block_loglik_parts_t/K=9", {}),
+         ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/gp",
+          {"n_length": 1, "nugget_est": True}),
+         ("block_loglik_parts_t", "block_loglik_parts_t/gp", {}))
 
 
 def device_ms(fn, symbol=None, reps=20):
@@ -105,7 +109,7 @@ def main():
                 kname, functools.partial(getattr(cv, kname), *args, **kw, name="sexp"),
                 functools.partial(getattr(cv, kname), *dense, **kw, name="sexp"),
                 functools.partial(torch.linalg.cholesky_ex, blocks),
-                cs._bound_ms(kname, args, dname), list(args[0].shape),
+                cs._bound_ms(kname, args, dname, kw), list(args[0].shape),
                 [a.is_contiguous() for a in args])
     times = {}
     for key, (kname, call, dense, library, (bound, by), shape, flat) in calls.items():
