@@ -34,9 +34,17 @@ Phases, each printing its results (and its seconds) as one JSON line:
             below one thread block's points, d = 5 (K1 with 5 length lanes;
             K3 and K4 without sentinel lanes), G = 1 (K1), K = 1 and dl = 0
             (K2), K2 at d = 3 with dl = 1 and sentinel lanes, K4 with 9
-            candidates sharing one target and diagonal or each with its own,
-            and blocks with a non-positive pivot, which must come out NaN
-            where the plain version's do.
+            candidates sharing one target and diagonal or each with its own;
+            the instantiation with two rows per lane at m1 = 33, 41 and 64
+            (all four kernels, K2 also at d = 3, K4 also with 3 candidates
+            of their own), K1 with 12 length lanes (d = 12, two passes; also
+            isotropic at d = 12 and m1 = 41) and at m1 = 64 with 9; and
+            blocks with a non-positive pivot at m1 = 26 and 64, which must
+            come out NaN where the plain version's do.  The linked phase's
+            calls too, on its data: K1 for its gp, K3 and K2 for its DGP.
+            254 comparisons in all.  Each kernel at m1 = 41 and 64 and K1
+            with 12 length lanes are also timed (kernel, plain version,
+            library call, bound).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -66,11 +74,6 @@ Phases, each printing its results (and its seconds) as one JSON line:
             Vecchia) are within rtol 1e-6 of the JAX package's, the Vecchia
             log-likelihood within rtol 1e-9 of its figure, and ALM/MICE/VIGF
             pick the JAX package's candidates.
-  dense_dgp the parity row `2d` (tools/parity.py): a 4-layer dense sexp DGP
-            of 7 nodes, n=24, widths 2/2/2/1 with global connections;
-            train(N=500), emulator(N=50) and predict on the 100 diagonal
-            points.  Fails unless the RMSE against the truth is at most the
-            parity gate 0.0612 (1.15x dgpsi's 0.0532).
   ref       bench.py's 2-layer Vecchia DGP with the 'ref' prior on both
             nodes: construction and 4 SEM iterations.  The 'ref' layer's ESS
             candidates go through K4 (no angle views, so K2 is not
@@ -78,14 +81,33 @@ Phases, each printing its results (and its seconds) as one JSON line:
             and the results are finite.
   gate      the kernel gate (`cuda_vecchia.use_kernel`): its shared-memory
             formula against `launch_plan`'s figure on the card for all four
-            kernels (and a launch plan that fails where the gate says no);
-            then bench.py's Vecchia DGP at m=40 (m1 = 41, outside the
-            kernels' bound), which must be refused on the card with
-            NotImplementedError, nothing launched and no plain version run
-            in a kernel's place; then the same at m=25: construction, 4 SEM
-            iterations, emulator(N=2) and predict.  Fails unless K1, K2 and
-            K3 were launched and the upper log-likelihood of the trained
-            state agrees with the same call on a CPU engine to rtol 1e-9.
+            kernels, at one row per lane and at two (m1 = 33, 48, 64: the
+            last d inside and a launch plan that fails one d beyond, where
+            the gate says no); then bench.py's Vecchia DGP at m=64 (m1 = 65,
+            outside the kernels' bound), which must be refused on the card
+            with NotImplementedError, nothing launched and no plain version
+            run in a kernel's place; then the same at m=40 (m1 = 41, two
+            rows per lane): construction, 4 SEM iterations, emulator(N=2)
+            and predict.  Fails unless K1, K2 and K3 were launched, no plain
+            version ran, the angle evaluator applies and the upper
+            log-likelihood of the trained state agrees with the same call on
+            a CPU engine to rtol 1e-9.  Last a Vecchia gp on 12 inputs with
+            12 lengthscales (n=300), trained on the card (K1 takes its 12
+            length lanes) and on the CPU: the parameters agree to rtol 1e-6.
+  linked    linked emulation at the main path's width, under the protocol
+            of dgp_tpu_torch/data/linked_n2000.json (written by
+            tools/make_torch_params.py linked with the JAX package): the
+            model_linking notebook's GP -> DGP system, f2(f1(x)) = `func`.
+            Model 1, a Vecchia gp (Matern-2.5, m=25) on 2000 points of f1,
+            trained on the card (K1); model 2, the main path's DGP on 2000
+            points of f2 at the JAX package's trained hyper-parameters;
+            container(m1.export()), container(m2.estimate()) (50 burn-in
+            sweeps: K3, K2), lgp(N=10) and predict on 1000 and 20000 points
+            of [-1, 1] at m=50, at lgp seeds 1, 2, 3.  Fails unless the gp's
+            trained parameters are within rtol 1e-6 of the JAX package's,
+            K1, K2 and K3 were launched with no plain call, and the median
+            RMSE against func is at most twice the JAX package's median
+            under the same protocol.
   lik_vecchia  the likelihood slice at full width, under the protocol of
             dgp_tpu_torch/data/lik_n2000.json (written by
             tools/make_torch_lik_params.py with the JAX package): bench.py's
@@ -106,8 +128,15 @@ Phases, each printing its results (and its seconds) as one JSON line:
             anchors of REF_ANCHORS.json: `poisson` (n=90, train 500, N=10),
             `negbin` (n=180, train 500, N=50; three SEM seeds, the median
             of each figure against its gate), `zip` (n=160, train 500,
-            N=10).  Dense and bound by the host, so the five runs go side
-            by side, one worker process each on the one card.
+            N=10).
+  dense_dgp the parity row `2d` (tools/parity.py): a 4-layer dense sexp DGP
+            of 7 nodes, n=24, widths 2/2/2/1 with global connections;
+            train(N=500), emulator(N=50) and predict on the 100 diagonal
+            points.  Fails unless the RMSE against the truth is at most the
+            parity gate 0.0612 (1.15x dgpsi's 0.0532).
+            It and the five runs of `lik_rows` are dense and bound by the
+            host, so they go side by side, one worker process each on the
+            one card; `dense_dgp` prints its line first.
 
 Then it prints the kernel summary line and, last, the device line.  Any
 failed phase exits non-zero.  Usage, from the repository root:
@@ -158,8 +187,12 @@ TRAIN_WARM, TRAIN_TIMED = 48, 152
 NODEWISE_ITERS = 4
 REF_ITERS = 4
 GATE_ITERS = 4
-GATE_M = 40
+# the gate phase: m = 40 runs on two rows per lane, m = 64 (m1 = 65) is
+# outside every kernel's bound; a Vecchia gp on 12 inputs with 12
+# lengthscales
+GATE_M, GATE_M_OUTSIDE = 40, 64
 GATE_RTOL = 1e-9
+GATE_GP_N, GATE_GP_D, GATE_GP_SEED = 300, 12, 5
 N_PRED = 20000
 # parity row `2d` (tools/parity.py:72-87): its gate is 1.15x dgpsi's RMSE
 # 0.0532 on the same draw (PARITY_r05.json; dgp_tpu gives 0.0361)
@@ -266,9 +299,10 @@ def cuda_ms(fn, reps=20, warm=3, inner=10):
 
 
 def _data_json(name):
+    """A protocol file of dgp_tpu_torch/data in this script's checkout."""
     from pathlib import Path
-    import dgp_tpu_torch
-    return json.loads((Path(dgp_tpu_torch.__file__).parent / "data" / name).read_text())
+    return json.loads((Path(__file__).resolve().parent / "dgp_tpu_torch" / "data"
+                       / name).read_text())
 
 
 def gp_order(protocol):
@@ -284,11 +318,16 @@ def launch_counts():
 
 
 # ----------------------------------------------------------------------
+def nvidia_smi():
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
 def phase_device():
     import torch
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -449,7 +488,32 @@ def _slice_inputs(dtype, device, nugget):
     lengths = t([[l0, 1.0]] + [[lj, lj] for lj in p["length"][1:]])
     Xg1l, diag1l, dnugl = cv.scale_blocks_t(Xg_raw, nug_g, valid, lengths,
                                             t([nugget] * 3), jit)
-    return {"cond_weights_t/lik": (Xgl, diagl),
+
+    # the linked path on its data (linked_n2000.json): K1 for model 1's gp
+    # (one node, one length lane and the nugget lane, at the JAX package's
+    # trained length), K3 for the prior draw of model 2's layer-1 node and
+    # K2 for its ESS candidates under the layer-2 node (on (latent, x)),
+    # both at model 2's trained lengthscales
+    lk = _data_json("linked_n2000.json")
+    X1k, Y1k, X2k, Y2k = linked_data(lk["protocol"])
+    mk, rk = lk["protocol"]["m"], np.random.RandomState(2)
+    lg, (h1, h2) = lk["gp"]["length"][0], lk["dgp"]["layers"]
+    ok = rk.permutation(N_TRAIN)
+    NNk = torch.as_tensor(vnn.nn(X1k[ok] / lg, mk, device=device), device=device)
+    rawk = cv.gather_raw_t(t(X1k[ok]), t(Y1k[ok, 0]), NNk, ones)
+    Xgk, diagk, dnugk = cv.scale_blocks_t(rawk[0], rawk[2], rawk[3], t([lg]), nugget, jit)
+    ok = rk.permutation(N_TRAIN)
+    NNk = torch.as_tensor(vnn.nn(X2k[ok] / h1["length"][0], mk, device=device), device=device)
+    Xg3k, _, diag3k = cv.gather_scale_t(t(X2k[ok]), t(np.zeros(N_TRAIN)), NNk,
+                                        t(h1["length"]), nugget, ones, jit)
+    x2 = X2k[:, 0]
+    l2 = h2["length"][0]
+    ok = rk.permutation(N_TRAIN)
+    NNk = vnn.nn(np.column_stack([x2, x2])[ok] / l2, mk, device=device)
+    k2k = angle_views(x2, 0.5 * np.sin(3 * x2 + 1.0), x2, Y2k[:, 0], ok, NNk, l2)[0]
+    return {"block_nllik_grad_parts_t/linked": (Xgk, rawk[1], diagk, dnugk),
+            "cond_weights_t/linked": (Xg3k, diag3k), "block_loglik_multi_t/linked": k2k,
+            "cond_weights_t/lik": (Xgl, diagl),
             "block_loglik_multi_t/lik0": k2_lik[0], "block_loglik_multi_t/lik1": k2_lik[1],
             "block_nllik_grad_parts_t/lik": (Xg1l, ygl, diag1l, dnugl),
             "cond_weights_t": k3, "block_loglik_multi_t": k2,
@@ -519,17 +583,38 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
 # nugget_est); K2: (m1, n, d, dl, K); K3: (m1, n, d); K4: (m1, n, d, K,
 # targets) with K = 0 for no candidate axis and the targets and diagonals
 # "shared" by all candidates ((m1, n)) or each candidate's "own" ((K, m1, n)).
-EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True))
-EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3))
-EDGE_K3 = ((32, 2001, 2), (2, 3, 2), (26, 2001, 5))
+# Then the two-rows-per-lane instantiation (33 <= m1 <= 64: the first
+# block that needs it, the gate phase's m = 40, and the largest), K1 with
+# 12 length lanes (two passes of 8) and at m1 = 64 with 9, and blocks with
+# a non-positive pivot at m1 = 26 and at m1 = 64.
+EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True),
+           (33, 2001, 2, 2, 2, True), (41, 2001, 2, 2, 1, True), (64, 2001, 2, 2, 2, False),
+           (26, 2001, 2, 12, 12, True), (26, 2001, 1, 12, 12, False), (64, 501, 1, 9, 9, True),
+           (41, 301, 2, 12, 1, True))
+EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3),
+           (33, 2001, 2, 1, 9), (41, 2001, 2, 1, 9), (64, 2001, 2, 1, 9), (64, 301, 3, 1, 2))
+EDGE_K3 = ((32, 2001, 2), (2, 3, 2), (26, 2001, 5), (33, 2001, 2), (41, 2001, 1),
+           (64, 2001, 2))
 EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, "shared"),
-           (26, 2001, 2, 9, "shared"), (26, 2001, 2, 9, "own"))
-NAN_K1 = (26, 300, 2, 2, 2, True)
-NAN_K2 = (26, 300, 2, 1, 3)
-NAN_K3 = (26, 300, 2)
-NAN_K4 = (26, 300, 2, 3, "own")
+           (26, 2001, 2, 9, "shared"), (26, 2001, 2, 9, "own"), (33, 2001, 2, 0, "shared"),
+           (41, 2001, 2, 9, "shared"), (64, 2001, 2, 0, "shared"), (64, 2001, 2, 3, "own"))
+NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True))
+NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3))
+NAN_K3 = ((26, 300, 2), (64, 300, 2))
+NAN_K4 = ((26, 300, 2, 3, "own"), (64, 300, 2, 3, "own"))
 EDGES = (("block_nllik_grad_parts_t", EDGE_K1, NAN_K1), ("block_loglik_multi_t", EDGE_K2, NAN_K2),
          ("cond_weights_t", EDGE_K3, NAN_K3), ("block_loglik_parts_t", EDGE_K4, NAN_K4))
+# timed beside the main path's cases: each kernel at m1 = 41 and 64 (d = 2,
+# n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 with 12
+# length lanes, on the edge cases' random blocks
+VARIANT_TIMES = (("block_nllik_grad_parts_t", (41, 2000, 2, 2, 2, True)),
+                 ("block_nllik_grad_parts_t", (64, 2000, 2, 2, 2, True)),
+                 ("block_nllik_grad_parts_t", (26, 2000, 2, 12, 12, True)),
+                 ("block_loglik_multi_t", (41, 2000, 2, 1, 9)),
+                 ("block_loglik_multi_t", (64, 2000, 2, 1, 9)),
+                 ("cond_weights_t", (41, 2000, 2)), ("cond_weights_t", (64, 2000, 2)),
+                 ("block_loglik_parts_t", (41, 2000, 2, 0, "shared")),
+                 ("block_loglik_parts_t", (64, 2000, 2, 0, "shared")))
 
 
 def _edge_inputs(kname, shape, seed, bad=False):
@@ -605,8 +690,8 @@ def _compare_edges(dev):
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     rows = []
-    cases = [(kname, s, bad) for kname, edges, nan in EDGES
-             for s, bad in [(s, False) for s in edges] + [(nan, True)]]
+    cases = [(kname, s, bad) for kname, edges, nans in EDGES
+             for s, bad in [(s, False) for s in edges] + [(s, True) for s in nans]]
     for name in ("sexp", "matern2.5"):
         for seed, (kname, shape, bad) in enumerate(cases):
             kern = getattr(cv, kname)
@@ -724,7 +809,11 @@ def phase_kernels(dev):
              ("cond_weights_t", "cond_weights_t/lik", {}),
              ("block_loglik_multi_t", "block_loglik_multi_t/lik0", {"dl": 1}),
              ("block_loglik_multi_t", "block_loglik_multi_t/lik1", {"dl": 1}),
-             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/lik", grad_kw))
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/lik", grad_kw),
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/linked",
+              {"n_length": 1, "nugget_est": True}),
+             ("cond_weights_t", "cond_weights_t/linked", {}),
+             ("block_loglik_multi_t", "block_loglik_multi_t/linked", {"dl": 1}))
     for name in ("sexp", "matern2.5"):
         for kname, case, kw in cases:
             kern = getattr(cv, kname)
@@ -768,6 +857,22 @@ def phase_kernels(dev):
                                                inner=1),
                 "bound_ms": bound, "bound_by": by,
                 "shape": list(args[0].shape)}
+    # the two-rows-per-lane instantiation and K1's passes over length lanes
+    for dt in ("float64", "float32"):
+        for kname, shape in VARIANT_TIMES:
+            kern = getattr(cv, kname)
+            plain = getattr(cv, kname + "_plain")
+            kw = _edge_kw(kname, shape, "sexp")
+            args = [torch.as_tensor(a, dtype=getattr(torch, dt), device=dev)
+                    for a in _edge_inputs(kname, shape, 0)]
+            blocks = _blocks_of(kname, args)
+            bound, by = _bound_ms(kname, args, dt, kw)
+            timing[f"{dt}/{kname}/{list(shape)}"] = {
+                "ms": cuda_ms(lambda: kern(*args, **kw)),
+                "ms_one_call": cuda_ms(lambda: kern(*args, **kw), inner=1),
+                "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
+                "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+                "bound_ms": bound, "bound_by": by, "shape": list(args[0].shape)}
     for kname in results:
         results[kname].update(timing["float64/" + kname])
     emit({"phase": "kernels", "timing_ms": timing, "seconds": time.perf_counter() - t0})
@@ -777,10 +882,7 @@ def phase_kernels(dev):
 
 
 def _params_json():
-    from pathlib import Path
-    import dgp_tpu_torch
-    return json.loads((Path(dgp_tpu_torch.__file__).parent / "data"
-                       / "vecchia_si_n2000.json").read_text())
+    return _data_json("vecchia_si_n2000.json")
 
 
 def phase_main(dev):
@@ -1030,15 +1132,17 @@ def phase_gp(dev):
     return launches
 
 
-def phase_dense_dgp(dev):
+def run_dense_dgp(_=None):
+    """The `dense_dgp` phase on the current card, in a worker process of
+    `phase_host_bound`: its record, with its checks and kernel launches."""
     import torch
     from dgp_tpu_torch import combine, dgp, emulator, kernel, nb_seed
-    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
 
     t_phase = time.perf_counter()
     X, Y, z, truth = twod_data()
     nb_seed(99)
-    cv.reset_launch_counts()
 
     def k(**kw):
         return kernel(length=np.array([1]), name='sexp', **kw)
@@ -1073,15 +1177,12 @@ def phase_dense_dgp(dev):
         "variance_positive": bool((var > 0).all()),
         "rmse": rmse <= TWOD_GATE,
     }
-    emit({"phase": "dense_dgp", "config": "parity 2d", "n": len(X), "layers": [2, 2, 2, 1],
-          "dgp_construct_s": t_dgp, "train_s": t_train,
-          "sem_it_per_s": TWOD_TRAIN / t_train, "emulator_build_s": t_emu,
-          "predict_100_s": t_pred, "rmse_vs_truth_diag": rmse, "rmse_gate": TWOD_GATE,
-          "launches": launches, "checks": checks,
-          "seconds": time.perf_counter() - t_phase})
-    if not all(checks.values()):
-        raise SystemExit(f"dense_dgp phase checks failed: {checks}")
-    return launches
+    return {"phase": "dense_dgp", "config": "parity 2d", "n": len(X), "layers": [2, 2, 2, 1],
+            "dgp_construct_s": t_dgp, "train_s": t_train,
+            "sem_it_per_s": TWOD_TRAIN / t_train, "emulator_build_s": t_emu,
+            "predict_100_s": t_pred, "rmse_vs_truth_diag": rmse, "rmse_gate": TWOD_GATE,
+            "launches": launches, "checks": checks,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def phase_ref(dev):
@@ -1133,33 +1234,46 @@ def phase_ref(dev):
 def _gate_formula_rows(torch, cv):
     """`cv.shared_bytes` (the gate's Python formula) against the library's
     `launch_plan` at shapes below and above the 48 KB a launch gets without
-    opting in, and just past the SM's 227 KB, where the plan must fail as
-    the gate says."""
+    opting in, and at the last d inside the SM's 227 KB and the first d
+    beyond it, at m1 = 32 (one row per lane) and at m1 = 33, 48 and 64 (two
+    rows per lane), where the plan must fail as the gate says."""
     rows, ok = [], True
     for kname, kid in cv.KERNEL_ID.items():
         for dt in (torch.float64, torch.float32):
-            for m1, d in ((26, 2), (32, 1), (2, 5), (32, 100), (17, 300)):
+            for m1, d in ((26, 2), (32, 1), (2, 5), (32, 100), (17, 300), (41, 2), (64, 2),
+                          (64, 40)):
                 plan = cv.launch_plan(kname, dt, m1, d)["shared_bytes"]
                 mine = cv.shared_bytes(kid, m1, d, dt)
-                ok &= plan == mine and cv.use_kernel(kid, m1, d, dtype=dt)
+                ok &= plan == mine and cv.use_kernel(kid, m1, d, dt)
                 rows.append([kid, str(dt), m1, d, plan, mine])
-            d = 1
-            while cv.use_kernel(kid, 32, d + 1, dtype=dt):
-                d += 1
-            inside = cv.launch_plan(kname, dt, 32, d)["shared_bytes"]
-            try:
-                cv.launch_plan(kname, dt, 32, d + 1)
-                beyond = "planned"
-            except RuntimeError:
-                beyond = "refused"
-            ok &= inside == cv.shared_bytes(kid, 32, d, dt) and beyond == "refused"
-            rows.append([kid, str(dt), 32, d, inside, "last inside; d+1 " + beyond])
+            for m1 in (32, 33, 48, 64):
+                d = 1
+                while cv.use_kernel(kid, m1, d + 1, dt):
+                    d += 1
+                inside = cv.launch_plan(kname, dt, m1, d)["shared_bytes"]
+                try:
+                    cv.launch_plan(kname, dt, m1, d + 1)
+                    beyond = "planned"
+                except RuntimeError:
+                    beyond = "refused"
+                ok &= inside == cv.shared_bytes(kid, m1, d, dt) and beyond == "refused"
+                rows.append([kid, str(dt), m1, d, inside, "last inside; d+1 " + beyond])
     return rows, ok
+
+
+def gate_gp_data():
+    """The gate phase's gp on 12 inputs: n = 300 points of [0, 1]^12, a sum
+    of one smooth term per input plus noise (sd 0.05)."""
+    rs = np.random.RandomState(GATE_GP_SEED)
+    X = rs.rand(GATE_GP_N, GATE_GP_D)
+    w = np.linspace(0.5, 3.0, GATE_GP_D)
+    Y = np.sin(X * w).sum(axis=1, keepdims=True) + 0.05 * rs.randn(GATE_GP_N, 1)
+    return X, Y
 
 
 def phase_gate(dev):
     import torch
-    from dgp_tpu_torch import dgp, emulator, nb_seed
+    from dgp_tpu_torch import dgp, emulator, gp, kernel, nb_seed
     from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
     from dgp_tpu_torch.models.compiled import CompiledDGP
     from dgp_tpu_torch.ops import cuda_vecchia as cv
@@ -1168,28 +1282,29 @@ def phase_gate(dev):
     formula_rows, formula_ok = _gate_formula_rows(torch, cv)
     X, Y = bench_data()
     z = np.linspace(-1, 1, 1000).reshape(-1, 1)
-    # outside the bound: refused on the card, by the first wrapper the
-    # construction reaches, with nothing launched and nothing run plain
+    # outside the bound (m1 = 65): refused on the card, by the first wrapper
+    # the construction reaches, with nothing launched and nothing run plain
     nb_seed(123)
     cv.reset_launch_counts()
     try:
-        dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M, device=dev)
+        dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M_OUTSIDE, device=dev)
         refusal = None
     except NotImplementedError as e:
         refusal = str(e)
     outside = {"refusal": refusal, "counts": cv.launch_counts(),
-               "use_kernel": {kid: cv.use_kernel(kid, GATE_M + 1, 2)
+               "use_kernel": {kid: cv.use_kernel(kid, GATE_M_OUTSIDE + 1, 2)
                               for kid in cv.KERNEL_ID.values()}}
-    # inside the bound
+    # m = 40 (m1 = 41): two rows per lane, through the kernels
     nb_seed(123)
     cv.reset_launch_counts()
     t0 = time.perf_counter()
-    m = dgp(X, Y, _bench_layers(), vecchia=True, m=M_TRAIN, device=dev)
+    m = dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M, device=dev)
     m.train(N=GATE_ITERS, disable=True, chunk_size=16)
     mu, var = emulator(m.estimate(), N=2, device=dev).predict(z, m=50)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = launch_counts()
+    counts = cv.launch_counts()
+    launches = {k: c["launches"] for k, c in counts.items()}
     # the trained state's upper log-likelihood, on the card and on a CPU
     # engine carrying the same state
     lls = []
@@ -1198,28 +1313,51 @@ def phase_gate(dev):
         lat, par = eng.get_state()
         lls.append(float(eng._upper_loglik(0, lat, par, eng.get_nn_state())))
     inside = {"launches": launches, "seconds": seconds,
+              "plain_calls": {k: c["plain_calls"] for k, c in counts.items()},
               "angle_applicable": m.imp._engine()._angle_applicable(0),
               "upper_loglik_card": lls[0], "upper_loglik_cpu": lls[1],
               "rmse": float(np.sqrt(np.mean((mu - func(z)) ** 2))),
               "finite": bool(np.isfinite(mu).all() and np.isfinite(var).all()
                              and all(np.isfinite(nd.para_path).all()
                                      for layer in m.all_layer for nd in layer))}
+    # a Vecchia gp with one lengthscale per input on 12 inputs: K1 takes its
+    # 12 length lanes (two passes); trained on the card and on the CPU
+    Xg, Yg = gate_gp_data()
+    gps = {}
+    for device in (dev, "cpu"):
+        np.random.seed(GATE_GP_SEED)
+        cv.reset_launch_counts()
+        t0 = time.perf_counter()
+        g = gp(Xg, Yg, kernel(length=np.full(GATE_GP_D, 0.5), name="sexp", scale_est=True,
+                              nugget_est=True), vecchia=True, m=M_TRAIN, device=device)
+        g.train()
+        gps[str(device)] = {"seconds": time.perf_counter() - t0,
+                            "K1_launches": launch_counts()["block_nllik_grad_parts_t"],
+                            "scale": float(g.kernel.scale[0]),
+                            "length": g.kernel.length.tolist(),
+                            "nugget": float(g.kernel.nugget[0])}
+    gcard, gcpu = gps[str(dev)], gps["cpu"]
     checks = {
         "shared_bytes_formula": formula_ok,
-        "outside_refused": refusal is not None and f"m1={GATE_M + 1}" in refusal
+        "outside_refused": refusal is not None and f"m1={GATE_M_OUTSIDE + 1}" in refusal
         and not any(outside["use_kernel"].values()),
         "outside_nothing_ran": all(c == {"launches": 0, "plain_calls": 0}
                                    for c in outside["counts"].values()),
         "inside_launches": inside["angle_applicable"] and all(
             launches[k] > 0 for k in ("block_nllik_grad_parts_t",
                                       "block_loglik_multi_t", "cond_weights_t")),
+        "inside_no_plain_calls": not any(inside["plain_calls"].values()),
         "loglik_card_vs_cpu": bool(np.isclose(lls[0], lls[1], rtol=GATE_RTOL, atol=0.0)),
         "finite": inside["finite"],
+        "gp12_K1_launches": gcard["K1_launches"] > 0 and len(gcard["length"]) == GATE_GP_D,
+        "gp12_card_vs_cpu": all(np.allclose(np.atleast_1d(gcard[k]), np.atleast_1d(gcpu[k]),
+                                            rtol=GP_RTOL_PARAMS, atol=0.0)
+                                for k in ("scale", "length", "nugget")),
     }
     emit({"phase": "gate", "n": N_TRAIN, "iterations": GATE_ITERS,
-          "m_outside": GATE_M, "outside": outside, "m_inside": M_TRAIN, "inside": inside,
-          "shared_bytes_rows": formula_rows, "checks": checks,
-          "seconds": time.perf_counter() - t_phase})
+          "m_outside": GATE_M_OUTSIDE, "outside": outside, "m_inside": GATE_M,
+          "inside": inside, "gp12": gps, "shared_bytes_rows": formula_rows,
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"gate phase checks failed: {checks}")
     return launches
@@ -1240,6 +1378,121 @@ def lik_data(p):
     Xh = np.sort(rh.rand(p["n_heldout"], 1) * 2 - 1, axis=0)
     Yh = func(Xh) + lik_noise_sd(Xh) * rh.randn(p["n_heldout"], 1)
     return X, Y, z, Xh, Yh
+
+
+def linked_data(p):
+    """The `linked` protocol's data (tools/make_torch_params.py): model 1 on
+    f1(x) = (sin 7.5x + 1)/2 over [-1, 1], model 2 on f2 over f1's range
+    [0, 1], so that f2(f1(x)) is `func`."""
+    rng = np.random.RandomState(p["data_seed"])
+    X1 = rng.uniform(-1, 1, (p["n"], 1))
+    Y1 = (np.sin(7.5 * X1) + 1) / 2 + p["y1_noise"] * rng.randn(p["n"], 1)
+    X2 = rng.uniform(0, 1, (p["n"], 1))
+    Y2 = (2 / 3 * np.sin(2 * (2 * X2 - 1)) + 4 / 3 * np.exp(-30 * (2 * (2 * X2 - 1)) ** 2)
+          - 1 / 3) + p["y2_noise"] * rng.randn(p["n"], 1)
+    return X1, Y1, X2, Y2
+
+
+def linked_layers(ref):
+    """The `linked` protocol's model 2: the main path's structure at the JAX
+    package's trained hyper-parameters (``ref``: linked_n2000.json)."""
+    from dgp_tpu_torch import combine, kernel
+    h1, h2 = ref["dgp"]["layers"]
+    return combine([kernel(length=np.array(h1["length"]), scale=h1["scale"],
+                           nugget=h1["nugget"], name='sexp')],
+                   [kernel(length=np.array(h2["length"]), scale=h2["scale"],
+                           nugget=h2["nugget"], name='sexp', nugget_est=True,
+                           scale_est=True, connect=np.arange(1))])
+
+
+def phase_linked(dev):
+    import torch
+    from dgp_tpu_torch import container, dgp, gp, kernel, lgp, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    ref = _data_json("linked_n2000.json")
+    p = ref["protocol"]
+    X1, Y1, X2, Y2 = linked_data(p)
+    z = np.linspace(-1, 1, p["n_test"]).reshape(-1, 1)
+    zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
+
+    def counts_since(before):
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    cv.reset_launch_counts()
+    # model 1, trained on the card (K1)
+    t0 = time.perf_counter()
+    np.random.seed(p["gp_ord_seed"])
+    g = gp(X1, Y1, kernel(length=np.array([p["gp_length"]]), name=p["gp_kernel"],
+                          scale_est=True, nugget_est=True), vecchia=True, m=p["m"], device=dev)
+    g.train()
+    torch.cuda.synchronize()
+    trained = {"scale": float(g.kernel.scale[0]), "length": g.kernel.length.tolist(),
+               "nugget": float(g.kernel.nugget[0]), "train_s": time.perf_counter() - t0,
+               "launches": launch_counts()}
+    c1 = container(g.export(), local_input_idx=np.array([0]), device=dev)
+    runs = []
+    for seed in p["lgp_seeds"]:
+        t0 = time.perf_counter()
+        nb_seed(seed)
+        np.random.seed(seed)
+        m2 = dgp(X2, Y2, linked_layers(ref), vecchia=True, m=p["m"], device=dev)
+        before = launch_counts()
+        c2 = container(m2.estimate(), local_input_idx=np.array([0]), device=dev)
+        torch.cuda.synchronize()
+        t_container = time.perf_counter() - t0
+        per_container = counts_since(before)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        system = lgp([[c1], [c2]], N=p["lgp_N"], device=dev)
+        torch.cuda.synchronize()
+        t_lgp = time.perf_counter() - t0
+        per_lgp = counts_since(before)
+        t0 = time.perf_counter()
+        mu, var = system.predict(z, m=p["pred_m"])
+        t_z = time.perf_counter() - t0
+        run = {"seed": seed, "dgp_and_container_s": t_container, "lgp_s": t_lgp,
+               "predict_1000_s": t_z,
+               "launches_per_container_build": per_container,
+               "launches_per_lgp_build": per_lgp,
+               "rmse": float(np.sqrt(np.mean((mu[0] - func(z)) ** 2))),
+               "finite": bool(np.isfinite(mu[0]).all() and np.isfinite(var[0]).all()
+                              and (var[0] > 0).all())}
+        if not runs:
+            # the throughput on N_PRED points
+            t0 = time.perf_counter()
+            mu_p, var_p = system.predict(zp, m=p["pred_m"])
+            t_pred = time.perf_counter() - t0
+            run.update(predict_points=N_PRED, predict_s=t_pred,
+                       predict_pts_per_s=N_PRED / t_pred,
+                       finite_predict=bool(np.isfinite(mu_p[0]).all()
+                                           and np.isfinite(var_p[0]).all()))
+        runs.append(run)
+    counts = cv.launch_counts()
+    launches = {k: c["launches"] for k, c in counts.items()}
+    median = float(np.median([r["rmse"] for r in runs]))
+    gate = 2.0 * ref["lgp"]["rmse_median"]
+    checks = {
+        "gp_params_vs_jax": all(np.allclose(np.atleast_1d(trained[k]),
+                                            np.atleast_1d(ref["gp"][k]),
+                                            rtol=GP_RTOL_PARAMS, atol=0.0)
+                                for k in ("scale", "length", "nugget")),
+        "gp_K1": trained["launches"]["block_nllik_grad_parts_t"] > 0,
+        "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
+                                                  "block_loglik_multi_t", "cond_weights_t")),
+        "no_plain_calls": not any(c["plain_calls"] for c in counts.values()),
+        "finite": all(r["finite"] for r in runs) and runs[0]["finite_predict"],
+        "rmse_median": median <= gate,
+    }
+    emit({"phase": "linked", "n": p["n"], "m": p["m"], "N": p["lgp_N"],
+          "nvidia_smi": nvidia_smi(), "gp": trained, "jax_gp": ref["gp"], "runs": runs,
+          "rmse_median": median, "rmse_gate": gate,
+          "jax_rmse_by_seed": ref["lgp"]["rmse_by_seed"], "launches": launches,
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"linked phase checks failed: {checks}")
+    return launches
 
 
 def phase_lik_vecchia(dev):
@@ -1426,7 +1679,7 @@ def _lik_row_layers(name):
 def run_lik_row(task):
     """One parity row on the port at one SEM seed, on the current card:
     its figures, seconds and kernel launches.  ``task`` is (row, nb_seed);
-    a worker process of `phase_lik_rows` runs it."""
+    a worker process of `phase_host_bound` runs it."""
     import torch
     from dgp_tpu_torch import dgp, emulator, nb_seed
     name, seed = task
@@ -1460,15 +1713,21 @@ def run_lik_row(task):
     return out
 
 
-def phase_lik_rows():
+def phase_host_bound():
+    """`dense_dgp` and `lik_rows`: small dense models whose SEM is bound by
+    the host, one worker process for `dense_dgp` and one for each run of a
+    row, side by side on the one card; each prints its own line."""
     import multiprocessing
 
     t_phase = time.perf_counter()
     tasks = [(name, seed) for name, row in LIK_ROWS.items() for seed in row["seeds"]]
-    # the rows are small dense models whose SEM is bound by the host: one
-    # process each, side by side on the one card
-    with multiprocessing.get_context("spawn").Pool(len(tasks)) as pool:
+    with multiprocessing.get_context("spawn").Pool(len(tasks) + 1) as pool:
+        dense = pool.apply_async(run_dense_dgp)
         runs = pool.map(run_lik_row, tasks)
+        dense = dense.get()
+    emit(dense)
+    if not all(dense["checks"].values()):
+        raise SystemExit(f"dense_dgp phase checks failed: {dense['checks']}")
     rows, launches = [], {k: 0 for k in SOURCES}
     for name, row in LIK_ROWS.items():
         mine = [r for r in runs if r["row"] == name]
@@ -1489,12 +1748,13 @@ def phase_lik_rows():
                 launches[k] += v
     checks = {"dense_no_kernels": not any(launches.values()),
               **{r["row"]: r["pass"] for r in rows}}
-    emit({"phase": "lik_rows", "rows": rows, "runs": runs, "processes": len(tasks),
+    # "seconds": the pool's, dense_dgp's worker included
+    emit({"phase": "lik_rows", "rows": rows, "runs": runs, "processes": len(tasks) + 1,
           "launches": launches, "checks": checks,
           "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"lik_rows phase checks failed: {checks}")
-    return launches
+    return {k: v + dense["launches"][k] for k, v in launches.items()}
 
 
 def main():
@@ -1509,11 +1769,11 @@ def main():
     phase_build()
     results = phase_kernels(dev)
     launches = {k: 0 for k in SOURCES}
-    for phase in (phase_main, phase_train, phase_nodewise, phase_gp, phase_dense_dgp,
-                  phase_ref, phase_gate, phase_lik_vecchia):
+    for phase in (phase_main, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
+                  phase_linked, phase_lik_vecchia):
         for k, v in phase(dev).items():
             launches[k] += v
-    for k, v in phase_lik_rows().items():
+    for k, v in phase_host_bound().items():
         launches[k] += v
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],

@@ -25,6 +25,7 @@ from .likelihoods import Poisson, Hetero, NegBin, Categorical, ZIP, ZINB  # noqa
 from .models.gp import gp  # noqa: F401
 from .models.dgp import dgp  # noqa: F401
 from .models.emulation import emulator  # noqa: F401
+from .models.linkgp import container, lgp  # noqa: F401
 from .interop import layers_from_numpy  # noqa: F401
 
 __version__ = "0.1.0"

@@ -31,23 +31,29 @@
 // (coalesced), and the warp forms each candidate's coordinates from the
 // staged tile in its own shared buffer.  PERF.md has the measurements
 // against the candidate axis on the grid (one candidate per thread block).
+// Blocks of 33 to 64 rows run the instantiation with two rows per lane
+// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
 
 // shared values of one point: its A, B, C tiles, y and diag, the warp's
 // candidate coordinates and its block
+template <int R>
 __host__ __device__ inline int multi_per_point(int m1, int d) {
-  return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch(m1);
+  return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1);
 }
 
-template <typename T, int KN>
-__global__ void __launch_bounds__(WARP * WARPS_MAX)
-block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                          const T* __restrict__ C, const T* __restrict__ yg,
-                          const T* __restrict__ diag, const T* __restrict__ cosv,
-                          const T* __restrict__ sinv, T* __restrict__ logdet,
-                          T* __restrict__ quad, int m1, int d, int dl, int n, int K) {
+// The kernel's body at R rows per lane; the entry points of R = 1 and R = 2
+// below differ only in their launch bounds.
+template <typename T, int KN, int R>
+__device__ __forceinline__ void multi_body(const T* __restrict__ A, const T* __restrict__ B,
+                                           const T* __restrict__ C, const T* __restrict__ yg,
+                                           const T* __restrict__ diag,
+                                           const T* __restrict__ cosv,
+                                           const T* __restrict__ sinv, T* __restrict__ logdet,
+                                           T* __restrict__ quad, int m1, int d, int dl, int n,
+                                           int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int P = blockDim.x / WARP;
@@ -60,8 +66,8 @@ block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
   T* Cs = Bs + tile;
   T* ys = Cs + tile;
   T* ds = ys + m1 * P;
-  T* xw = ds + m1 * P + warp * (d * m1 + block_scratch(m1));   // (m1, d)
-  T* ls = xw + d * m1;                                         // (m1, LDS)
+  T* xw = ds + m1 * P + warp * (d * m1 + block_scratch<R>(m1));   // (m1, d)
+  T* ls = xw + d * m1;                                            // (m1, LDS<R>)
   stage(A, As, m1, d, n, p0, P);
   stage(B, Bs, m1, d, n, p0, P);
   stage(C, Cs, m1, d, n, p0, P);
@@ -72,40 +78,86 @@ block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int p = p0 + warp;
   if (p >= n) return;
   const int dlc = dl < d && dl > 0 ? dl : d;   // dims built from the candidate
+  const int last = m1 - 1;
   const TileCoords<T> x{xw, d};
   for (int k = 0; k < K; ++k) {
     const T c = cosv[k], s = sinv[k];
     __syncwarp();
-    if (lane < m1)
-      for (int t = 0; t < d; ++t) {
-        const int o = (warp * m1 + lane) * d + t;
-        xw[lane * d + t] = t < dlc ? c * As[o] + s * Bs[o] + Cs[o] : Cs[o];
-      }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      if (row < m1)
+        for (int t = 0; t < d; ++t) {
+          const int o = (warp * m1 + row) * d + t;
+          xw[row * d + t] = t < dlc ? c * As[o] + s * Bs[o] + Cs[o] : Cs[o];
+        }
+    }
     __syncwarp();
-    warp_build<T, KN>(x, lane < m1 ? ds[warp * m1 + lane] : T(0), ls, m1, d, dlc, lane);
-    T b = lane < m1 ? ys[warp * m1 + lane] : T(0);
-    const T lii = warp_cholesky(ls, ls + m1 * LDS, static_cast<T*>(nullptr), b, m1, lane);
-    if (lane == m1 - 1) {
+    T dg[R], b[R], lii[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
+      b[r] = row < m1 ? ys[warp * m1 + row] : T(0);
+    }
+    warp_build<T, KN, R>(x, dg, ls, m1, d, dlc, lane);
+    warp_cholesky<T, R>(ls, static_cast<T*>(nullptr), b, lii, m1, lane);
+    if (lane == last % WARP) {
       const long long o = (long long)k * n + p;
-      logdet[o] = T(2) * d_log(lii);
-      quad[o] = b * b;
+      const T sl = pick(b, last / WARP);
+      logdet[o] = T(2) * d_log(pick(lii, last / WARP));
+      quad[o] = sl * sl;
     }
   }
+}
+
+// R = 1
+template <typename T, int KN>
+__global__ void __launch_bounds__(WARP * WARPS_MAX)
+block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                          const T* __restrict__ C, const T* __restrict__ yg,
+                          const T* __restrict__ diag, const T* __restrict__ cosv,
+                          const T* __restrict__ sinv, T* __restrict__ logdet,
+                          T* __restrict__ quad, int m1, int d, int dl, int n, int K) {
+  multi_body<T, KN, 1>(A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl, n, K);
+}
+
+// R = 2: the minimum of one resident block lets ptxas take the registers the
+// two-row body needs; without it ptxas chose 48 and spilled 48 bytes
+// (Matern-2.5, float64).
+template <typename T, int KN>
+__global__ void __launch_bounds__(WARP * WARPS_MAX, 1)
+block_loglik_multi_kernel_r2(const T* __restrict__ A, const T* __restrict__ B,
+                             const T* __restrict__ C, const T* __restrict__ yg,
+                             const T* __restrict__ diag, const T* __restrict__ cosv,
+                             const T* __restrict__ sinv, T* __restrict__ logdet,
+                             T* __restrict__ quad, int m1, int d, int dl, int n, int K) {
+  multi_body<T, KN, 2>(A, B, C, yg, diag, cosv, sinv, logdet, quad, m1, d, dl, n, K);
+}
+
+template <typename T, int KN, int R>
+static int launch_r(const T* a, const T* b, const T* c, const T* y, const T* dg, const T* cs,
+                    const T* sn, T* ld, T* q, int m1, int d, int dl, int n, int K,
+                    cudaStream_t stream) {
+  const auto kern =
+      R == 1 ? block_loglik_multi_kernel<T, KN> : block_loglik_multi_kernel_r2<T, KN>;
+  int P;
+  size_t bytes;
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * multi_per_point<R>(m1, d),
+                                     &P, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(n + P - 1) / P, P * WARP, bytes, stream>>>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl,
+                                                     n, K);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int KN>
 static int launch_kn(const T* a, const T* b, const T* c, const T* y, const T* dg, const T* cs,
                      const T* sn, T* ld, T* q, int m1, int d, int dl, int n, int K,
                      cudaStream_t stream) {
-  const auto kern = block_loglik_multi_kernel<T, KN>;
-  int P;
-  size_t bytes;
-  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * multi_per_point(m1, d), &P,
-                                     &bytes);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<(n + P - 1) / P, P * WARP, bytes, stream>>>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl,
-                                                     n, K);
-  return (int)cudaGetLastError();
+  if (rows_per_lane(m1) == 1)
+    return launch_r<T, KN, 1>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
+  return launch_r<T, KN, 2>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
 }
 
 template <typename T>
@@ -124,6 +176,16 @@ static int launch(int kname, const void* A, const void* B, const void* C, const 
   if (kname == SEXP)
     return launch_kn<T, SEXP>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
   return launch_kn<T, MATERN25>(a, b, c, y, dg, cs, sn, ld, q, m1, d, dl, n, K, stream);
+}
+
+// The launch plan of the sexp kernel at (m1, d) (see the extern "C" below).
+template <typename T>
+static int plan(int m1, int d, int* out) {
+  if (rows_per_lane(m1) == 1)
+    return (int)plan_report((const void*)block_loglik_multi_kernel<T, SEXP>,
+                            sizeof(T) * multi_per_point<1>(m1, d), out);
+  return (int)plan_report((const void*)block_loglik_multi_kernel_r2<T, SEXP>,
+                          sizeof(T) * multi_per_point<2>(m1, d), out);
 }
 
 }  // namespace dgp
@@ -152,11 +214,7 @@ extern "C" int dgp_block_loglik_multi(int dtype, int kname, const void* A, const
 // thread block, out[1] its shared bytes, out[2] blocks resident per SM.
 extern "C" int dgp_block_loglik_multi_plan(int dtype, int m1, int d, int* out) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return (int)dgp::plan_report((const void*)dgp::block_loglik_multi_kernel<double, dgp::SEXP>,
-                                 sizeof(double) * dgp::multi_per_point(m1, d), out);
-  if (dtype == 0)
-    return (int)dgp::plan_report((const void*)dgp::block_loglik_multi_kernel<float, dgp::SEXP>,
-                                 sizeof(float) * dgp::multi_per_point(m1, d), out);
+  if (dtype == 1) return dgp::plan<double>(m1, d, out);
+  if (dtype == 0) return dgp::plan<float>(m1, d, out);
   return (int)cudaErrorInvalidValue;
 }

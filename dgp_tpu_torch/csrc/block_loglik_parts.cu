@@ -30,19 +30,22 @@
 // and diag tiles of its P points (coalesced).  Each candidate has its own
 // coordinates, so there is no tile for the candidates of a point to share:
 // they are the grid's y axis, as K1's nodes are.
+// Blocks of 33 to 64 rows run the instantiation with two rows per lane
+// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
 
 // shared values of one point: its X tile, y, diag and the warp's block
+template <int R>
 __host__ __device__ inline int parts_per_point(int m1, int d) {
-  return m1 * d + 2 * m1 + block_scratch(m1);
+  return m1 * d + 2 * m1 + block_scratch<R>(m1);
 }
 
 // The minimum of one resident block lets ptxas take the registers the
-// factorisation needs (96 in float64); without it ptxas chose 80 and
-// spilled 16 bytes.
-template <typename T, int KN>
+// factorisation needs (96 in float64 at R = 1); without it ptxas chose 80
+// and spilled 16 bytes.
+template <typename T, int KN, int R>
 __global__ void __launch_bounds__(WARP * WARPS_MAX, 1)
 block_loglik_parts_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
                           const T* __restrict__ diag, T* __restrict__ logdet,
@@ -57,7 +60,7 @@ block_loglik_parts_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   T* Xs = sm;
   T* ys = Xs + m1 * d * P;
   T* ds = ys + m1 * P;
-  T* ls = ds + m1 * P + warp * block_scratch(m1);   // (m1, LDS)
+  T* ls = ds + m1 * P + warp * block_scratch<R>(m1);   // (m1, LDS<R>)
   stage(Xg + (long long)c * m1 * d * n, Xs, m1, d, n, p0, P);
   stage(yg + c * y_stride, ys, m1, 1, n, p0, P);
   stage(diag + c * y_stride, ds, m1, 1, n, p0, P);
@@ -65,31 +68,45 @@ block_loglik_parts_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   const int p = p0 + warp;
   if (p >= n) return;
 
-  const bool live = lane < m1;
-  const int me = warp * m1 + lane;
   const TileCoords<T> x{Xs + warp * m1 * d, d};
-  warp_build<T, KN>(x, live ? ds[me] : T(0), ls, m1, d, d, lane);
-  T b = live ? ys[me] : T(0);
-  const T lii = warp_cholesky(ls, ls + m1 * LDS, static_cast<T*>(nullptr), b, m1, lane);
-  if (lane == m1 - 1) {
-    const long long o = (long long)c * n + p;
-    logdet[o] = T(2) * d_log(lii);
-    quad[o] = b * b;
+  T dg[R], b[R], lii[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = lane + r * WARP;
+    dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
+    b[r] = row < m1 ? ys[warp * m1 + row] : T(0);
   }
+  warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
+  warp_cholesky<T, R>(ls, static_cast<T*>(nullptr), b, lii, m1, lane);
+  const int last = m1 - 1;
+  if (lane == last % WARP) {
+    const long long o = (long long)c * n + p;
+    const T sl = pick(b, last / WARP);
+    logdet[o] = T(2) * d_log(pick(lii, last / WARP));
+    quad[o] = sl * sl;
+  }
+}
+
+template <typename T, int KN, int R>
+static int launch_r(const T* x, const T* y, const T* dg, T* ld, T* q, int m1, int d, int n,
+                    int K, long long ys, cudaStream_t stream) {
+  const auto kern = block_loglik_parts_kernel<T, KN, R>;
+  int P;
+  size_t bytes;
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * parts_per_point<R>(m1, d),
+                                     &P, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + P - 1) / P, K);
+  kern<<<grid, P * WARP, bytes, stream>>>(x, y, dg, ld, q, m1, d, n, ys);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int KN>
 static int launch_kn(const T* x, const T* y, const T* dg, T* ld, T* q, int m1, int d, int n,
                      int K, long long ys, cudaStream_t stream) {
-  const auto kern = block_loglik_parts_kernel<T, KN>;
-  int P;
-  size_t bytes;
-  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * parts_per_point(m1, d), &P,
-                                     &bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + P - 1) / P, K);
-  kern<<<grid, P * WARP, bytes, stream>>>(x, y, dg, ld, q, m1, d, n, ys);
-  return (int)cudaGetLastError();
+  if (rows_per_lane(m1) == 1)
+    return launch_r<T, KN, 1>(x, y, dg, ld, q, m1, d, n, K, ys, stream);
+  return launch_r<T, KN, 2>(x, y, dg, ld, q, m1, d, n, K, ys, stream);
 }
 
 template <typename T>
@@ -103,6 +120,16 @@ static int launch(int kname, const void* Xg, const void* yg, const void* diag, v
   const long long ys = shared_y ? 0LL : (long long)m1 * n;
   if (kname == SEXP) return launch_kn<T, SEXP>(x, y, dg, ld, q, m1, d, n, K, ys, stream);
   return launch_kn<T, MATERN25>(x, y, dg, ld, q, m1, d, n, K, ys, stream);
+}
+
+// The launch plan of the sexp kernel at (m1, d) (see the extern "C" below).
+template <typename T>
+static int plan(int m1, int d, int* out) {
+  if (rows_per_lane(m1) == 1)
+    return (int)plan_report((const void*)block_loglik_parts_kernel<T, SEXP, 1>,
+                            sizeof(T) * parts_per_point<1>(m1, d), out);
+  return (int)plan_report((const void*)block_loglik_parts_kernel<T, SEXP, 2>,
+                          sizeof(T) * parts_per_point<2>(m1, d), out);
 }
 
 }  // namespace dgp
@@ -129,11 +156,7 @@ extern "C" int dgp_block_loglik_parts(int dtype, int kname, const void* Xg, cons
 // thread block, out[1] its shared bytes, out[2] blocks resident per SM.
 extern "C" int dgp_block_loglik_parts_plan(int dtype, int m1, int d, int* out) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return (int)dgp::plan_report((const void*)dgp::block_loglik_parts_kernel<double, dgp::SEXP>,
-                                 sizeof(double) * dgp::parts_per_point(m1, d), out);
-  if (dtype == 0)
-    return (int)dgp::plan_report((const void*)dgp::block_loglik_parts_kernel<float, dgp::SEXP>,
-                                 sizeof(float) * dgp::parts_per_point(m1, d), out);
+  if (dtype == 1) return dgp::plan<double>(m1, d, out);
+  if (dtype == 0) return dgp::plan<float>(m1, d, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -47,21 +47,29 @@
 // X, y, diag and dnug tiles of its points (coalesced); the G nodes of the
 // group are the grid's y axis, so one launch serves one L-BFGS evaluation
 // of every node.
+// Blocks of 33 to 64 rows run the instantiation with two rows per lane
+// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.  The
+// length lanes go in passes of NLEN_CHUNK = 8, each pass with its own
+// register accumulators and forward substitutions over the factor and z
+// kept in shared memory, so any number of lanes up to d is taken; up to 8
+// lanes (and the nugget lane) are one pass.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
 
 // the warp's shared values: its block, 1 / L[j][j] and z
+template <int R>
 __host__ __device__ inline int grad_warp_scratch(int m1) {
-  return block_scratch(m1) + 2 * M1_MAX;
+  return block_scratch<R>(m1) + 2 * R * WARP;
 }
 
 // shared values of one point: its X tile, y, diag, dnug and the warp's scratch
+template <int R>
 __host__ __device__ inline int grad_per_point(int m1, int d) {
-  return m1 * d + 3 * m1 + grad_warp_scratch(m1);
+  return m1 * d + 3 * m1 + grad_warp_scratch<R>(m1);
 }
 
-template <typename T, int KN>
+template <typename T, int KN, int R>
 __global__ void __launch_bounds__(WARP * WARPS_MAX)
 block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
                         const T* __restrict__ diag, const T* __restrict__ dnug,
@@ -70,6 +78,7 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
                         int n_length, int nugget_est) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int S = LDS<R>;
   const int P = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
@@ -80,9 +89,9 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   T* ys = Xs + m1 * d * P;
   T* dgs = ys + m1 * P;
   T* dns = dgs + m1 * P;
-  T* ls = dns + m1 * P + warp * grad_warp_scratch(m1);   // (m1, LDS)
-  T* invd = ls + block_scratch(m1);
-  T* zs = invd + M1_MAX;
+  T* ls = dns + m1 * P + warp * grad_warp_scratch<R>(m1);   // (m1, LDS<R>)
+  T* invd = ls + block_scratch<R>(m1);
+  T* zs = invd + R * WARP;
   stage(Xg + blk * d, Xs, m1, d, n, p0, P);
   stage(yg + blk, ys, m1, 1, n, p0, P);
   stage(diag + blk, dgs, m1, 1, n, p0, P);
@@ -91,101 +100,138 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   const int p = p0 + warp;
   if (p >= n) return;
 
-  const bool live = lane < m1;
-  const int me = warp * m1 + lane;
+  const int last = m1 - 1;                // the block's own point, row m1 - 1
   const TileCoords<T> x{Xs + warp * m1 * d, d};
-  warp_build<T, KN>(x, live ? dgs[me] : T(0), ls, m1, d, d, lane);
-  T ly = live ? ys[me] : T(0);
-  const T lii = warp_cholesky(ls, ls + m1 * LDS, invd, ly, m1, lane);
-  const T z = warp_backward(ls, invd, lane == m1 - 1 ? T(1) : T(0), m1, lane);   // L^-T e_last
-  const T yl = __shfl_sync(FULL_MASK, ly, m1 - 1);
-  if (lane == m1 - 1) {
-    logdet[(long long)g * n + p] = T(2) * d_log(lii);
+  T dg[R], ly[R], lii[R], e[R], z[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = lane + r * WARP;
+    dg[r] = row < m1 ? dgs[warp * m1 + row] : T(0);
+    ly[r] = row < m1 ? ys[warp * m1 + row] : T(0);
+    e[r] = row == last ? T(1) : T(0);
+  }
+  warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
+  warp_cholesky<T, R>(ls, invd, ly, lii, m1, lane);
+  warp_backward<T, R>(ls, invd, e, z, m1, lane);           // z = L^-T e_last
+  const T yl = __shfl_sync(FULL_MASK, pick(ly, last / WARP), last);
+  if (lane == last % WARP) {
+    logdet[(long long)g * n + p] = T(2) * d_log(pick(lii, last / WARP));
     quad[(long long)g * n + p] = yl * yl;
   }
-  zs[lane] = z;
+#pragma unroll
+  for (int r = 0; r < R; ++r) zs[lane + r * WARP] = z[r];
   __syncwarp();
 
-  // lane a's entries of dK_k z, k < n_length, then the nugget lane
+  // The length lanes in passes of NLEN_CHUNK (one pass up to 8 lanes), the
+  // nugget lane with the last pass: row a's entries of dK_k z, their
+  // forward substitution and the outputs.  The factor and z stay in shared
+  // memory between passes.
   const T SQRT5 = T(2.23606797749978969);
-  T v[NLEN_MAX + 1];
-#pragma unroll
-  for (int k = 0; k <= NLEN_MAX; ++k) v[k] = T(0);
-  if (live) {
-    for (int j = 0; j < m1; ++j) {
-      if (j == lane) continue;         // dK_k has a zero diagonal
-      // K[lane][j], from the copy above the diagonal
-      const T kij = j < lane ? ls[lane * LDS + j] : ls[j * LDS + lane];
-      T dd[NLEN_MAX];
-      T iso = T(0);
-      if (KN == SEXP) {
-#pragma unroll
-        for (int t = 0; t < NLEN_MAX; ++t) {
-          if (t >= d) break;
-          const T u = x(lane, t) - x(j, t);
-          dd[t] = T(2) * u * u;
-          iso += dd[t];
-        }
-        for (int t = NLEN_MAX; t < d; ++t) {
-          const T u = x(lane, t) - x(j, t);
-          iso += T(2) * u * u;
-        }
-      } else {
-        for (int t = 0; t < d; ++t) {
-          const T at = d_abs(x(lane, t) - x(j, t));
-          const T ct = T(1) + SQRT5 * at + (T(5) / T(3)) * at * at;
-          const T et = (T(5) / T(3)) * at * at * (T(1) + SQRT5 * at) / ct;
-          iso += et;
-#pragma unroll
-          for (int k = 0; k < NLEN_MAX; ++k)
-            if (k == t) dd[k] = et;
-        }
-      }
-      const T zj = zs[j];
-      if (n_length == 1) {
-        v[0] += (iso * kij) * zj;
-      } else {
-#pragma unroll
-        for (int k = 0; k < NLEN_MAX; ++k)
-          if (k < n_length) v[k] += (dd[k] * kij) * zj;
-      }
-    }
-    if (nugget_est) {
-      const T vn = dns[me] * z;
-#pragma unroll
-      for (int k = 1; k <= NLEN_MAX; ++k)
-        if (k == n_length) v[k] = vn;
-    }
-  }
   const int npar = n_length + nugget_est;
-  warp_forward(ls, invd, v, npar, m1, lane);
+  for (int c0 = 0; c0 < n_length; c0 += NLEN_CHUNK) {
+    const int nl = min(NLEN_CHUNK, n_length - c0);         // length lanes of the pass
+    const int np = nl + (c0 + NLEN_CHUNK >= n_length ? nugget_est : 0);
+    T v[R][NLEN_CHUNK + 1];
 #pragma unroll
-  for (int k = 0; k <= NLEN_MAX; ++k) {
-    if (k >= npar) break;
-    const T s = warp_sum(live ? ly * v[k] : T(0));
-    if (lane == m1 - 1) {
-      const T wl = v[k];
-      const long long o = ((long long)g * npar + k) * n + p;
-      dlogdet[o] = wl;
-      dquad[o] = T(2) * s * yl - wl * yl * yl;
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k <= NLEN_CHUNK; ++k) v[r][k] = T(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      if (row >= m1) continue;
+      for (int j = 0; j < m1; ++j) {
+        if (j == row) continue;         // dK_k has a zero diagonal
+        // K[row][j], from the copy above the diagonal
+        const T kij = j < row ? ls[row * S + j] : ls[j * S + row];
+        T dd[NLEN_CHUNK];               // dims c0 .. c0 + NLEN_CHUNK - 1
+        T iso = T(0);                   // all dims (read when n_length == 1, c0 == 0)
+        if (KN == SEXP) {
+#pragma unroll
+          for (int k = 0; k < NLEN_CHUNK; ++k) {
+            const int t = c0 + k;
+            if (t >= d) break;
+            const T u = x(row, t) - x(j, t);
+            dd[k] = T(2) * u * u;
+            iso += dd[k];
+          }
+          for (int t = c0 + NLEN_CHUNK; t < d; ++t) {
+            const T u = x(row, t) - x(j, t);
+            iso += T(2) * u * u;
+          }
+        } else {
+          for (int t = 0; t < d; ++t) {
+            const T at = d_abs(x(row, t) - x(j, t));
+            const T ct = T(1) + SQRT5 * at + (T(5) / T(3)) * at * at;
+            const T et = (T(5) / T(3)) * at * at * (T(1) + SQRT5 * at) / ct;
+            iso += et;
+#pragma unroll
+            for (int k = 0; k < NLEN_CHUNK; ++k)
+              if (k == t - c0) dd[k] = et;
+          }
+        }
+        const T zj = zs[j];
+        if (n_length == 1) {
+          v[r][0] += (iso * kij) * zj;
+        } else {
+#pragma unroll
+          for (int k = 0; k < NLEN_CHUNK; ++k)
+            if (k < nl) v[r][k] += (dd[k] * kij) * zj;
+        }
+      }
+      if (np > nl) {                    // the nugget lane, after the pass's nl
+        const T vn = dns[warp * m1 + row] * z[r];
+#pragma unroll
+        for (int k = 1; k <= NLEN_CHUNK; ++k)
+          if (k == nl) v[r][k] = vn;
+      }
+    }
+    warp_forward<T, NLEN_CHUNK + 1, R>(ls, invd, v, np, m1, lane);
+#pragma unroll
+    for (int k = 0; k <= NLEN_CHUNK; ++k) {
+      if (k >= np) break;
+      T part = T(0), col[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        col[r] = v[r][k];
+        if (lane + r * WARP < m1) part += ly[r] * v[r][k];
+      }
+      const T s = warp_sum(part);
+      if (lane == last % WARP) {
+        const T wl = pick(col, last / WARP);
+        const long long o = ((long long)g * npar + c0 + k) * n + p;
+        dlogdet[o] = wl;
+        dquad[o] = T(2) * s * yl - wl * yl * yl;
+      }
     }
   }
+}
+
+template <typename T, int KN, int R>
+static int launch_r(const T* x, const T* y, const T* dg, const T* dn, T* ld, T* q, T* dld,
+                    T* dq, int m1, int d, int n, int G, int n_length, int nugget_est,
+                    cudaStream_t stream) {
+  const auto kern = block_nllik_grad_kernel<T, KN, R>;
+  int P;
+  size_t bytes;
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * grad_per_point<R>(m1, d),
+                                     &P, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + P - 1) / P, G);
+  kern<<<grid, P * WARP, bytes, stream>>>(x, y, dg, dn, ld, q, dld, dq, m1, d, n, n_length,
+                                          nugget_est);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int KN>
 static int launch_kn(const T* x, const T* y, const T* dg, const T* dn, T* ld, T* q, T* dld,
                      T* dq, int m1, int d, int n, int G, int n_length, int nugget_est,
                      cudaStream_t stream) {
-  const auto kern = block_nllik_grad_kernel<T, KN>;
-  int P;
-  size_t bytes;
-  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * grad_per_point(m1, d), &P,
-                                     &bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + P - 1) / P, G);
-  kern<<<grid, P * WARP, bytes, stream>>>(x, y, dg, dn, ld, q, dld, dq, m1, d, n, n_length,
-                                          nugget_est);
-  return (int)cudaGetLastError();
+  if (rows_per_lane(m1) == 1)
+    return launch_r<T, KN, 1>(x, y, dg, dn, ld, q, dld, dq, m1, d, n, G, n_length,
+                              nugget_est, stream);
+  return launch_r<T, KN, 2>(x, y, dg, dn, ld, q, dld, dq, m1, d, n, G, n_length, nugget_est,
+                            stream);
 }
 
 template <typename T>
@@ -208,6 +254,16 @@ static int launch(int kname, const void* Xg, const void* yg, const void* diag,
                                 nugget_est, stream);
 }
 
+// The launch plan of the sexp kernel at (m1, d) (see the extern "C" below).
+template <typename T>
+static int plan(int m1, int d, int* out) {
+  if (rows_per_lane(m1) == 1)
+    return (int)plan_report((const void*)block_nllik_grad_kernel<T, SEXP, 1>,
+                            sizeof(T) * grad_per_point<1>(m1, d), out);
+  return (int)plan_report((const void*)block_nllik_grad_kernel<T, SEXP, 2>,
+                          sizeof(T) * grad_per_point<2>(m1, d), out);
+}
+
 }  // namespace dgp
 
 // dtype: 0 float32, 1 float64.  kname: 0 sexp, 1 matern2.5.  Xg is
@@ -221,7 +277,7 @@ extern "C" int dgp_block_nllik_grad(int dtype, int kname, const void* Xg, const 
                                     int n, int G, int n_length, int nugget_est,
                                     void* stream) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1 || n < 1 || G < 1 || G > 65535 ||
-      n_length < 1 || n_length > dgp::NLEN_MAX || (n_length > 1 && n_length > d) ||
+      n_length < 1 || (n_length > 1 && n_length > d) ||
       (nugget_est != 0 && nugget_est != 1) || (kname != 0 && kname != 1))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -238,13 +294,7 @@ extern "C" int dgp_block_nllik_grad(int dtype, int kname, const void* Xg, const 
 // thread block, out[1] its shared bytes, out[2] blocks resident per SM.
 extern "C" int dgp_block_nllik_grad_plan(int dtype, int m1, int d, int* out) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return (int)dgp::plan_report((const void*)dgp::block_nllik_grad_kernel<double, dgp::SEXP>,
-                                 sizeof(double) * dgp::grad_per_point(m1, d), out);
-  if (dtype == 0)
-    return (int)dgp::plan_report((const void*)dgp::block_nllik_grad_kernel<float, dgp::SEXP>,
-                                 sizeof(float) * dgp::grad_per_point(m1, d), out);
+  if (dtype == 1) return dgp::plan<double>(m1, d, out);
+  if (dtype == 0) return dgp::plan<float>(m1, d, out);
   return (int)cudaErrorInvalidValue;
 }
-
-extern "C" int dgp_vecchia_nlen_max() { return dgp::NLEN_MAX; }

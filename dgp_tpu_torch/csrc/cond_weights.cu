@@ -25,19 +25,25 @@
 // it directly.  A thread block stages the X and diag tiles of its P points
 // (coalesced), collects its points' weights in shared memory and writes
 // them back with consecutive threads on consecutive points.
+// Blocks of 33 to 64 rows run the instantiation with two rows per lane
+// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
 
 // the warp's shared values: its block and 1 / L[j][j]
-__host__ __device__ inline int condw_warp_scratch(int m1) { return block_scratch(m1) + M1_MAX; }
-
-// shared values of one point: its X tile, diag, weights and the warp's scratch
-__host__ __device__ inline int condw_per_point(int m1, int d) {
-  return m1 * d + m1 + (m1 - 1) + condw_warp_scratch(m1);
+template <int R>
+__host__ __device__ inline int condw_warp_scratch(int m1) {
+  return block_scratch<R>(m1) + R * WARP;
 }
 
-template <typename T, int KN>
+// shared values of one point: its X tile, diag, weights and the warp's scratch
+template <int R>
+__host__ __device__ inline int condw_per_point(int m1, int d) {
+  return m1 * d + m1 + (m1 - 1) + condw_warp_scratch<R>(m1);
+}
+
+template <typename T, int KN, int R>
 __global__ void __launch_bounds__(WARP * WARPS_MAX)
 cond_weights_kernel(const T* __restrict__ Xg, const T* __restrict__ diag, T* __restrict__ w,
                     T* __restrict__ sigma, int m1, int d, int n) {
@@ -50,39 +56,62 @@ cond_weights_kernel(const T* __restrict__ Xg, const T* __restrict__ diag, T* __r
   const int m = m1 - 1;
   T* Xs = sm;
   T* ds = Xs + m1 * d * P;
-  T* ws = ds + m1 * P;                                     // (P, m)
-  T* ls = ws + m * P + warp * condw_warp_scratch(m1);      // (m1, LDS)
-  T* invd = ls + block_scratch(m1);
+  T* ws = ds + m1 * P;                                        // (P, m)
+  T* ls = ws + m * P + warp * condw_warp_scratch<R>(m1);      // (m1, LDS<R>)
+  T* invd = ls + block_scratch<R>(m1);
   stage(Xg, Xs, m1, d, n, p0, P);
   stage(diag, ds, m1, 1, n, p0, P);
   __syncthreads();
 
   const int p = p0 + warp;
   if (p < n) {
+    constexpr int S = LDS<R>;
     const TileCoords<T> x{Xs + warp * m1 * d, d};
-    warp_build<T, KN>(x, lane < m1 ? ds[warp * m1 + lane] : T(0), ls, m1, d, d, lane);
-    T b = T(0);                          // no right-hand side rides along
-    const T lii = warp_cholesky(ls, ls + m1 * LDS, invd, b, m1, lane);
-    // L[m1-1][lane] sits at (m1-1, lane)
-    const T wi = warp_backward(ls, invd, lane < m ? ls[lane * LDS + m] : T(0), m, lane);
-    if (lane < m) ws[warp * m + lane] = wi;
-    if (lane == m) sigma[p] = lii;
+    T dg[R], b[R], lii[R], acc[R], wi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
+      b[r] = T(0);                       // no right-hand side rides along
+    }
+    warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
+    warp_cholesky<T, R>(ls, invd, b, lii, m1, lane);
+    // L[m1-1][i] sits at (m1-1, i)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      acc[r] = row < m ? ls[row * S + m] : T(0);
+    }
+    warp_backward<T, R>(ls, invd, acc, wi, m, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      if (row < m) ws[warp * m + row] = wi[r];
+      if (row == m) sigma[p] = lii[r];
+    }
   }
   __syncthreads();
   unstage(ws, w, m, n, p0, P);
 }
 
-template <typename T, int KN>
-static int launch_kn(const T* x, const T* dg, T* wo, T* so, int m1, int d, int n,
-                     cudaStream_t stream) {
-  const auto kern = cond_weights_kernel<T, KN>;
+template <typename T, int KN, int R>
+static int launch_r(const T* x, const T* dg, T* wo, T* so, int m1, int d, int n,
+                    cudaStream_t stream) {
+  const auto kern = cond_weights_kernel<T, KN, R>;
   int P;
   size_t bytes;
-  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * condw_per_point(m1, d), &P,
-                                     &bytes);
+  const cudaError_t err = plan_block((const void*)kern, sizeof(T) * condw_per_point<R>(m1, d),
+                                     &P, &bytes);
   if (err != cudaSuccess) return (int)err;
   kern<<<(n + P - 1) / P, P * WARP, bytes, stream>>>(x, dg, wo, so, m1, d, n);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int KN>
+static int launch_kn(const T* x, const T* dg, T* wo, T* so, int m1, int d, int n,
+                     cudaStream_t stream) {
+  if (rows_per_lane(m1) == 1) return launch_r<T, KN, 1>(x, dg, wo, so, m1, d, n, stream);
+  return launch_r<T, KN, 2>(x, dg, wo, so, m1, d, n, stream);
 }
 
 template <typename T>
@@ -94,6 +123,16 @@ static int launch(int kname, const void* Xg, const void* diag, void* w, void* si
   auto* so = static_cast<T*>(sigma);
   if (kname == SEXP) return launch_kn<T, SEXP>(x, dg, wo, so, m1, d, n, stream);
   return launch_kn<T, MATERN25>(x, dg, wo, so, m1, d, n, stream);
+}
+
+// The launch plan of the sexp kernel at (m1, d) (see the extern "C" below).
+template <typename T>
+static int plan(int m1, int d, int* out) {
+  if (rows_per_lane(m1) == 1)
+    return (int)plan_report((const void*)cond_weights_kernel<T, SEXP, 1>,
+                            sizeof(T) * condw_per_point<1>(m1, d), out);
+  return (int)plan_report((const void*)cond_weights_kernel<T, SEXP, 2>,
+                          sizeof(T) * condw_per_point<2>(m1, d), out);
 }
 
 }  // namespace dgp
@@ -114,12 +153,8 @@ extern "C" int dgp_cond_weights(int dtype, int kname, const void* Xg, const void
 // thread block, out[1] its shared bytes, out[2] blocks resident per SM.
 extern "C" int dgp_cond_weights_plan(int dtype, int m1, int d, int* out) {
   if (m1 < 1 || m1 > dgp::M1_MAX || d < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return (int)dgp::plan_report((const void*)dgp::cond_weights_kernel<double, dgp::SEXP>,
-                                 sizeof(double) * dgp::condw_per_point(m1, d), out);
-  if (dtype == 0)
-    return (int)dgp::plan_report((const void*)dgp::cond_weights_kernel<float, dgp::SEXP>,
-                                 sizeof(float) * dgp::condw_per_point(m1, d), out);
+  if (dtype == 1) return dgp::plan<double>(m1, d, out);
+  if (dtype == 0) return dgp::plan<float>(m1, d, out);
   return (int)cudaErrorInvalidValue;
 }
 

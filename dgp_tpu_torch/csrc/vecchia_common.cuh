@@ -14,18 +14,17 @@
 #include <math.h>
 
 #ifndef DGP_M1_MAX
-#define DGP_M1_MAX 32
+#define DGP_M1_MAX 64
 #endif
 
 namespace dgp {
 
-#ifndef DGP_NLEN_MAX
-#define DGP_NLEN_MAX 8
-#endif
-
+// most block rows the kernels take: one row per lane of a warp up to 32,
+// two rows per lane up to 64 (vecchia_warp.cuh)
 constexpr int M1_MAX = DGP_M1_MAX;
-// most log-lengthscale lanes the gradient kernel (K1) differentiates
-constexpr int NLEN_MAX = DGP_NLEN_MAX;
+// log-lengthscale lanes the gradient kernel (K1) accumulates in registers
+// in one pass; more lanes take more passes
+constexpr int NLEN_CHUNK = 8;
 
 enum KernelName : int { SEXP = 0, MATERN25 = 1 };
 

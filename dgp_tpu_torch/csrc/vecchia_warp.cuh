@@ -1,7 +1,11 @@
 // Warp-level device code of the Vecchia block kernels K1
 // (block_nllik_grad.cu), K2 (block_loglik_multi.cu), K3 (cond_weights.cu)
-// and K4 (block_loglik_parts.cu): one warp factors one block, lane i owning
-// row i (m1 <= M1_MAX <= 32; what lanes >= m1 compute is never read).
+// and K4 (block_loglik_parts.cu): one warp factors one block of m1 <=
+// M1_MAX = 64 rows.  Each lane owns R rows, R = rows_per_lane(m1): lane i
+// owns row i (R = 1, m1 <= 32), or rows i and i + 32 (R = 2, 32 < m1 <= 64).
+// Every kernel is instantiated for both and its launcher picks R from m1,
+// so blocks of up to 32 rows run the one-row code alone.  What a lane
+// computes for rows >= m1 is never read.
 //
 // Staging.  The JAX layout puts the point axis last, so the lanes of a warp
 // that each read one row of the same point would read at stride n.  A thread
@@ -11,27 +15,35 @@
 // output with one value per row (K3's weights) goes back the same way
 // (`unstage`).
 //
-// The block.  `warp_build` writes it into the warp's shared (m1, LDS) array,
-// element (r, c) at c * LDS + r: the m1 (m1 - 1) / 2 correlations below the
-// diagonal are spread evenly over the 32 lanes (about m1^2 / 64 pairs
-// each), the diagonal comes from diag, and a copy of the correlations goes
-// above the diagonal, which the factorisation leaves alone.  LDS = 33 keeps
-// both a row (lane r reads (r, c)) and a column (lane c reads (r, c)) free
-// of bank conflicts.
+// The block.  `warp_build` writes it into the warp's shared (m1, LDS<R>)
+// array, element (r, c) at c * LDS<R> + r: the m1 (m1 - 1) / 2 correlations
+// below the diagonal are spread evenly over the 32 lanes (about m1^2 / 64
+// pairs each), the diagonals come from diag, and a copy of the correlations
+// goes above the diagonal, which the factorisation leaves alone.  LDS<R> =
+// 32 R + 1 keeps both a row (the lanes read (r, c) for r = lane + 32 s) and
+// a column (the lanes read (r, c) for c = lane + 32 s) free of bank
+// conflicts.
 //
 // The factor.  Right-looking Cholesky by columns across the lanes
-// (`warp_cholesky`), lane i owning row i: at step j lane j's diagonal entry
-// is broadcast by a shuffle, lanes i > j scale their entry to L[i][j] and
-// publish it, and every lane subtracts L[i][j] L[k][j] from its entries
-// k > j.  A forward substitution rides along: lane j finishes x_j and lanes
-// i > j fold in L[i][j] x_j.  Column j of L is written over column j of the
-// block as it is finished, so L ends in the shared array for the later
-// substitutions.  During the factorisation each lane's unfactored row lives
-// in registers: an array of M1_MAX values, shifted one place per step so
-// that entry t always holds column j + t.  The loop over a row's entries is
-// unrolled over M1_MAX and cut at m1, so the array is never indexed at run
-// time, and the loop over the steps stays a loop (small code).  PERF.md has
-// the measurements against rows kept in the shared array.
+// (`warp_cholesky`): at step j the pivot is broadcast, the owners of rows
+// i > j scale their entry to L[i][j] and publish it, and every row i > j
+// subtracts L[i][j] L[k][j] from its entries j < k <= i.  A forward
+// substitution rides along: row j's owner finishes x_j and rows i > j fold
+// in L[i][j] x_j.  Column j of L is written over column j of the block as
+// it is finished, so L ends in the shared array for the later
+// substitutions.
+//  * R = 1: each lane's unfactored row lives in registers, an array of 32
+//    values shifted one place per step so that entry t always holds column
+//    j + t; the loop over a row's entries is unrolled over 32 and cut at
+//    m1, so the array is never indexed at run time, and the loop over the
+//    steps stays a loop (small code).  The pivot and L[k][j] travel by
+//    shuffle and a double-buffered column in shared memory.
+//  * R = 2: two rows of 64 values in registers would take 256 registers in
+//    float64 and spill, so the unfactored rows stay in the shared array
+//    and are updated there in place; L[k][j] is read from the published
+//    column, the pivot from the diagonal.  Two __syncwarp a step order the
+//    publish before the update and the update before the next pivot.
+// PERF.md has the measurements of both against the alternatives.
 #pragma once
 
 #include "vecchia_common.cuh"
@@ -40,9 +52,12 @@ namespace dgp {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int WARP = 32;
-static_assert(M1_MAX <= WARP, "one lane per block row");
-// stride of a warp's shared (m1, LDS) array
-constexpr int LDS = WARP + 1;
+static_assert(M1_MAX <= 2 * WARP, "at most two rows per lane");
+// block rows each lane owns
+__host__ __device__ constexpr int rows_per_lane(int m1) { return m1 <= WARP ? 1 : 2; }
+// stride of a warp's shared (m1, LDS) array at R rows per lane
+template <int R>
+constexpr int LDS = R * WARP + 1;
 // most points (warps) a thread block serves
 constexpr int WARPS_MAX = 8;
 // dynamic shared memory a launch gets without opting in
@@ -70,9 +85,23 @@ struct TileCoords {
   __device__ __forceinline__ T operator()(int i, int t) const { return x[i * d + t]; }
 };
 
-// Shared values of a warp's block: the (m1, LDS) array and two 32-value
-// column buffers after it.
-__host__ __device__ inline int block_scratch(int m1) { return m1 * LDS + 2 * WARP; }
+// Shared values of a warp's block: the (m1, LDS<R>) array and, at R = 1,
+// two 32-value column buffers after it.
+template <int R>
+__host__ __device__ inline int block_scratch(int m1) {
+  return m1 * LDS<R> + (R == 1 ? 2 * WARP : 0);
+}
+
+// v[s] for the lane's slot s (its row lane + 32 s) without indexing the
+// registers at run time.
+template <typename T, int R>
+__device__ __forceinline__ T pick(const T (&v)[R], int s) {
+  T out = v[0];
+#pragma unroll
+  for (int q = 1; q < R; ++q)
+    if (q == s) out = v[q];
+  return out;
+}
 
 // Copies the (nrows, d) tiles of points p0 .. p0+P-1 of a (nrows, d, n) array
 // into dst laid out (P, nrows, d), with P = blockDim.x / WARP; points past n
@@ -102,15 +131,17 @@ __device__ __forceinline__ void unstage(const T* src, T* __restrict__ dst, int n
     dst[(long long)r * n + p] = src[w * nrows + r];
 }
 
-// Writes the warp's block into its shared (m1, LDS) array `ls`: corr(i, k)
-// of rows i > k at (i, k) and at (k, i), pair p = i (i - 1) / 2 + k on lane
-// p % 32, and lane i's dg at (i, i).  The correlation is the product of two
-// factors, over dims [0, split) and [split, d) (one factor if split == d),
-// each of which underflows to 0 on its own at a sentinel distance, as in
-// the plain versions.  Ends with __syncwarp.
-template <typename T, int KN, typename Coords>
-__device__ __forceinline__ void warp_build(const Coords& x, T dg, T* ls, int m1, int d,
-                                           int split, int lane) {
+// Writes the warp's block into its shared (m1, LDS<R>) array `ls`:
+// corr(i, k) of rows i > k at (i, k) and at (k, i), pair p = i (i - 1) / 2
+// + k on lane p % 32, and the lane's diagonals dg at (i, i) of its rows.
+// The correlation is the product of two factors, over dims [0, split) and
+// [split, d) (one factor if split == d), each of which underflows to 0 on
+// its own at a sentinel distance, as in the plain versions.  Ends with
+// __syncwarp.
+template <typename T, int KN, int R, typename Coords>
+__device__ __forceinline__ void warp_build(const Coords& x, const T (&dg)[R], T* ls, int m1,
+                                           int d, int split, int lane) {
+  constexpr int S = LDS<R>;
   const int npairs = m1 * (m1 - 1) / 2;
   int i = 1, k = lane;                 // pair p = lane, then p + 32, ...
   for (int p = lane; p < npairs; p += WARP) {
@@ -120,91 +151,148 @@ __device__ __forceinline__ void warp_build(const Coords& x, T dg, T* ls, int m1,
     }
     T v = corr<T, KN>(x, i, k, 0, split);
     if (split < d) v *= corr<T, KN>(x, i, k, split, d);
-    ls[k * LDS + i] = v;
-    ls[i * LDS + k] = v;
+    ls[k * S + i] = v;
+    ls[i * S + k] = v;
     k += WARP;
   }
-  if (lane < m1) ls[lane * LDS + lane] = dg;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = lane + r * WARP;
+    if (row < m1) ls[row * S + row] = dg[r];
+  }
   __syncwarp();
 }
 
-// Cholesky of the warp's block in its shared (m1, LDS) array `ls` (entries
-// below the diagonal and the diagonal are read; entries above it are neither
-// used nor changed), with the forward substitution of one right-hand side:
-// lane i's b becomes (L^-1 b)_i.  L is written over the block's lower
-// triangle, and the function gives L[i][i] on lane i.  A pivot that is not
-// positive gives NaN, which spreads to every later row, as a failed library
-// factorisation does.  `col` is the warp's 2 * WARP-value buffer; `invd`, if
+// Cholesky of the warp's block in its shared (m1, LDS<R>) array `ls`
+// (entries below the diagonal and the diagonal are read; entries above it
+// are neither used nor changed), with the forward substitution of one
+// right-hand side: the lane's b[s] becomes (L^-1 b) at its row lane + 32 s.
+// L is written over the block's lower triangle (its diagonal, which no
+// caller reads from `ls`, only at R = 1), and lii[s] receives L[i][i] of
+// the lane's rows.  A pivot that is not positive gives NaN, which spreads
+// to every later row, as a failed library factorisation does.  `invd`, if
 // not null, receives 1 / L[j][j].  Ends with __syncwarp.
-template <typename T>
-__device__ __forceinline__ T warp_cholesky(T* ls, T* col, T* invd, T& b, int m1, int lane) {
-  T lii = T(0);
-  T a[M1_MAX];                         // a[t]: column j + t of lane's row
+template <typename T, int R>
+__device__ __forceinline__ void warp_cholesky(T* ls, T* invd, T (&b)[R], T (&lii)[R], int m1,
+                                              int lane) {
+  constexpr int S = LDS<R>;
+  if constexpr (R == 1) {
+    T* col = ls + m1 * S;              // two 32-value column buffers
+    lii[0] = T(0);
+    T a[WARP];                         // a[t]: column j + t of lane's row
 #pragma unroll
-  for (int t = 0; t < M1_MAX; ++t) a[t] = t < m1 ? ls[t * LDS + lane] : T(0);
-  for (int j = 0; j < m1; ++j) {
-    const T aj = a[0];
-    const T djj = __shfl_sync(FULL_MASK, aj, j);
-    const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
-    const T piv = djj * inv;
-    const T xj = __shfl_sync(FULL_MASK, b, j) * inv;
-    const T lij = lane == j ? piv : aj * inv;
-    if (lane >= j) ls[j * LDS + lane] = lij;
-    if (lane == j) {
-      lii = piv;
-      b = xj;
-    } else if (lane > j) {
-      b -= lij * xj;
+    for (int t = 0; t < WARP; ++t) a[t] = t < m1 ? ls[t * S + lane] : T(0);
+    for (int j = 0; j < m1; ++j) {
+      const T aj = a[0];
+      const T djj = __shfl_sync(FULL_MASK, aj, j);
+      const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+      const T piv = djj * inv;
+      const T xj = __shfl_sync(FULL_MASK, b[0], j) * inv;
+      const T lij = lane == j ? piv : aj * inv;
+      if (lane >= j) ls[j * S + lane] = lij;
+      if (lane == j) {
+        lii[0] = piv;
+        b[0] = xj;
+      } else if (lane > j) {
+        b[0] -= lij * xj;
+      }
+      if (invd != nullptr && lane == 0) invd[j] = inv;
+      T* c = col + (j & 1) * WARP;     // double-buffered: one __syncwarp a step
+      c[lane] = lij;
+      __syncwarp();
+#pragma unroll
+      for (int t = 1; t < WARP; ++t) {
+        if (j + t >= m1) break;
+        a[t - 1] = a[t] - lij * c[j + t];
+      }
     }
-    if (invd != nullptr && lane == 0) invd[j] = inv;
-    T* c = col + (j & 1) * WARP;       // double-buffered: one __syncwarp a step
-    c[lane] = lij;
     __syncwarp();
+  } else {
 #pragma unroll
-    for (int t = 1; t < M1_MAX; ++t) {
-      if (j + t >= m1) break;
-      a[t - 1] = a[t] - lij * c[j + t];
+    for (int r = 0; r < R; ++r) lii[r] = T(0);
+    for (int j = 0; j < m1; ++j) {
+      const T djj = ls[j * S + j];
+      const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+      const T piv = djj * inv;
+      // lane j % 32 holds row j in its slot j / 32 (the shuffle reads the
+      // source lane modulo 32)
+      const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0] : b[R - 1], j) * inv;
+      T lij[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = lane + r * WARP;
+        lij[r] = row > j && row < m1 ? ls[j * S + row] * inv : T(0);
+        if (row > j && row < m1) ls[j * S + row] = lij[r];
+        if (row == j) {
+          lii[r] = piv;
+          b[r] = xj;
+        } else if (row > j) {
+          b[r] -= lij[r] * xj;
+        }
+      }
+      if (invd != nullptr && lane == 0) invd[j] = inv;
+      __syncwarp();                    // column j of L is published
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = lane + r * WARP;
+        if (row > j && row < m1)
+          for (int k = j + 1; k <= row; ++k) ls[k * S + row] -= lij[r] * ls[j * S + k];
+      }
+      __syncwarp();                    // the next pivot is updated
     }
   }
-  __syncwarp();
-  return lii;
 }
 
 // Forward substitution L x = b for up to NR right-hand sides at once (the
-// first nr), lane i holding entry i of each; L is in the warp's shared
-// (m1, LDS) array, 1 / L[j][j] in invd.
-template <typename T, int NR>
-__device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[NR], int nr,
+// first nr), the lane holding entry i of each in b[s] for its rows i = lane
+// + 32 s; L is in the warp's shared (m1, LDS<R>) array, 1 / L[j][j] in
+// invd.
+template <typename T, int NR, int R>
+__device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[R][NR], int nr,
                                              int m1, int lane) {
+  constexpr int S = LDS<R>;
   for (int j = 0; j < m1; ++j) {
     const T inv = invd[j];
-    const T lij = ls[j * LDS + lane];
+    T lij[R];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      if (r >= nr) break;
-      const T xj = __shfl_sync(FULL_MASK, b[r], j) * inv;
-      if (lane == j)
-        b[r] = xj;
-      else if (lane > j)
-        b[r] -= lij * xj;
+    for (int r = 0; r < R; ++r) lij[r] = ls[j * S + lane + r * WARP];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      if (q >= nr) break;
+      const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[R - 1][q], j) * inv;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = lane + r * WARP;
+        if (row == j)
+          b[r][q] = xj;
+        else if (row > j)
+          b[r][q] -= lij[r] * xj;
+      }
     }
   }
 }
 
 // Backward substitution L_m^T z = r with L_m the leading (m, m) block of the
-// warp's shared (m1, LDS) array, read transposed (lane i reads L[k][i]), and
-// 1 / L[j][j] in invd: lane i brings r_i (i < m) as `acc` and ends with z_i.
-template <typename T>
-__device__ __forceinline__ T warp_backward(const T* ls, const T* invd, T acc, int m, int lane) {
-  T z = T(0);
+// warp's shared (m1, LDS<R>) array, read transposed (row i reads L[k][i]),
+// and 1 / L[j][j] in invd: the lane brings r_i of its rows i = lane + 32 s
+// < m in acc[s] and receives z_i in z[s].
+template <typename T, int R>
+__device__ __forceinline__ void warp_backward(const T* ls, const T* invd, T (&acc)[R],
+                                              T (&z)[R], int m, int lane) {
+  constexpr int S = LDS<R>;
+#pragma unroll
+  for (int r = 0; r < R; ++r) z[r] = T(0);
   for (int k = m - 1; k >= 0; --k) {
-    const T zk = __shfl_sync(FULL_MASK, acc, k) * invd[k];
-    if (lane == k)
-      z = zk;
-    else if (lane < k)
-      acc -= ls[lane * LDS + k] * zk;
+    const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[R - 1], k) * invd[k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      if (row == k)
+        z[r] = zk;
+      else if (row < k)
+        acc[r] -= ls[row * S + k] * zk;
+    }
   }
-  return z;
 }
 
 template <typename T>

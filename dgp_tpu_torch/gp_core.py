@@ -177,6 +177,11 @@ def gp_predict(x, X, Rinv, Rinv_y, scale, length, nugget, *, name):
     return mean, var
 
 
+#: bytes of (n, n) second moments that one batch of linked queries may hold
+#: (the JAX package's budget for a chunk of its ensemble)
+LINK_BUDGET = int(1.5e9)
+
+
 def linkgp_predict(m, v, z, X, Zglobal, Rinv, Rinv_y, scale, length, nugget,
                    *, name):
     """Linked-GP prediction: Gaussian inputs (m, v) (M, Dw), optional
@@ -184,9 +189,18 @@ def linkgp_predict(m, v, z, X, Zglobal, Rinv, Rinv_y, scale, length, nugget,
 
     The lengthscale vector is broadcast to the full input dimension and
     split between the stochastic (first Dw) and deterministic (last Dz)
-    blocks, exactly as functions.link_gp does.  The M queries are one batch
-    (the JAX package vmaps a one-query function): its (M, n, n) second
-    moments bound how many queries a caller passes at once."""
+    blocks, exactly as functions.link_gp does.  The queries go in batches
+    (the JAX package vmaps a one-query function) of as many as keep their
+    (n, n) second moments and two products of them within `LINK_BUDGET`."""
+    n = X.shape[0]
+    per_query = 3 * n * n * (torch.finfo(X.dtype).bits // 8)
+    batch = max(1, LINK_BUDGET // per_query)
+    if m.shape[0] > batch:
+        parts = [linkgp_predict(m[s:s + batch], v[s:s + batch],
+                                None if z is None else z[s:s + batch], X, Zglobal, Rinv,
+                                Rinv_y, scale, length, nugget, name=name)
+                 for s in range(0, m.shape[0], batch)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     Dw = X.shape[1]
     Dz = 0 if z is None else z.shape[1]
     full_len = torch.broadcast_to(length, (Dw + Dz,))

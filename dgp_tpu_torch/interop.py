@@ -12,7 +12,8 @@ again.  The training traces (``para_path``, ``R2``) come across too, so
 that a model trained in one package can be estimated by, or continue
 training in, the other.  A likelihood node comes across by its ``type``
 and ``name`` with the keys of `LIK_KEYS` (a Categorical node's label
-encoder as its ``classes``).
+encoder as its ``classes``).  `lgp_from_numpy` carries a whole linked
+system, every imputation's containers, the same way.
 """
 import numpy as np
 
@@ -140,4 +141,45 @@ def gp_from_numpy(model, device=None):
     self.kernel.target = 'gp'
     if not self.vecch:
         self.kernel.compute_stats()
+    return self
+
+
+def lgp_from_numpy(system, device=None):
+    """A port `lgp` carrying a linked system of either package without
+    drawing anything: the template containers and every imputation's, each
+    with its wiring (``local_input_idx``) and its nodes as `node_to_numpy`
+    gives them (imputed inputs and outputs, global inputs, ordering and
+    neighbours, hyper-parameters).  The nodes compute on ``device``
+    (default: the card); a DGP container gets an imputer that has drawn
+    nothing (its imputations are the carried ones)."""
+    import copy
+
+    from . import config
+    from .models.imputation import imputer
+    from .models.linkgp import container, lgp
+
+    dev = config.resolve_device(device)
+
+    def carry(cont):
+        new = container.__new__(container)
+        new.type, new.vecch, new.device = cont.type, bool(cont.vecch), dev
+        new.local_input_idx = copy.deepcopy(cont.local_input_idx)
+        if cont.type == 'gp':
+            new.structure = node_from_numpy(node_to_numpy(cont.structure))
+            nodes = [new.structure]
+        else:
+            new.structure = layers_from_numpy(layers_to_numpy(cont.structure))
+            nodes = [nd for layer in new.structure for nd in layer if nd.type == 'gp']
+            new.imp = imputer(new.structure, True, dev)
+        for nd in nodes:
+            nd.device = dev
+        return new
+
+    self = lgp.__new__(lgp)
+    self.device = dev
+    self.L = system.L
+    self.num_model = list(system.num_model)
+    self.all_layer = [[carry(c) for c in layer] for layer in system.all_layer]
+    self.all_layer_set = [[[carry(c) for c in layer] for layer in one]
+                          for one in system.all_layer_set]
     return self

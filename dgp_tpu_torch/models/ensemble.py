@@ -9,8 +9,8 @@ imputations (the global X), so its NN search runs once per chunk, and its
 dense inverse once for all chunks; deeper layers work on each imputation's
 own latent inputs, and a dense node's inverses, one per imputation, are
 also computed once.  A dense linked layer holds (n, n) second moments per
-query, so a chunk holds as many queries as a fixed memory budget allows
-(`_chunk_size`).  Likelihood nodes may sit in the final layer: the ensemble
+query; `gp_core.linkgp_predict` takes a chunk's queries in batches that fit
+its memory budget.  Likelihood nodes may sit in the final layer: the ensemble
 propagates the GP nodes only, and the emulator applies the likelihood's
 closed-form moments on the host.
 
@@ -24,8 +24,6 @@ from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
 
 _CHUNK = 2048
-#: bytes a chunk's dense linked layer may hold (the JAX package's budget)
-_DENSE_LINK_BUDGET = int(1.5e9)
 
 
 def supported(all_layer_set):
@@ -102,15 +100,6 @@ class CompiledEnsemble:
             self.spec.append(lay_spec)
         # F[l] (N, n, width_l): column-stacked gp-node outputs of layer l
         self.F = [torch.stack(self.y_stack[l], dim=2) for l in range(self.n_layer - 1)]
-        # live bytes per query of a dense linked layer: the (n, n) J-moments
-        # and their products of one imputation, since the imputations and
-        # the nodes run one after another (the JAX package, which vmaps the
-        # imputations, counts all N: ensemble.py:114-128)
-        itemsize = torch.finfo(self.dtype).bits // 8
-        self._dense_link_bytes_per_query = max(
-            (3 * self.y_stack[l][k].shape[1] ** 2 * itemsize
-             for l in range(1, self.n_layer) for k, nd in enumerate(self.spec[l])
-             if nd is not None and not nd['vecch']), default=0)
         # each dense node's (Rinv, Rinv_y), once for every query chunk
         for l in range(self.n_layer):
             for k, nd in enumerate(self.spec[l]):
@@ -134,17 +123,6 @@ class CompiledEnsemble:
         w_diag = nd['nug_diag'] if l == self.n_layer - 1 else None
         return gp_core.compute_stats(W, y, nd['length'], nd['nugget'], name=nd['name'],
                                      w_diag=w_diag)
-
-    def _chunk_size(self):
-        """Queries per chunk: `_CHUNK`, halved (down to 32) until the
-        largest dense linked layer fits `_DENSE_LINK_BUDGET`."""
-        Mc = _CHUNK
-        per_q = self._dense_link_bytes_per_query
-        if per_q:
-            fit = _DENSE_LINK_BUDGET // per_q
-            while Mc > 32 and Mc > fit:
-                Mc //= 2
-        return Mc
 
     def _node_train_inputs(self, l, nd):
         """(W, shared): training inputs (n, d) shared across imputations
@@ -232,11 +210,10 @@ class CompiledEnsemble:
         likelihood nodes a {node index: (N, M)} dict of its GP nodes."""
         x = torch.as_tensor(np.asarray(x, config.np_dtype()), device=self.device)
         M = x.shape[0]
-        Mc = self._chunk_size()
         means = [[] for _ in range(self.n_layer)]
         vars_ = [[] for _ in range(self.n_layer)]
-        for s in range(0, M, Mc):
-            xc = x[s:s + Mc]
+        for s in range(0, M, _CHUNK):
+            xc = x[s:s + _CHUNK]
             mc, vc = self._chunk(xc, m_pred, loo, 0.0)
             # jitter escalation for chunks whose Vecchia blocks factorised
             # non-finite; keep the healthy entries

@@ -36,6 +36,14 @@ class imputer:
                          rng.next_generator('cpu'), int(burnin))
         c.set_state(state)
 
+    def key_stats(self):
+        """Cache every GP node's dense prediction statistics (Rinv,
+        Rinv_y)."""
+        for layer in self.all_layer:
+            for node in layer:
+                if node.type == 'gp':
+                    node.compute_stats()
+
     def update_ord_nn(self):
         """Refresh Vecchia orderings/neighbours for all GP nodes, reusing the
         structure across nodes with identical wiring."""

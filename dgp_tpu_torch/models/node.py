@@ -8,8 +8,9 @@ structure can be carried across between the two packages
 `log_likelihood_func`, `compute_stats`, `gp_prediction`) compute on the
 node's device, ``node.device``, which the gp and dgp classes set (default:
 the card); the SEM engine and the ensemble keep their own copies of the
-state (models/compiled.py, models/ensemble.py).  Not ported yet: the
-linked predictions of a single node (`linkgp_prediction*`, O4).
+state (models/compiled.py, models/ensemble.py).  The linked predictions
+(`linkgp_prediction`, `linkgp_prediction_full`) serve `lgp`'s host loop
+(models/linkgp.py).
 """
 import numpy as np
 import torch
@@ -296,6 +297,43 @@ class kernel:
                                   self._t(self.length), float(self.nugget[0]),
                                   name=self.name)
         return m.cpu().numpy(), v.cpu().numpy()
+
+    def linkgp_prediction(self, m, v, z):
+        """Linked-GP prediction under Gaussian inputs (mean m, variance v,
+        each (M, Dw)) with the deterministic global input z (M, Dz) or None:
+        (mean (M,), var (M,)) as numpy arrays; dense from Rinv, Vecchia from
+        the ``pred_m`` nearest training points of each query's mean."""
+        if self.vecch:
+            from ..vecchia import api as vecchia_api
+            return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
+        if self.Rinv is None:
+            self.compute_stats()
+        mu, var = gp_core.linkgp_predict(
+            self._t(m), self._t(v), None if z is None else self._t(z), self._t(self.input),
+            None if z is None else self._t(self.global_input), self._t(self.Rinv),
+            self._t(self.Rinv_y), float(self.scale[0]), self._t(self.length),
+            float(self.nugget[0]), name=self.name)
+        return mu.cpu().numpy(), var.cpu().numpy()
+
+    def linkgp_prediction_full(self, m, v, m_z, v_z, z):
+        """Linked prediction when the first m_z.shape[1] global dims are
+        themselves Gaussian (mean m_z, variance v_z) and the rest are z or
+        absent (kernel_class.py:672): those dims fold into the Gaussian block,
+        the training inputs re-ordered to match; dense whatever ``vecch``
+        says, as the reference computes it."""
+        m_full = np.concatenate((m, m_z), axis=1)
+        v_full = np.concatenate((v, v_z), axis=1)
+        n_mz = m_z.shape[1]
+        overall_input = np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1)
+        if self.Rinv is None:
+            self.compute_stats()
+        mu, var = gp_core.linkgp_predict(
+            self._t(m_full), self._t(v_full), None if z is None else self._t(z),
+            self._t(overall_input),
+            None if z is None else self._t(self.global_input[:, n_mz:]),
+            self._t(self.Rinv), self._t(self.Rinv_y), float(self.scale[0]),
+            self._t(self.length), float(self.nugget[0]), name=self.name)
+        return mu.cpu().numpy(), var.cpu().numpy()
 
     def ord_nn(self, ord=None, NNarray=None, pointer=False, device=None):
         """Vecchia ordering and neighbours (kernel_class.py:245), with

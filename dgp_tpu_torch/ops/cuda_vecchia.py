@@ -21,18 +21,19 @@ target, which decouples them exactly.
 
 `use_kernel` is the gate, the counterpart of `pallas_vecchia.use_pallas`:
 from the kernel's id, the block shape and the dtype alone (never the
-device) it says whether the hand kernel takes a call -- m1 <= `M1_MAX`,
-for K1 at most `NLEN_MAX` length lanes, and staged tiles that fit one SM's
+device) it says whether the hand kernel takes a call -- m1 <= `M1_MAX` = 64,
+as the JAX package's kernels take (one row per lane up to 32, two above),
+for K1 any number of length lanes, and staged tiles that fit one SM's
 shared memory (`shared_bytes`, the sources' own formula).  Every wrapper
 asks it first.  A CPU tensor always goes to the plain version (`*_plain`);
 outside the bound that adds one to the wrapper's ``plain_calls``, so a run
 on the CPU shows which calls the card would refuse.  A CUDA tensor inside
 the bound goes to the kernel (adding one to ``launches``); outside it the
 wrapper raises NotImplementedError before anything is built: no plain
-version runs on the card in a kernel's place (the two-rows-per-lane variant
-for 32 < m1 <= 64 is not written yet).  Any other device raises, and a
-kernel that fails to build or to launch raises too: the gate decides on
-shape, it is not a fallback.  The library is built at first use into
+version runs on the card in a kernel's place (the JAX package hands blocks
+above 64 rows to XLA).  Any other device raises, and a kernel that fails to
+build or to launch raises too: the gate decides on shape, it is not a
+fallback.  The library is built at first use into
 ``dgp_tpu_torch/_build/`` from the sources in the package; nothing is
 compiled or loaded when this module is imported.
 """
@@ -51,24 +52,23 @@ import torch
 from . import kernels as kops
 from . import linalg
 
-#: largest block size (m + 1) the kernels take; the sources are compiled
-#: with the same bound (-DDGP_M1_MAX).
-M1_MAX = 32
+#: largest block size (m + 1) the kernels take, as the JAX package's
+#: (`pallas_vecchia.use_pallas`); the sources are compiled with the same
+#: bound (-DDGP_M1_MAX)
+M1_MAX = 64
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-#: most log-lengthscale lanes K1 differentiates (-DDGP_NLEN_MAX)
-NLEN_MAX = 8
-#: csrc/vecchia_warp.cuh: most points (warps) of a thread block, the stride
-#: of a warp's (m1, LDS) array, the dynamic shared memory a launch gets
-#: without opting in, and the most one SM gives a thread block (sm_90)
-_WARPS_MAX, _LDS, _WARP = 8, 33, 32
+#: csrc/vecchia_warp.cuh: most points (warps) of a thread block, the lanes
+#: of a warp, the dynamic shared memory a launch gets without opting in, and
+#: the most one SM gives a thread block (sm_90)
+_WARPS_MAX, _WARP = 8, 32
 _SMEM_DEFAULT, SMEM_MAX = 48 * 1024, 227 * 1024
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               f"-DDGP_M1_MAX={M1_MAX}", f"-DDGP_NLEN_MAX={NLEN_MAX}")
+               f"-DDGP_M1_MAX={M1_MAX}")
 _KNAME = {"sexp": 0, "matern2.5": 1}
 _DTYPE = {torch.float32: 0, torch.float64: 1}
 
@@ -178,12 +178,10 @@ def build():
                lib.dgp_cond_weights_plan, lib.dgp_block_loglik_parts_plan):
         fn.argtypes = [ci, ci, ci, vp]
         fn.restype = ci
-    for fn in (lib.dgp_vecchia_m1_max, lib.dgp_vecchia_nlen_max):
-        fn.argtypes = []
-        fn.restype = ci
-    if (lib.dgp_vecchia_m1_max() != M1_MAX
-            or lib.dgp_vecchia_nlen_max() != NLEN_MAX):
-        raise RuntimeError("kernel library was built with other bounds")
+    lib.dgp_vecchia_m1_max.argtypes = []
+    lib.dgp_vecchia_m1_max.restype = ci
+    if lib.dgp_vecchia_m1_max() != M1_MAX:
+        raise RuntimeError("kernel library was built with another block bound")
     build_info.clear()
     build_info.update(library=str(so), seconds=seconds,
                       ptxas=parse_ptxas(log.read_text() if log.exists() else ""))
@@ -199,14 +197,15 @@ def _library():
 def _per_point(kid, m1, d):
     """Values one point keeps in shared memory: `grad_per_point`,
     `multi_per_point`, `condw_per_point` and `parts_per_point` of the
-    sources."""
-    scratch = m1 * _LDS + 2 * _WARP                         # block_scratch
+    sources, at the rows per lane (R) the launchers pick for m1."""
+    R = 1 if m1 <= _WARP else 2                             # rows_per_lane
+    scratch = m1 * (R * _WARP + 1) + (2 * _WARP if R == 1 else 0)   # block_scratch
     if kid == "K1":
-        return m1 * d + 3 * m1 + scratch + 2 * M1_MAX
+        return m1 * d + 3 * m1 + scratch + 2 * R * _WARP
     if kid == "K2":
         return 3 * m1 * d + 2 * m1 + d * m1 + scratch
     if kid == "K3":
-        return m1 * d + m1 + (m1 - 1) + scratch + M1_MAX
+        return m1 * d + m1 + (m1 - 1) + scratch + R * _WARP
     if kid == "K4":
         return m1 * d + 2 * m1 + scratch
     raise ValueError(f"unknown kernel id: {kid}")
@@ -223,34 +222,33 @@ def shared_bytes(kid, m1, d, dtype):
     return w * per_point
 
 
-def use_kernel(kid, m1, d, n_length=1, dtype=torch.float64):
+def use_kernel(kid, m1, d, dtype=torch.float64):
     """The gate: whether the hand kernel ``kid`` ("K1" .. "K4") takes blocks
-    of m1 rows and d dims in ``dtype`` (K1: with ``n_length`` length lanes).
-    Decided from these alone, so it reads the same on every device."""
-    if m1 > M1_MAX or (kid == "K1" and n_length > NLEN_MAX):
+    of m1 rows and d dims in ``dtype``.  Decided from these alone, so it
+    reads the same on every device.  K1 takes any number of length lanes
+    up to d (the wrapper refuses more as an invalid call), so they do not
+    enter the decision."""
+    if m1 > M1_MAX:
         return False
     return shared_bytes(kid, m1, d, dtype) <= SMEM_MAX
 
 
-def _runs_plain(wrapper, kid, t, m1, d, n_length=1):
+def _runs_plain(wrapper, kid, t, m1, d):
     """Whether ``wrapper``'s call on tensor ``t`` runs the plain version: a
     CPU tensor does (counted in ``plain_calls`` when the gate says the
     kernel would not take it); a tensor on another device outside the
     kernel's bound is refused."""
-    inside = use_kernel(kid, m1, d, n_length, t.dtype)
+    inside = use_kernel(kid, m1, d, t.dtype)
     if t.device.type == "cpu":
         if not inside:
             wrapper.plain_calls += 1
         return True
     if not inside:
         raise NotImplementedError(
-            f"{wrapper.__name__}: blocks of m1={m1} rows, d={d} dims"
-            + (f", {n_length} length lanes" if kid == "K1" else "")
-            + f" in {t.dtype} are outside the hand kernel's bound (m1 <= {M1_MAX}"
-            + f", at most {NLEN_MAX} length lanes, staged tiles within {SMEM_MAX} bytes"
-            + " of shared memory); the kernel variant for larger blocks is not"
-            + " written yet, and the plain version does not run in its place on"
-            + f" {t.device.type}: use m <= {M1_MAX - 1} or device='cpu'")
+            f"{wrapper.__name__}: blocks of m1={m1} rows, d={d} dims in {t.dtype} are"
+            f" outside the hand kernel's bound (m1 <= {M1_MAX}, staged tiles within"
+            f" {SMEM_MAX} bytes of shared memory), and the plain version does not run"
+            f" in its place on {t.device.type}: use m <= {M1_MAX - 1} or device='cpu'")
     return False
 
 
@@ -503,7 +501,7 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
     if not (n_length == 1 or 1 <= n_length <= d):
         raise ValueError(f"block_nllik_grad_parts_t: n_length={n_length} must be 1 "
                          f"or at most d={d}")
-    if _runs_plain(block_nllik_grad_parts_t, "K1", Xg, m1, d, n_length):
+    if _runs_plain(block_nllik_grad_parts_t, "K1", Xg, m1, d):
         return block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, name=name,
                                               n_length=n_length,
                                               nugget_est=nugget_est)

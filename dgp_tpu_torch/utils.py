@@ -1,7 +1,8 @@
 """Host-side helpers of the model classes; the counterpart of the parts of
 `dgp_tpu/utils.py` the port needs so far: the latent initialisers of
-narrowing layers (sigmoid-kernel PCA, exact and Nystrom) and the label
-encoder of the Categorical likelihood.  The exact kernel PCA and the
+narrowing layers (sigmoid-kernel PCA, exact and Nystrom), the label
+encoder of the Categorical likelihood and the nested-list shape check of
+`lgp.set_vecchia`.  The exact kernel PCA and the
 encoder stand in for scikit-learn's `KernelPCA(kernel='sigmoid')` and
 `LabelEncoder`, which the JAX package imports.
 """
@@ -79,3 +80,17 @@ class NystromKPCA:
             scores = np.pad(scores, ((0, 0), (0, self.n_components - r)))
         flip = (scores.min(axis=0) + scores.max(axis=0)) / 2 < 0
         return scores * np.where(flip, -1.0, 1.0)
+
+
+def have_same_shape(list1, list2):
+    """Whether two nested lists have the same nesting and lengths
+    (reference utils.have_same_shape)."""
+    if len(list1) != len(list2):
+        return False
+    for a, b in zip(list1, list2):
+        if isinstance(a, list) and isinstance(b, list):
+            if not have_same_shape(a, b):
+                return False
+        elif isinstance(a, list) or isinstance(b, list):
+            return False
+    return True

@@ -5,9 +5,9 @@ Ordering and neighbour construction (reference kernel_class.ord_nn), and
 the single-node entry points: the log-likelihood at fixed parameters (the
 ESS target, through K4), the M-step objective of `kernel.maximise`
 (objective and gradient through K1, one node as a group of one),
-prediction and the gp class's LOO.  All run on the node's device
-(``node.device``; default: the card).  Not ported yet: the node's linked
-prediction (O4) and the approximate search (``nn_method='approx'``, O5).
+prediction, linked prediction and the gp class's LOO.  All run on the
+node's device (``node.device``; default: the card).  Not ported yet: the
+approximate search (``nn_method='approx'``, O5).
 """
 import numpy as np
 import torch
@@ -116,6 +116,28 @@ def gp_prediction_vecch(node, x, z):
         core.gp_vecch, node._t(x), node._t(w), node._t(NNarray, torch.int64),
         node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),
         float(node.nugget[0]), node._nugget_diag(), node.name)
+
+
+def linkgp_prediction_vecch(node, m, v, z):
+    """Vecchia linked-GP prediction under Gaussian inputs (m, v) (M, Dw)
+    with the deterministic global input z (M, Dz) or None: the ``pred_m``
+    (default 50) training points nearest each query's mean, with z appended
+    (one fewer in the LOO state), and the I/J moments over them."""
+    if z is not None:
+        xq = np.concatenate((m, z), axis=1)
+        w = node._X()
+    else:
+        xq = m
+        w = node._X() if node.global_input is not None else node.input
+    NNarray = nnmod.get_pred_nn(xq / node.length, w / node.length,
+                                node.pred_m or 50, device=node._dev())
+    if node.loo_state:
+        NNarray = NNarray[:, 1:]
+    return _with_jitter_retry(
+        core.link_gp_vecch, node._t(m), node._t(v), None if z is None else node._t(z),
+        node._t(node.input), None if z is None else node._t(node.global_input),
+        node._t(NNarray, torch.int64), node._t(node.output[:, 0]), float(node.scale[0]),
+        node._t(node.length), float(node.nugget[0]), node._nugget_diag(), node.name)
 
 
 def loo_gp(gp_model, m):

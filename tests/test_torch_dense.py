@@ -183,11 +183,11 @@ def test_ref_layer_block_ess_goes_through_k4(models, monkeypatch):
 # ----------------------------------------------------------------------
 # 3. the dense ensemble
 # ----------------------------------------------------------------------
-def test_dense_ensemble_predicts_carried_imputations(models):
+def test_dense_ensemble_predicts_carried_imputations(models, monkeypatch):
     """A JAX emulator's imputations of the dense structure (three hidden
     nodes, linked final layer with replicate weights), carried across:
-    mean and variance at rtol 1e-8, and in chunks bounded by the dense
-    linked layer's memory."""
+    mean and variance at rtol 1e-8, and with the dense linked layer's
+    queries in batches bounded by `gp_core.LINK_BUDGET`."""
     mj = models["dense"][0]
     emu_j = dgp_tpu.emulator(mj.estimate(), N=3)
     z = np.linspace(0, 1, 60).reshape(-1, 1)
@@ -198,10 +198,22 @@ def test_dense_ensemble_predicts_carried_imputations(models):
     mu_t, var_t = emu_t.predict(z)
     np.testing.assert_allclose(mu_t, mu_j, rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(var_t, var_j, rtol=1e-8, atol=1e-10)
-    ens = emu_t._ens
-    assert ens._dense_link_bytes_per_query == 3 * 24 ** 2 * 8
-    assert ens._chunk_size() == tens._CHUNK
     assert tens.supported(emu_t.all_layer_set) is None
+    # a budget of 7 queries' (n, n) moments: the linked layer's queries go
+    # in batches of at most 7, and the predictions do not move
+    batches = []
+    inner = dgp_tpu_torch.gp_core.linkgp_predict
+
+    def spy(m, *a, **kw):
+        batches.append(m.shape[0])
+        return inner(m, *a, **kw)
+
+    monkeypatch.setattr(dgp_tpu_torch.gp_core, "LINK_BUDGET", 7 * 3 * 24 ** 2 * 8)
+    monkeypatch.setattr(dgp_tpu_torch.gp_core, "linkgp_predict", spy)
+    mu_b, var_b = emu_t.predict(z)
+    assert batches and min(batches) <= 7 and 60 in batches
+    np.testing.assert_allclose(mu_b, mu_j, rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(var_b, var_j, rtol=1e-8, atol=1e-10)
 
 
 # ----------------------------------------------------------------------

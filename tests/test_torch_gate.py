@@ -1,12 +1,13 @@
 """The kernel gate of dgp_tpu_torch (`ops.cuda_vecchia.use_kernel`) and the
 size check of Vecchia models, on the CPU: the gate's decision from the
-kernel's id, the block shape and the dtype alone; the shared-memory formula
-it shares with the CUDA sources; the wrappers' ``plain_calls`` counters on
-the CPU and their refusal off it; a Vecchia DGP outside the bound (m = 40)
-on the CPU against dgp_tpu at rtol 1e-9; and
-the NotImplementedError of a Vecchia dgp at the size that needs the
-approximate NN search."""
-import re
+kernel's id, the block shape and the dtype alone (blocks of up to 64 rows,
+K1 with any number of length lanes up to d, staged tiles within one SM's
+shared memory); the shared-memory formula it shares with the CUDA sources;
+the wrappers' ``plain_calls`` counters on the CPU and their refusal off it;
+Vecchia DGPs inside the bound (m = 12, and m = 40 on two rows per lane) and
+outside it (m = 64) on the CPU against dgp_tpu at rtol 1e-9; and the
+NotImplementedError of a Vecchia dgp at the size that needs the approximate
+NN search."""
 
 import numpy as np
 import jax
@@ -27,21 +28,38 @@ torch.set_num_threads(1)
 KIDS = ("K1", "K2", "K3", "K4")
 
 
-@pytest.mark.parametrize("m1,inside", [(26, True), (32, True), (33, False), (41, False)])
+# one row per lane up to m1 = 32, two rows per lane up to 64 (the JAX
+# package's kernels take m1 <= 64 too), nothing above
+@pytest.mark.parametrize("m1,inside", [(26, True), (32, True), (33, True), (41, True),
+                                       (64, True), (65, False)])
 @pytest.mark.parametrize("kid", KIDS)
 def test_gate_block_bound(kid, m1, inside):
     for dtype in (torch.float64, torch.float32):
         assert cv.use_kernel(kid, m1, 2, dtype=dtype) is inside
-        assert cv.use_kernel(kid, m1, 2, n_length=2, dtype=dtype) is inside
+        assert cv.use_kernel(kid, m1, 12, dtype) is inside
 
 
 def test_gate_length_lanes():
-    assert cv.use_kernel("K1", 26, 9, n_length=8)
-    assert not cv.use_kernel("K1", 26, 9, n_length=9)
-    assert cv.use_kernel("K1", 26, 9, n_length=1)
-    # only K1 differentiates length lanes
-    for kid in KIDS[1:]:
-        assert cv.use_kernel(kid, 26, 9, n_length=9)
+    """K1 takes any number of length lanes up to d (in passes of eight):
+    on the CPU a call with 9 or 12 lanes is inside the bound, counts no
+    plain call and is the plain version; more lanes than dims is an invalid
+    call."""
+    cv.reset_launch_counts()
+    for m1, d, n_length in ((26, 9, 9), (26, 12, 12), (64, 9, 9), (41, 12, 1)):
+        assert cv.use_kernel("K1", m1, d)
+        X, y, diag = _blocks(m1, d)
+        out = cv.block_nllik_grad_parts_t(X, y, diag, 0.1 * diag, name='sexp',
+                                          n_length=n_length, nugget_est=True)
+        ref = cv.block_nllik_grad_parts_t_plain(X, y, diag, 0.1 * diag, name='sexp',
+                                                n_length=n_length, nugget_est=True)
+        assert out[2].shape == (n_length + 1, 12)
+        for a, b in zip(out, ref):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in cv.launch_counts().values())
+    X, y, diag = _blocks(26, 12)
+    with pytest.raises(ValueError, match="n_length=13"):
+        cv.block_nllik_grad_parts_t(X, y, diag, diag, name='sexp', n_length=13,
+                                    nugget_est=False)
 
 
 @pytest.mark.parametrize("kid,dtype,d_last", [
@@ -62,21 +80,26 @@ def test_shared_bytes_formula_is_the_sources():
     src = {p.name: p.read_text() for p in cv._CSRC.glob("*.cu*")}
     warp = src["vecchia_warp.cuh"]
     assert f"constexpr int WARPS_MAX = {cv._WARPS_MAX};" in warp
-    assert "constexpr int LDS = WARP + 1;" in warp and cv._LDS == cv._WARP + 1
+    assert f"constexpr int WARP = {cv._WARP};" in warp
+    assert "constexpr int LDS = R * WARP + 1;" in warp
+    assert "return m1 <= WARP ? 1 : 2;" in warp
     assert "constexpr size_t SMEM_DEFAULT = 48 * 1024;" in warp
-    assert "return m1 * LDS + 2 * WARP;" in warp
-    assert "return m1 * d + 3 * m1 + grad_warp_scratch(m1);" in src["block_nllik_grad.cu"]
-    assert "return block_scratch(m1) + 2 * M1_MAX;" in src["block_nllik_grad.cu"]
-    assert "return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch(m1);" \
+    assert "return m1 * LDS<R> + (R == 1 ? 2 * WARP : 0);" in warp
+    assert f"#define DGP_M1_MAX {cv.M1_MAX}" in src["vecchia_common.cuh"]
+    assert "return m1 * d + 3 * m1 + grad_warp_scratch<R>(m1);" in src["block_nllik_grad.cu"]
+    assert "return block_scratch<R>(m1) + 2 * R * WARP;" in src["block_nllik_grad.cu"]
+    assert "return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1);" \
         in src["block_loglik_multi.cu"]
-    assert "return m1 * d + m1 + (m1 - 1) + condw_warp_scratch(m1);" in src["cond_weights.cu"]
-    assert re.search(r"condw_warp_scratch\(int m1\) \{ return block_scratch\(m1\) \+ M1_MAX; \}",
-                     src["cond_weights.cu"])
-    assert "return m1 * d + 2 * m1 + block_scratch(m1);" in src["block_loglik_parts.cu"]
+    assert "return m1 * d + m1 + (m1 - 1) + condw_warp_scratch<R>(m1);" \
+        in src["cond_weights.cu"]
+    assert "return block_scratch<R>(m1) + R * WARP;" in src["cond_weights.cu"]
+    assert "return m1 * d + 2 * m1 + block_scratch<R>(m1);" in src["block_loglik_parts.cu"]
     # the main path's blocks in float64: 4 points of a thread block, below
     # the default of 48 KB
     assert cv.shared_bytes("K4", 26, 2, torch.float64) == 4 * 8 * (26 * 2 + 52 + 26 * 33 + 64)
     assert cv.shared_bytes("K2", 26, 2, torch.float64) == 37824
+    # m = 40: two points of a thread block, 65-value rows, no column buffers
+    assert cv.shared_bytes("K4", 41, 2, torch.float64) == 2 * 8 * (41 * 2 + 82 + 41 * 65)
 
 
 def _blocks(m1, d, n=12, seed=0):
@@ -87,13 +110,25 @@ def _blocks(m1, d, n=12, seed=0):
     return X, y, diag
 
 
+@pytest.mark.parametrize("m1,kid,dtype,d_last", [
+    (64, "K2", torch.float64, 96), (64, "K2", torch.float32, 210),
+    (33, "K2", torch.float64, 203), (64, "K1", torch.float64, 384),
+    (64, "K3", torch.float64, 386), (64, "K4", torch.float64, 387)])
+def test_gate_shared_memory_bound_two_rows_per_lane(m1, kid, dtype, d_last):
+    """With two rows per lane a one-point thread block holds a 65-value row
+    per block row: at m1 = 64 in float64 K2's tiles fit the SM's 227 KB up
+    to d = 96 (at m1 = 32: 217), K1's, K3's and K4's up to 384-387."""
+    assert cv.use_kernel(kid, m1, d_last, dtype)
+    assert not cv.use_kernel(kid, m1, d_last + 1, dtype)
+
+
 def test_wrappers_count_plain_calls_only_outside_the_bound():
     cv.reset_launch_counts()
     X, y, diag = _blocks(9, 2)
     cv.block_loglik_parts_t(X, y, diag, name='sexp')
     cv.cond_weights_t(X, diag, name='sexp')
     assert all(c == {"launches": 0, "plain_calls": 0} for c in cv.launch_counts().values())
-    X, y, diag = _blocks(41, 2)
+    X, y, diag = _blocks(65, 2)
     ld, q = cv.block_loglik_parts_t(X, y, diag, name='sexp')
     ref = cv.block_loglik_parts_t_plain(X, y, diag, name='sexp')
     np.testing.assert_array_equal(ld.numpy(), ref[0].numpy())
@@ -112,13 +147,13 @@ def test_wrappers_refuse_blocks_outside_the_bound_off_the_cpu(monkeypatch):
     monkeypatch.setattr(cv, "build", lambda: pytest.fail("the kernel library was built"))
     monkeypatch.setattr(cv, "_lib", None)
     cv.reset_launch_counts()
-    X, y, diag = (t.to('meta') for t in _blocks(41, 2))
+    X, y, diag = (t.to('meta') for t in _blocks(65, 2))
     for call in (lambda: cv.block_loglik_parts_t(X, y, diag, name='sexp'),
                  lambda: cv.cond_weights_t(X, diag, name='sexp'),
                  lambda: cv.block_loglik_multi_t(X, X, X, y, diag, [1.0], [0.0], name='sexp'),
                  lambda: cv.block_nllik_grad_parts_t(X, y, diag, diag, name='sexp',
                                                      n_length=2, nugget_est=True)):
-        with pytest.raises(NotImplementedError, match="m1=41 rows.*device='cpu'"):
+        with pytest.raises(NotImplementedError, match="m1=65 rows.*device='cpu'"):
             call()
     wide = torch.empty((32, 218, 4), device='meta', dtype=torch.float64)
     v = torch.empty((32, 4), device='meta', dtype=torch.float64)
@@ -137,12 +172,12 @@ def _layers(pkg):
                                    scale_est=True, connect=np.arange(1))])
 
 
-@pytest.mark.parametrize("m,inside", [(40, False), (12, True)])
+@pytest.mark.parametrize("m,inside", [(40, True), (64, False), (12, True)])
 def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
-    """On the CPU a Vecchia DGP at m = 40 runs (every wrapper's plain
+    """On the CPU a Vecchia DGP at m = 64 runs (every wrapper's plain
     version, counted as outside the bound) and its log-likelihoods agree
-    with dgp_tpu's; at m = 12 nothing is counted as a plain call, and the
-    angle evaluator applies."""
+    with dgp_tpu's; at m = 12 and at m = 40 (two rows per lane on the card)
+    nothing is counted as a plain call, and the angle evaluator applies."""
     rs = np.random.RandomState(0)
     X = rs.rand(90, 1) * 2 - 1
     Y = _func(X) + 0.05 * rs.randn(90, 1)

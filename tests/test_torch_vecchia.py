@@ -7,7 +7,9 @@ the K1 analytic gradient (each against its Pallas kernel in interpret
 mode), and the K1 objective against torch autograd of the port's own
 reference form; the cases of all four include the edges of the warp
 kernels' mapping (m1 = 32 and 2, ragged n, d = 5; K = 1 and dl = 0 for K2;
-candidates with their own targets and diagonals for K4).  Also: shapes beyond
+candidates with their own targets and diagonals for K4); blocks of two
+rows per lane and K1 with more than 8 length lanes are in
+tests/test_torch_two_rows.py.  Also: shapes beyond
 the kernels' bounds go to the plain versions before any build, and the
 library's tag covers every source under csrc/.  Tolerances rtol 1e-9, atol 1e-12 for values and rtol
 1e-7, atol 1e-10 for gradients, as in tests/test_pallas.py."""
@@ -222,11 +224,12 @@ def _meta(*shape):
 @pytest.mark.parametrize("case", ["K1-m1", "K2-m1", "K3-m1", "K4-m1", "K1-nlen-max",
                                   "K1-nlen-d"])
 def test_kernel_wrappers_refuse_unsupported_shapes_before_build(case, monkeypatch):
-    """Shapes beyond the kernels' bounds (m1 > M1_MAX = 32, more length
-    lanes than NLEN_MAX) are the gate's decision: off the CPU they are
-    refused, and on the CPU they reach the plain version, counted in
-    ``plain_calls``; no library is built or loaded either way.  More length
-    lanes than dims is an invalid call and raises, also before any build."""
+    """Shapes beyond the kernels' bounds (m1 > M1_MAX = 64; K1 with a length
+    lane per dim at a d whose tiles exceed the SM's shared memory) are the
+    gate's decision: off the CPU they are refused, and on the CPU they reach
+    the plain version, counted in ``plain_calls``; no library is built or
+    loaded either way.  More length lanes than dims is an invalid call and
+    raises, also before any build."""
     def no_build(*a, **k):
         raise AssertionError("the kernel library was built")
     monkeypatch.setattr(cv, "build", no_build)
@@ -236,9 +239,10 @@ def test_kernel_wrappers_refuse_unsupported_shapes_before_build(case, monkeypatc
         monkeypatch.setattr(cv, w.__name__ + "_plain",
                             lambda *a, _n=w.__name__, **k: reached.append(_n))
     cv.reset_launch_counts()
-    m1 = cv.M1_MAX + 1 if case.endswith("m1") else 8
-    d = cv.NLEN_MAX + 1 if case == "K1-nlen-max" else 2
-    n_length = {"K1-nlen-max": cv.NLEN_MAX + 1, "K1-nlen-d": 3}.get(case, 2)
+    # K1 at m1 = 32 takes d <= 868 in float64: 869 lanes lie beyond it
+    m1 = cv.M1_MAX + 1 if case.endswith("m1") else (32 if case == "K1-nlen-max" else 8)
+    d = 869 if case == "K1-nlen-max" else 2
+    n_length = {"K1-nlen-max": 869, "K1-nlen-d": 3}.get(case, 2)
     X, v = _meta(m1, d, 16), _meta(m1, 16)
     calls = {
         "K1": lambda: cv.block_nllik_grad_parts_t(X, v, v, v, name='sexp',

@@ -6,8 +6,10 @@ The inputs, the library yardstick, the bound and the timing code are this
 repository's chip_smoke.py (the main path's shapes, sexp: K1 (2, 26, 2,
 2000) with 2 length lanes and the nugget lane, K2 (26, 2, 2000) with K=9,
 dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates, and
-the gp path's K1 without a node axis and K4, both at (26, 1, 2000); float64
-and float32); the kernels are those of the checkout given.  For
+the gp path's K1 without a node axis and K4, both at (26, 1, 2000); then
+its VARIANT_TIMES, each kernel at m1 = 41 and 64 and K1 with 12 length
+lanes, where the checkout's kernels take them; float64 and float32); the
+kernels are those of the checkout given.  For
 each case it measures CUDA-event time around 10 calls back to back and
 around one call alone (median of 20 each) and the host time per call (200
 calls queued without waiting); the first and the last again with the
@@ -109,6 +111,23 @@ def main():
                 kname, functools.partial(getattr(cv, kname), *args, **kw, name="sexp"),
                 functools.partial(getattr(cv, kname), *dense, **kw, name="sexp"),
                 functools.partial(torch.linalg.cholesky_ex, blocks),
+                cs._bound_ms(kname, args, dname, kw), list(args[0].shape),
+                [a.is_contiguous() for a in args])
+        # chip_smoke.py's timed cases beyond the main path (blocks of two
+        # rows per lane, K1 with 12 length lanes), where this checkout's
+        # kernels take them
+        for kname, shape in cs.VARIANT_TIMES:
+            kw = cs._edge_kw(kname, shape, "sexp")
+            args = [torch.as_tensor(a, dtype=dt, device=dev)
+                    for a in cs._edge_inputs(kname, shape, 0)]
+            call = functools.partial(getattr(cv, kname), *args, **kw)
+            try:
+                call()
+            except NotImplementedError:
+                continue
+            calls[f"{dname}/{kname}/{list(shape)}"] = (
+                kname, call, call,
+                functools.partial(torch.linalg.cholesky_ex, cs._blocks_of(kname, args)),
                 cs._bound_ms(kname, args, dname, kw), list(args[0].shape),
                 [a.is_contiguous() for a in args])
     times = {}

@@ -14,9 +14,13 @@ JSON line: wall seconds, the summed device time of all kernels, their share
 of the wall time, the kernel launches (all, and of each hand-written
 kernel), and the top operators by device time and by host time.  With a
 directory argument it also writes each window's Chrome trace there.
-Usage, from the repository root:
 
-    python3 tools/profile_torch_serving.py [TRACE_DIR]
+With ``--linked`` it profiles chip_smoke.py's `linked` cell instead (the
+GP -> DGP system of dgp_tpu_torch/data/linked_n2000.json at lgp seed 1,
+N=10, m=50): after a warm-up on 64 points, one window of `lgp.predict` on
+the 1000 test points.  Usage, from the repository root:
+
+    python3 tools/profile_torch_serving.py [--linked] [TRACE_DIR]
 """
 import json
 import subprocess
@@ -65,14 +69,47 @@ def window(name, fn, out_dir):
                       "top_host": _top(ev, "self_cpu_time_total")}), flush=True)
 
 
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def linked(dev, out_dir):
+    """chip_smoke.py's `linked` cell: one window of `lgp.predict`."""
+    from dgp_tpu_torch import container, gp, kernel, lgp
+    ref = chip_smoke._data_json("linked_n2000.json")
+    p = ref["protocol"]
+    X1, Y1, X2, Y2 = chip_smoke.linked_data(p)
+    np.random.seed(p["gp_ord_seed"])
+    g = gp(X1, Y1, kernel(length=np.array([p["gp_length"]]), name=p["gp_kernel"],
+                          scale_est=True, nugget_est=True), vecchia=True, m=p["m"], device=dev)
+    g.train()
+    c1 = container(g.export(), local_input_idx=np.array([0]), device=dev)
+    seed = p["lgp_seeds"][0]
+    nb_seed(seed)
+    np.random.seed(seed)
+    m2 = dgp(X2, Y2, chip_smoke.linked_layers(ref), vecchia=True, m=p["m"], device=dev)
+    c2 = container(m2.estimate(), local_input_idx=np.array([0]), device=dev)
+    system = lgp([[c1], [c2]], N=p["lgp_N"], device=dev)
+    z = np.linspace(-1, 1, p["n_test"]).reshape(-1, 1)
+    system.predict(z[:64], m=p["pred_m"])          # builds the dense statistics
+    print(_smi(), flush=True)
+    window("linked_predict_1000", lambda: system.predict(z, m=p["pred_m"]), out_dir)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 1
-    out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else None
+    args = [a for a in sys.argv[1:] if a != "--linked"]
+    out_dir = Path(args[0]) if args else None
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
+    if "--linked" in sys.argv[1:]:
+        return linked(dev, out_dir)
     params = json.loads((Path(dgp_tpu_torch.__file__).parent / "data"
                          / "vecchia_si_n2000.json").read_text())
     X, Y = chip_smoke.bench_data()
@@ -82,9 +119,7 @@ def main():
             m=chip_smoke.M_TRAIN, device=dev)
     emu = emulator(m.estimate(), N=5, device=dev)      # warm-up
     emu.predict(zp, m=50)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     holder = {}
     window("emulator", lambda: holder.update(
         emu=emulator(m.estimate(), N=5, device=dev)), out_dir)
