@@ -41,10 +41,13 @@ Phases, each printing its results (and its seconds) as one JSON line:
             isotropic at d = 12 and m1 = 41) and at m1 = 64 with 9; and
             blocks with a non-positive pivot at m1 = 26 and 64, which must
             come out NaN where the plain version's do.  The linked phase's
-            calls too, on its data: K1 for its gp, K3 and K2 for its DGP.
-            254 comparisons in all.  Each kernel at m1 = 41 and 64 and K1
-            with 12 length lanes are also timed (kernel, plain version,
-            library call, bound).
+            calls too, on its data: K1 for its gp, K3 and K2 for its DGP;
+            and the large_n phase's, at n = 1e5 on its data with the IVF
+            neighbours: K1 for its DGP's M-step group (2, 26, 2, n), K2 with
+            9 candidates, K3 and K4 for its layer-2 node (26, 2, n).
+            278 comparisons in all.  Each kernel at m1 = 41 and 64, K1
+            with 12 length lanes and the four n = 1e5 cases are also timed
+            (kernel, plain version, library call, bound).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -122,6 +125,30 @@ Phases, each printing its results (and its seconds) as one JSON line:
             noise variance are at most twice the JAX package's, and the
             median test nllik over the three training seeds is at most 0.05
             nat above the JAX package's median over the same seeds.
+  large_n   the large-n path, under the protocol of
+            dgp_tpu_torch/data/large_n1e5.json (written by
+            tools/make_torch_large_params.py with the JAX package), on
+            bench.py's n = 1e5 draw (seed 7): (1) the IVF search of the gp's
+            scaled, ordered input on the card against the exact search on
+            the card, both timed: ordered recall, prediction recall (20000
+            queries, m = 50), two builds equal, and the stored rows of the
+            JAX package's IVF neighbours; (2) a Vecchia gp (m = 25, the
+            gp_n2000.json protocol at n = 1e5; IVF from n >= 50000):
+            train() (K1), log_likelihood_func() (K4), predict on 1000 and
+            20000 points at m = 50; (3) bench.py's _large_n and
+            _large_n_predict legs: the 2-layer Vecchia DGP (m = 25,
+            check_rep=False), train(N=32) then a timed train(N=16) (chunks
+            of 16), emulator(N=5), predict on 1000 and 20000 points at
+            m = 25, the same 1000 points through the exact search on the
+            same imputations, and the IVF search of the trained layer-2
+            node's input (latent, x) against the exact one.  Fails unless
+            every recall is at least 0.95, the builds are equal, 99.9% of
+            the stored rows equal the JAX package's, every node took
+            'approx', the gp's trained parameters are within rtol 1e-6 of
+            the JAX package's and its RMSE at most twice its, K1-K3 were
+            launched by the DGP's SEM and K1, K4 by the gp, the DGP's RMSE
+            is at most 0.0295 (the main path's gate) and its IVF and exact
+            predictions differ by less than 0.02 on average.
   lik_rows  the parity rows with a likelihood node whose data is made from
             a seed (tools/parity.py:109-210, data from tools/parity_data.py),
             each at its full protocol and against its gate there with the
@@ -210,6 +237,15 @@ GP_RTOL_PARAMS, GP_RTOL_LL = 1e-6, 1e-9
 # between 5 and 400 in either package) is decided by the seed's first draws
 # and moves the nllik by 0.1 nat, more than the slack.
 LIK_RMSE_FACTOR, LIK_NLLIK_SLACK = 2.0, 0.05
+# large_n: the IVF search's recall against the exact search on the card
+# (tests/test_vecchia.py::test_approx_nn_recall's bar), the share of the
+# stored rows of the JAX package's IVF neighbours the card's must equal, the
+# n = 1e5 DGP's RMSE is gated at twice the JAX package's n = 2000 figure, as
+# the main path is (`rmse_gate_ref` of data/vecchia_si_n2000.json: with the
+# same function and noise, more data must not predict worse); the mean
+# |IVF - exact| of its ensemble predictions on the same imputations
+# (tests/test_ensemble.py::test_compiled_ensemble_approx_nn)
+LARGE_RECALL, LARGE_ROWS_EQUAL, LARGE_ENS_DIFF = 0.95, 0.999, 0.02
 # lik_rows: the gates of tools/parity.py:385-412 on the anchors of
 # REF_ANCHORS.json (dgpsi on the same draws): (anchor, additive slack) for
 # test_nllik, (anchor, factor) for rmse_mean_vs_truth; protocol: SEM
@@ -348,6 +384,37 @@ def phase_build():
           "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans})
 
 
+def _angle_views(f, nu, x, y, ordv, NN, length, dtype, device, nugget, cosv, sinv):
+    """K2's operands for one upper node on input (latent, x), as
+    CompiledDGP._build_angle_plan and _plan_ll build them; also the
+    gather's valid lanes and safe indices."""
+    import torch
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.vecchia import core as vcore
+    jit = vcore._f32_jitter(dtype)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    rev = np.flip(NN, axis=1)
+    validT = (rev >= 0).T
+    safeT = np.where(validT, rev.T, 0)
+    sent = cv.sentinels(len(x), safeT.shape[0], dtype, device)
+    vt = torch.as_tensor(validT, device=device)
+
+    def view(col):
+        g = np.where(validT, (col[ordv] / length)[safeT], 0.0)
+        return np.stack([g, np.zeros_like(g)], axis=1)        # (m1, 2, n)
+
+    Cg = np.where(validT, (x[ordv] / length)[safeT], 0.0)
+    C = t(np.stack([np.zeros_like(Cg), Cg], axis=1))
+    C = torch.where(vt[:, None, :], C, sent[:, None, :])
+    yg = t(np.where(validT, y[ordv][safeT], 0.0))
+    diag = torch.where(vt, torch.full_like(yg, 1.0 + nugget + jit),
+                       torch.ones_like(yg))
+    return (t(view(f)), t(view(nu)), C, yg, diag, cosv, sinv), validT, safeT, vt, sent
+
+
 def _slice_inputs(dtype, device, nugget):
     """Inputs of the four kernels at the main path's shapes, built from the
     bench data the way the port builds them (bench.py's starting
@@ -395,29 +462,9 @@ def _slice_inputs(dtype, device, nugget):
     ang = np.concatenate([[0.0], rs.uniform(0, 2 * np.pi, K_CAND - 1)])
     cosv, sinv = t(np.cos(ang)), t(np.sin(ang))
 
-    def angle_views(f, nu, x, y, ordv, NN, length):
-        """K2's operands for one upper node on input (latent, x), as
-        CompiledDGP._build_angle_plan and _plan_ll build them; also the
-        gather's valid lanes and safe indices."""
-        rev = np.flip(NN, axis=1)
-        validT = (rev >= 0).T
-        safeT = np.where(validT, rev.T, 0)
-        sent = cv.sentinels(len(x), safeT.shape[0], dtype, device)
-        vt = torch.as_tensor(validT, device=device)
-
-        def view(col):
-            g = np.where(validT, (col[ordv] / length)[safeT], 0.0)
-            return np.stack([g, np.zeros_like(g)], axis=1)        # (m1, 2, n)
-
-        Cg = np.where(validT, (x[ordv] / length)[safeT], 0.0)
-        C = t(np.stack([np.zeros_like(Cg), Cg], axis=1))
-        C = torch.where(vt[:, None, :], C, sent[:, None, :])
-        yg = t(np.where(validT, y[ordv][safeT], 0.0))
-        diag = torch.where(vt, torch.full_like(yg, 1.0 + nugget + jit),
-                           torch.ones_like(yg))
-        return (t(view(f)), t(view(nu)), C, yg, diag, cosv, sinv), validT, safeT, vt, sent
-
-    k2, validT, safeT, vt, sent = angle_views(f, nu, X[:, 0], Y[:, 0], ordv, NN, length)
+    av = (dtype, device, nugget, cosv, sinv)
+    k2, validT, safeT, vt, sent = _angle_views(f, nu, X[:, 0], Y[:, 0], ordv, NN, length,
+                                               *av)
     A, B, C, yg, diag2 = k2[:5]
     # dl = d: both dims candidate-dependent (C holds the sentinels only)
     g2 = np.where(validT, (np.cos(2 * X[:, 0])[ordv] / length)[safeT], 0.0)
@@ -479,7 +526,7 @@ def _slice_inputs(dtype, device, nugget):
     for lj, yj in zip(p["length"][1:], targets):
         oj = rl.permutation(p["n"])
         NNj = vnn.nn(WGl[oj] / lj, p["m"], device=device)
-        k2_lik.append(angle_views(fl, nul, xl, yj, oj, NNj, lj)[0])
+        k2_lik.append(_angle_views(fl, nul, xl, yj, oj, NNj, lj, *av)[0])
         NNj = torch.as_tensor(NNj, device=device)
         raws.append(cv.gather_raw_t(t(WGl[oj]), t(yj[oj]), NNj, ones))
     Xgl, _, diagl = cv.gather_scale_t(t(WGl[oj]), t(np.zeros(p["n"])), NNj, t([lj]),
@@ -510,7 +557,7 @@ def _slice_inputs(dtype, device, nugget):
     l2 = h2["length"][0]
     ok = rk.permutation(N_TRAIN)
     NNk = vnn.nn(np.column_stack([x2, x2])[ok] / l2, mk, device=device)
-    k2k = angle_views(x2, 0.5 * np.sin(3 * x2 + 1.0), x2, Y2k[:, 0], ok, NNk, l2)[0]
+    k2k = _angle_views(x2, 0.5 * np.sin(3 * x2 + 1.0), x2, Y2k[:, 0], ok, NNk, l2, *av)[0]
     return {"block_nllik_grad_parts_t/linked": (Xgk, rawk[1], diagk, dnugk),
             "cond_weights_t/linked": (Xg3k, diag3k), "block_loglik_multi_t/linked": k2k,
             "cond_weights_t/lik": (Xgl, diagl),
@@ -521,6 +568,50 @@ def _slice_inputs(dtype, device, nugget):
             "block_loglik_parts_t/K=9": k4_cand, "block_nllik_grad_parts_t": k1,
             "block_nllik_grad_parts_t/gp": (Xgg, ygg, diagg, dnugg),
             "block_loglik_parts_t/gp": k4_gp}
+
+
+def _large_inputs(dtype, device, nugget):
+    """The four kernels' inputs at the large_n phase's shapes, n = 1e5, on
+    its data at bench.py's starting lengthscale 0.5, built as its DGP's
+    calls build them, with the neighbours of the IVF search: K3 for the
+    layer-2 node's prior draw (26, 2, n), K2 under the layer-2 node with 9
+    candidates (26, 2, n), K4 for the layer-2 node (26, 2, n) and K1 for the
+    M-step group of both nodes (2, 26, 2, n)."""
+    import torch
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.vecchia import core as vcore
+    from dgp_tpu_torch.vecchia import nn as vnn
+
+    X, Y = large_data(_data_json("large_n1e5.json")["protocol"])
+    n, x, length = len(X), X[:, 0], 0.5
+    rs = np.random.RandomState(3)
+    jit = vcore._f32_jitter(dtype)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    ones = t(np.ones(n))
+    WG = np.column_stack([x, x])           # the initial latent forwards x
+    ord1, ord2 = rs.permutation(n), rs.permutation(n)
+    NN1 = torch.as_tensor(vnn.nn(X[ord1] / length, M_TRAIN, method="approx",
+                                 device=device), device=device)
+    NN2 = vnn.nn(WG[ord2] / length, M_TRAIN, method="approx", device=device)
+    NN2_t = torch.as_tensor(NN2, device=device)
+    Xg3, _, diag3 = cv.gather_scale_t(t(WG[ord2]), t(np.zeros(n)), NN2_t, t([length]),
+                                      nugget, ones, jit)
+    ang = np.concatenate([[0.0], rs.uniform(0, 2 * np.pi, K_CAND - 1)])
+    k2 = _angle_views(x, 0.5 * np.sin(3 * x + 1.0), x, Y[:, 0], ord2, NN2, length, dtype,
+                      device, nugget, t(np.cos(ang)), t(np.sin(ang)))[0]
+    k4 = cv.gather_scale_t(t(WG[ord2]), t(Y[ord2, 0]), NN2_t, t([length]), nugget, ones, jit)
+    raw1 = cv.gather_raw_t(t(np.column_stack([x, np.zeros(n)])[ord1]), t(x[ord1]), NN1, ones)
+    raw2 = cv.gather_raw_t(t(WG[ord2]), t(Y[ord2, 0]), NN2_t, ones)
+    Xg_raw, yg1, nug_g, valid = (torch.stack([a, b]) for a, b in zip(raw1, raw2))
+    Xg1, diag1, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid,
+                                         t([[length, 1.0], [length, length]]),
+                                         t([nugget, nugget]), jit)
+    return {"cond_weights_t/n1e5": (Xg3, diag3), "block_loglik_multi_t/n1e5": k2,
+            "block_loglik_parts_t/n1e5": k4,
+            "block_nllik_grad_parts_t/n1e5": (Xg1, yg1, diag1, dnug)}
 
 
 def _err64(out, ref, per_value):
@@ -793,9 +884,10 @@ def phase_kernels(dev):
     t0 = time.perf_counter()
     results = {k: {"max_abs_err": 0.0} for k in SOURCES}
     failures = []
-    well64 = _slice_inputs(torch.float64, dev, NUGGET_WELL)
-    in64 = _slice_inputs(torch.float64, dev, NUGGET_BENCH)
-    in32 = _slice_inputs(torch.float32, dev, NUGGET_BENCH)
+    well64, in64, in32 = ({**_slice_inputs(dt, dev, nug), **_large_inputs(dt, dev, nug)}
+                          for dt, nug in ((torch.float64, NUGGET_WELL),
+                                          (torch.float64, NUGGET_BENCH),
+                                          (torch.float32, NUGGET_BENCH)))
     grad_kw = {"n_length": 2, "nugget_est": True}
     cases = (("cond_weights_t", "cond_weights_t", {}),
              ("block_loglik_multi_t", "block_loglik_multi_t", {"dl": 1}),
@@ -813,7 +905,11 @@ def phase_kernels(dev):
              ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/linked",
               {"n_length": 1, "nugget_est": True}),
              ("cond_weights_t", "cond_weights_t/linked", {}),
-             ("block_loglik_multi_t", "block_loglik_multi_t/linked", {"dl": 1}))
+             ("block_loglik_multi_t", "block_loglik_multi_t/linked", {"dl": 1}),
+             ("cond_weights_t", "cond_weights_t/n1e5", {}),
+             ("block_loglik_multi_t", "block_loglik_multi_t/n1e5", {"dl": 1}),
+             ("block_loglik_parts_t", "block_loglik_parts_t/n1e5", {}),
+             ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/n1e5", grad_kw))
     for name in ("sexp", "matern2.5"):
         for kname, case, kw in cases:
             kern = getattr(cv, kname)
@@ -848,15 +944,18 @@ def phase_kernels(dev):
             args = ins[case]
             blocks = _blocks_of(kname, args)
             bound, by = _bound_ms(kname, args, dt, kw)
+            # n = 1e5: 50x the work of a call at n = 2000, timed over fewer calls
+            reps = {"reps": 5, "inner": 2} if case.endswith("/n1e5") else {}
             timing[f"{dt}/{case}"] = {
-                "ms": cuda_ms(lambda: kern(*args, **kw)),
+                "ms": cuda_ms(lambda: kern(*args, **kw), **reps),
                 "ms_one_call": cuda_ms(lambda: kern(*args, **kw), inner=1),
-                "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
-                "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks)),
+                "plain_ms": cuda_ms(lambda: plain(*args, **kw), **reps),
+                "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks), **reps),
                 "library_ms_one_call": cuda_ms(lambda: torch.linalg.cholesky_ex(blocks),
                                                inner=1),
                 "bound_ms": bound, "bound_by": by,
                 "shape": list(args[0].shape)}
+            del blocks
     # the two-rows-per-lane instantiation and K1's passes over length lanes
     for dt in ("float64", "float32"):
         for kname, shape in VARIANT_TIMES:
@@ -1608,6 +1707,213 @@ def phase_lik_vecchia(dev):
     return launches
 
 
+def large_data(p):
+    """bench.py's `_large_n` draw (tools/make_torch_large_params.py)."""
+    rng = np.random.RandomState(p["data_seed"])
+    X = rng.rand(p["n"], 1) * 2 - 1
+    return X, func(X) + 0.05 * rng.randn(p["n"], 1)
+
+
+def _timed(fn):
+    """(fn(), seconds), the card synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def timed_refreshes():
+    """Wrap CompiledDGP.refresh_nn so that each call's seconds are
+    recorded: (list of seconds, function that restores it)."""
+    from dgp_tpu_torch.models.compiled import CompiledDGP
+    seconds, refresh = [], CompiledDGP.refresh_nn
+
+    def timed(self, state, gen):
+        out, t = _timed(lambda: refresh(self, state, gen))
+        seconds.append(t)
+        return out
+
+    CompiledDGP.refresh_nn = timed
+    return seconds, lambda: setattr(CompiledDGP, "refresh_nn", refresh)
+
+
+def _recall(approx, exact):
+    """Share of the exact sets' entries (-1 padding excluded) that the
+    approximate sets hold, row by row (tensors on one device)."""
+    hits = total = 0
+    for s in range(0, exact.shape[0], 8192):
+        e, a = exact[s:s + 8192], approx[s:s + 8192]
+        same = (e[:, :, None] == a[:, None, :]) & (e[:, :, None] >= 0)
+        hits += int(same.any(dim=2).sum())
+        total += int((e >= 0).sum())
+    return hits / total
+
+
+def _search_check(xs, q, m, pred_m):
+    """The IVF search of the ordered points xs against the exact search on
+    the same device: both timed, the IVF build twice (the arrays must be
+    equal), ordered recall, and prediction recall for the queries q."""
+    import torch
+    from dgp_tpu_torch.vecchia import nn as vnn
+    (nn1, _), t_ivf = _timed(lambda: vnn.nn_approx(xs, m))
+    (nn2, _), t_ivf2 = _timed(lambda: vnn.nn_approx(xs, m))
+    exact, t_exact = _timed(lambda: vnn._nn_ordered_impl(xs, m))
+    pa, t_pa = _timed(lambda: vnn._pred_nn_approx(q, xs, pred_m))
+    pe, t_pe = _timed(lambda: vnn._pred_nn_impl(q, xs, pred_m))
+    return nn1, {"n": xs.shape[0], "d": xs.shape[1], "m": m, "ivf_build_s": [t_ivf, t_ivf2],
+                 "builds_equal": bool(torch.equal(nn1, nn2)), "exact_s": t_exact,
+                 "recall_ordered": _recall(nn1, exact),
+                 "pred_queries": q.shape[0], "pred_m": pred_m, "pred_ivf_s": t_pa,
+                 "pred_exact_s": t_pe, "recall_pred": _recall(pa, pe)}
+
+
+def phase_large_n(dev):
+    """The large-n path: the IVF search, a gp and bench.py's n = 1e5 DGP
+    protocol (see the module docstring)."""
+    import hashlib
+    import torch
+    from dgp_tpu_torch import dgp, emulator, gp, kernel, nb_seed
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    ref = _data_json("large_n1e5.json")
+    p, jax_res = ref["protocol"], ref["jax"]
+    rmse_gate = 2.0 * _params_json()["emulator"]["rmse_gate_ref"]
+    X, Y = large_data(p)
+    n, mv = p["n"], p["vecchia_m"]
+    z = np.linspace(-1, 1, p["n_test"]).reshape(-1, 1)
+    zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
+    ordg = np.random.RandomState(p["vecchia_ord_seed"]).permutation(n)
+    stride = p["nn_row_stride"]
+    jax_rows = np.asarray(jax_res["nn_rows"])
+
+    def rows_vs_jax(NN):
+        return {"rows_equal_jax": float(np.mean((NN[::stride] == jax_rows).all(axis=1))),
+                "sha256_equal_jax": hashlib.sha256(np.ascontiguousarray(NN, "<i8").tobytes())
+                .hexdigest() == jax_res["nn_sha256"]}
+
+    cv.reset_launch_counts()
+    parts = {}
+    # 1. the search on the gp's scaled, ordered input
+    t0 = time.perf_counter()
+    xs = torch.as_tensor((X / p["length"])[ordg], device=dev)
+    nn1, search = _search_check(xs, torch.as_tensor(zp / p["length"], device=dev), mv,
+                                p["pred_m"])
+    search.update(rows_vs_jax(nn1.cpu().numpy()))
+    parts["search_s"] = time.perf_counter() - t0
+
+    # 2. the gp (Vecchia, m = 25) at n = 1e5
+    t0 = time.perf_counter()
+    np.random.seed(p["vecchia_ord_seed"])
+    k = kernel(length=np.array([p["length"]]), name=p["kernel"], nugget=p["nugget"],
+               scale_est=p["scale_est"], nugget_est=p["nugget_est"])
+    g, t_build = _timed(lambda: gp(X, Y, k, vecchia=True, m=mv, device=dev))
+    before = launch_counts()
+    _, t_train = _timed(g.train)
+    after_train = launch_counts()
+    ll, t_ll = _timed(g.kernel.log_likelihood_func)
+    after_ll = launch_counts()
+    (mu, var), _ = _timed(lambda: g.predict(z, m=p["pred_m"]))
+    rmse_gp = float(np.sqrt(np.mean((mu - func(z)) ** 2)))
+    (mu_p, var_p), t_pred = _timed(lambda: g.predict(zp, m=p["pred_m"]))
+    gpr = {"nn_method": g.kernel.nn_method, "build_s": t_build, "train_s": t_train,
+           "K1_launches_per_train": after_train["block_nllik_grad_parts_t"]
+           - before["block_nllik_grad_parts_t"],
+           "log_likelihood": ll, "log_likelihood_s": t_ll,
+           "K4_launches_per_log_likelihood": after_ll["block_loglik_parts_t"]
+           - after_train["block_loglik_parts_t"],
+           "rmse": rmse_gp, "rmse_gate": 2.0 * jax_res["rmse"],
+           "predict_20000_s": t_pred, "predict_pts_per_s": N_PRED / t_pred,
+           "scale": float(g.kernel.scale[0]), "length": g.kernel.length.tolist(),
+           "nugget": float(g.kernel.nugget[0]),
+           "ordering": bool(np.array_equal(g.kernel.ord, ordg)),
+           **rows_vs_jax(g.kernel.NNarray)}
+    gp_finite = bool(np.isfinite(ll) and all(np.isfinite(a).all()
+                                              for a in (mu, var, mu_p, var_p)))
+    parts["gp_s"] = time.perf_counter() - t0
+
+    # 3. bench.py's _large_n and _large_n_predict protocol
+    t0 = time.perf_counter()
+    refresh_s, restore = timed_refreshes()
+    try:
+        nb_seed(p["dgp_seed"])
+        md, t_dgp = _timed(lambda: dgp(X, Y, _bench_layers(), vecchia=True, m=p["dgp_m"],
+                                       check_rep=False, device=dev))
+        _, t_warm = _timed(lambda: md.train(N=p["dgp_warm"], disable=True,
+                                            chunk_size=p["dgp_chunk"]))
+        before = launch_counts()
+        _, t_sem = _timed(lambda: md.train(N=p["dgp_timed"], disable=True,
+                                           chunk_size=p["dgp_chunk"]))
+        per_iter = {k: (v - before[k]) / p["dgp_timed"] for k, v in launch_counts().items()}
+    finally:
+        restore()
+    emu, t_emu = _timed(lambda: emulator(md.estimate(), N=p["dgp_N"], device=dev))
+    (mu_d, var_d), _ = _timed(lambda: emu.predict(z, m=p["dgp_pred_m"]))
+    rmse_dgp = float(np.sqrt(np.mean((mu_d - func(z)) ** 2)))
+    (mu_dp, var_dp), t_dpred = _timed(lambda: emu.predict(zp, m=p["dgp_pred_m"]))
+    ivf_used = all(nd["ivf"] is not None for layer in emu._ens.spec for nd in layer)
+    for layer_set in emu.all_layer_set:
+        for layer in layer_set:
+            for nd in layer:
+                nd.nn_method = "exact"
+    emu._ens = None
+    (mu_e, _), t_exact_pred = _timed(lambda: emu.predict(z, m=p["dgp_pred_m"]))
+    node = md.all_layer[1][0]
+    W = torch.as_tensor((node._X() / node.length)[node.ord], device=dev)
+    qW = W[::5] + 1e-3 * torch.randn(W[::5].shape, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=W.dtype)
+    _, search2 = _search_check(W, qW, p["dgp_m"], p["dgp_pred_m"])
+    dgpr = {"nn_method": [nd.nn_method for layer in md.all_layer for nd in layer],
+            "construct_s": t_dgp, "warm_s": t_warm, "timed_iterations": p["dgp_timed"],
+            "sem_it_per_s": p["dgp_timed"] / t_sem, "launches_per_iteration": per_iter,
+            "nn_refresh_s": refresh_s, "emulator_build_s": t_emu, "rmse": rmse_dgp,
+            "rmse_gate": rmse_gate, "predict_20000_s": t_dpred,
+            "predict_pts_per_s": N_PRED / t_dpred,
+            "ivf_vs_exact_mean_abs": float(np.mean(np.abs(mu_d - mu_e))),
+            "exact_predict_1000_s": t_exact_pred,
+            "trained": [{"scale": float(nd.scale[0]), "length": nd.length.tolist(),
+                         "nugget": float(nd.nugget[0])} for layer in md.all_layer
+                        for nd in layer]}
+    dgp_finite = (all(np.isfinite(nd.para_path).all() for layer in md.all_layer
+                      for nd in layer)
+                  and all(np.isfinite(a).all() for a in (mu_d, var_d, mu_dp, var_dp, mu_e)))
+    parts["dgp_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    checks = {
+        "recall": min(search["recall_ordered"], search["recall_pred"],
+                      search2["recall_ordered"], search2["recall_pred"]) >= LARGE_RECALL,
+        "builds_equal": search["builds_equal"] and search2["builds_equal"],
+        "rows_vs_jax": search["rows_equal_jax"] >= LARGE_ROWS_EQUAL
+        and gpr["rows_equal_jax"] >= LARGE_ROWS_EQUAL,
+        "approx": gpr["nn_method"] == "approx" and set(dgpr["nn_method"]) == {"approx"}
+        and ivf_used,
+        "gp_launches": gpr["K1_launches_per_train"] > 0
+        and gpr["K4_launches_per_log_likelihood"] > 0 and gpr["ordering"],
+        "gp_params_vs_jax": all(np.allclose(np.atleast_1d(gpr[k]), np.atleast_1d(jax_res[k]),
+                                            rtol=GP_RTOL_PARAMS, atol=0.0)
+                                for k in ("scale", "length", "nugget")),
+        "gp_rmse": rmse_gp <= gpr["rmse_gate"],
+        "dgp_launches": all(per_iter[k] > 0 for k in ("block_nllik_grad_parts_t",
+                                                      "block_loglik_multi_t",
+                                                      "cond_weights_t")),
+        "dgp_iterations": md.N == p["dgp_warm"] + p["dgp_timed"],
+        "finite": gp_finite and dgp_finite,
+        "dgp_rmse": rmse_dgp <= rmse_gate,
+        "ivf_vs_exact": dgpr["ivf_vs_exact_mean_abs"] < LARGE_ENS_DIFF,
+    }
+    emit({"phase": "large_n", "n": n, "dtype": "float64", "parts_s": parts,
+          "search": search, "search_layer2": search2, "gp": gpr, "dgp": dgpr,
+          "jax": {k: v for k, v in jax_res.items() if k != "nn_rows"},
+          "launches": launches, "checks": checks,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"large_n phase checks failed: {checks}")
+    return launches
+
+
 def poisson_data():
     """tools/parity_data.py:55-70: Poisson counts with replicates, n=90
     training rows, 200 test points (seed 99)."""
@@ -1770,7 +2076,7 @@ def main():
     results = phase_kernels(dev)
     launches = {k: 0 for k in SOURCES}
     for phase in (phase_main, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
-                  phase_linked, phase_lik_vecchia):
+                  phase_linked, phase_lik_vecchia, phase_large_n):
         for k, v in phase(dev).items():
             launches[k] += v
     for k, v in phase_host_bound().items():

@@ -10,9 +10,11 @@ coefficients are the node's adjusted ones (and, for 'ref', already
 extended by the initialisation), so the constructor does not adjust them
 again.  The training traces (``para_path``, ``R2``) come across too, so
 that a model trained in one package can be estimated by, or continue
-training in, the other.  A likelihood node comes across by its ``type``
-and ``name`` with the keys of `LIK_KEYS` (a Categorical node's label
-encoder as its ``classes``).  `lgp_from_numpy` carries a whole linked
+training in, the other.  The neighbour search (``nn_method``, and the IVF
+centroids that warm-start its next build, ``_ivf_cache``) comes across
+too, so a carried node searches the way it did.  A likelihood node comes
+across by its ``type`` and ``name`` with the keys of `LIK_KEYS` (a
+Categorical node's label encoder as its ``classes``).  `lgp_from_numpy` carries a whole linked
 system, every imputation's containers, the same way.
 """
 import numpy as np
@@ -24,7 +26,8 @@ from .models.node import kernel
 NODE_KEYS = ('name', 'scale', 'length', 'nugget', 'nugget_est', 'scale_est',
              'prior_name', 'prior_coef', 'bds', 'cl', 'input_dim', 'connect',
              'input', 'global_input', 'output', 'W_diag', 'sum_residual', 'rep',
-             'vecch', 'ord', 'NNarray', 'imp_NNarray', 'm', 'para_path', 'R2')
+             'vecch', 'ord', 'NNarray', 'imp_NNarray', 'm', 'nn_method', '_ivf_cache',
+             'para_path', 'R2')
 #: likelihood-node attributes carried across (besides type and name)
 LIK_KEYS = ('input_dim', 'input', 'output', 'rep', 'exact_post_idx', 'link',
             'num_classes', 'robustmax_eps')
@@ -81,6 +84,10 @@ def node_from_numpy(d):
         node.imp_NNarray = np.asarray(d['imp_NNarray'], np.int64)
     if d.get('m') is not None:
         node.m = int(d['m'])
+    if d.get('nn_method') is not None:
+        node.nn_method = str(d['nn_method'])
+    if d.get('_ivf_cache') is not None:
+        node._ivf_cache = {k: np.array(v) for k, v in d['_ivf_cache'].items()}
     if node.input is not None:
         node.D = node.input.shape[1] + (0 if node.connect is None else len(node.connect))
     if node.para_path is None:

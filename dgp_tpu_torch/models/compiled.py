@@ -36,8 +36,10 @@ hyper-parameters, and the mean of a Hetero node is drawn exactly
 (`_post_het`, or `vecchia.core.post_het_vecch` for a Vecchia node), which
 makes its layer node-wise.
 
-Not ported yet: the approximate-NN search and its refresh (O5); `dgp` and
-`gp` raise NotImplementedError at the data sizes that would need it.
+A Vecchia model's NN refresh (`refresh_nn`) rebuilds every node's ordering
+and neighbours on the device, with the exact search or, for a node whose
+``nn_method`` is 'approx' (`dgp` sets it at n >= 50000), the IVF search of
+`vecchia.nn`, at any n in one path.
 """
 import numpy as np
 import torch
@@ -207,24 +209,30 @@ class CompiledDGP:
                 node.nn_version = getattr(node, 'nn_version', 0) + 1
 
     def supports_device_refresh(self):
-        """The device refresh covers exact NN search with random ordering
-        (no custom ord_fun); other configurations refresh on the host
-        through the imputer."""
+        """The device refresh covers random ordering (no custom ord_fun)
+        with the exact search or the IVF search; other configurations
+        refresh on the host through the imputer."""
         return all(getattr(node, 'ord_fun', None) is None
+                   and node.nn_method in ('exact',) + vnn.APPROX_METHODS
                    for layer, specs in zip(self.all_layer, self.spec)
                    for node, sp in zip(layer, specs) if sp.vecch)
 
     def refresh_nn(self, state, gen):
         """Re-order and rebuild every Vecchia node's NN structure on the
         device (the role of imputation.update_ord_nn, reference
-        dgp.py:1388-1389): a random permutation from ``gen`` and an exact
-        NN search of the length-scaled, reordered inputs.  Same-wiring
-        isotropic nodes of a layer share one ordering (dgp.py:643-663),
-        but for a node that carries the self-excluded neighbour sets of the
-        Hetero exact draw (``imp_NNarray``), which are rebuilt with it."""
+        dgp.py:1388-1389): a random permutation from ``gen`` and a search of
+        the length-scaled, reordered inputs, exact or, for a node whose
+        ``nn_method`` asks for it at more than 4 * 256 points, the IVF
+        search (a cold k-means, as the JAX package's device refresh).
+        Same-wiring isotropic nodes of a layer that search the same way
+        share one ordering (dgp.py:643-663), but for a node that carries
+        the self-excluded neighbour sets of the Hetero exact draw
+        (``imp_NNarray``), which are rebuilt with it."""
         latents, params = state
         built = {}
         for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
+            approx = [sp.vecch and vnn.is_approx(node.nn_method, node.input.shape[0])
+                      for node, sp in zip(layer, specs)]
             for k, (node, sp) in enumerate(zip(layer, specs)):
                 if not sp.vecch:
                     built[(l, k)] = None
@@ -236,17 +244,24 @@ class CompiledDGP:
                                   and self.spec[l][j].n_length == 1 and sp.n_length == 1
                                   and self.spec[l][j].input_dim == sp.input_dim
                                   and self.spec[l][j].connect == sp.connect
-                                  and layer[j].m == node.m)), None)
+                                  and layer[j].m == node.m
+                                  and approx[j] == approx[k])), None)
                 if share is not None:
                     built[(l, k)] = built[share]
                     continue
                 Xn = self._node_input(l, k, latents)
                 ordv = torch.randperm(Xn.shape[0], generator=gen, device=self.device)
                 Xo = (Xn / params[l][k]['length'])[ordv]
-                built[(l, k)] = {'ord': ordv, 'rev': torch.argsort(ordv),
-                                 'NN': vnn._nn_ordered_impl(Xo, int(node.m))}
+                m = int(node.m)
+                d = {'ord': ordv, 'rev': torch.argsort(ordv)}
+                if approx[k]:
+                    d['NN'], imp = vnn.nn_approx(Xo, m, impute=needs_imp)
+                else:
+                    d['NN'] = vnn._nn_ordered_impl(Xo, m)
+                    imp = vnn._pred_nn_impl(Xo, Xo, m)[:, 1:] if needs_imp else None
                 if needs_imp:
-                    built[(l, k)]['impNN'] = vnn._pred_nn_impl(Xo, Xo, int(node.m))[:, 1:]
+                    d['impNN'] = imp
+                built[(l, k)] = d
         return tuple(tuple(built[(l, k)] for k in range(len(layer)))
                      for l, layer in enumerate(self.spec))
 

@@ -9,8 +9,9 @@ coefficients, the Vecchia wiring of each node with the neighbour sets of
 the Hetero exact draw), the initial imputation (10 burn-in sweeps on the
 model's device), SEM training (`train`) with the NN refresh schedule of
 Vecchia models and restarts, `compute_r2`, `aggregate_r2` and `estimate`.
-Not ported yet: a Vecchia model at n >= 50000, which needs the approximate
-NN search (O5), `update_xy` and `plot` (O6), and multi-device training
+From n >= 50000 points every GP node searches its neighbours with the IVF
+approximate search (``nn_method = 'approx'``), as in the JAX package.  Not
+ported yet: `update_xy` and `plot` (O6), and multi-device training
 (`ptrain`, ``sharded=True``; O7).
 """
 import copy
@@ -33,15 +34,6 @@ def _kernel_pca(In, n_components, large):
     if large:
         return utils.NystromKPCA(n_components=n_components).fit_transform(In)
     return utils.kernel_pca(In, n_components)
-
-
-def check_vecchia_size(n_data):
-    """A Vecchia model this large uses the approximate NN search in the JAX
-    package (dgp.py:66-69), which the port does not have yet."""
-    if n_data >= APPROX_NN_N:
-        raise NotImplementedError(
-            f"a Vecchia dgp at n >= {APPROX_NN_N} uses the approximate NN search, "
-            "which is not ported to dgp_tpu_torch yet (ROADMAP.md, O5)")
 
 
 class dgp:
@@ -77,8 +69,7 @@ class dgp:
                 self.counts = counts
         self.vecch = vecchia
         self.n_data = self.X.shape[0]
-        if self.vecch:
-            check_vecchia_size(self.n_data)
+        self.nn_method = 'exact' if self.n_data < APPROX_NN_N else 'approx'
         self.m = min(m, self.n_data - 1)
         self.ord_fun = ord_fun
         if all_layer is None:
@@ -383,7 +374,7 @@ class dgp:
                         if l == 0 and len(np.intersect1d(node.connect, node.input_dim)) != 0:
                             raise Exception('The local and global input should not overlap.')
                         node.global_input = global_in[:, node.connect]
-                    node.vecch, node.m = self.vecch, self.m
+                    node.vecch, node.m, node.nn_method = self.vecch, self.m, self.nn_method
                     node.device = self.device
                     if self.ord_fun is not None:
                         node.ord_fun = self.ord_fun

@@ -14,7 +14,10 @@ its memory budget.  Likelihood nodes may sit in the final layer: the ensemble
 propagates the GP nodes only, and the emulator applies the likelihood's
 closed-form moments on the host.
 
-Not ported yet: the IVF approximate search (O5).
+A Vecchia node whose ``nn_method`` is 'approx' (at more than 4 * 256
+training points) searches its prediction neighbours through an IVF index
+built once per ensemble, as the JAX package's ensemble does: one index over
+layer 0's shared inputs, one per imputation deeper.
 """
 import numpy as np
 import torch
@@ -87,7 +90,7 @@ class CompiledEnsemble:
                 lay_y.append(ys)
                 w_diag = getattr(node, 'W_diag', None)
                 lay_spec.append(dict(
-                    name=node.name, vecch=bool(node.vecch),
+                    name=node.name, vecch=bool(node.vecch), nn_method=node.nn_method,
                     input_dim=tuple(int(i) for i in node.input_dim),
                     connect=(None if node.connect is None
                              else tuple(int(i) for i in node.connect)),
@@ -105,9 +108,26 @@ class CompiledEnsemble:
             for k, nd in enumerate(self.spec[l]):
                 if nd is not None and not nd['vecch']:
                     nd['Rinv'], nd['Rinv_y'] = self._dense_stats(l, nd, self.y_stack[l][k])
+        self._build_ivf()
         # only Vecchia nodes take the extra diagonal of the jitter retry
         self._any_vecch = any(nd['vecch'] for layer in self.spec for nd in layer
                               if nd is not None)
+
+    def _build_ivf(self):
+        """IVF indices (centroids, inverted lists) of the approximate-NN
+        Vecchia nodes, on their length-scaled training inputs: layer 0's
+        shared by all imputations, deeper layers' one per imputation
+        (``nd['ivf']``, None for an exact node)."""
+        for l in range(self.n_layer):
+            for k, nd in enumerate(self.spec[l]):
+                if nd is None or not nd['vecch']:
+                    continue
+                W, shared = self._node_train_inputs(l, nd)
+                nd['ivf'] = None
+                if vnn.is_approx(nd['nn_method'], W.shape[-2]):
+                    full_len = torch.broadcast_to(nd['length'], (W.shape[-1],))
+                    nd['ivf'] = (vnn._ivf_build(W / full_len) if shared else
+                                 [vnn._ivf_build(Wi / full_len) for Wi in W])
 
     def _dense_stats(self, l, nd, y):
         """(Rinv, Rinv_y) of a dense node with outputs y (N, n): layer 0's
@@ -142,8 +162,15 @@ class CompiledEnsemble:
         """One query chunk x (Mc, d_global) -> (means, vars): per layer an
         (N, Mc, width) tensor over the layer's GP nodes (width 0 for a layer
         of likelihood nodes alone)."""
-        def nn_search(q, w, m_eff):
-            nn = vnn._pred_nn_impl(q, w, m_eff)
+        def nn_search(q, w, m_eff, ivf):
+            # with an IVF index, the cluster-restricted search of
+            # `vecchia.nn.get_pred_nn(method='approx')`, -1 (too few
+            # candidates) set to 0
+            if ivf is None:
+                nn = vnn._pred_nn_impl(q, w, m_eff)
+            else:
+                nn = vnn._ivf_query(q, w, ivf[0], ivf[1], m_eff)
+                nn = torch.where(nn >= 0, nn, 0)
             return nn[:, 1:] if loo else nn
 
         in_mean = in_var = None
@@ -178,7 +205,7 @@ class CompiledEnsemble:
                     xq = x[:, list(nd['input_dim'])]
                     if z is not None:
                         xq = torch.cat([xq, z], dim=1)
-                    NN = nn_search(xq / nd['length'], W / nd['length'], m_eff)
+                    NN = nn_search(xq / nd['length'], W / nd['length'], m_eff, nd['ivf'])
                     out = [vcore.gp_vecch(xq, W, NN, y[i], nd['scale'], nd['length'],
                                           nd['nugget'], nd['nug_diag'], nd['name'],
                                           extra_jit) for i in range(self.N)]
@@ -190,7 +217,8 @@ class CompiledEnsemble:
                         mi = in_mean[i][:, list(nd['input_dim'])]
                         vi = in_var[i][:, list(nd['input_dim'])]
                         xq = mi if z is None else torch.cat([mi, z], dim=1)
-                        NN = nn_search(xq / full_len, W[i] / full_len, m_eff)
+                        NN = nn_search(xq / full_len, W[i] / full_len, m_eff,
+                                       None if nd['ivf'] is None else nd['ivf'][i])
                         out.append(vcore.link_gp_vecch(
                             mi, vi, z, W[i][:, :dl],
                             W[i][:, dl:] if z is not None else None, NN, y[i],

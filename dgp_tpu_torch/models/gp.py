@@ -3,9 +3,9 @@
 API mirror of reference `dgpsi/gp.py`: constructor with replicate
 collapsing, train / predict / loo / metric (ALM, MICE, VIGF), the switch
 to and from the Vecchia approximation, and export.  The node's compute
-runs on the gp's ``device`` (default: the card).  Not ported yet: the
-approximate NN search that the JAX package switches on at n >= 50000
-(O5), and ``ppredict`` / ``pmetric`` (O7).
+runs on the gp's ``device`` (default: the card).  From n >= 50000 points
+the node's Vecchia neighbours come from the IVF approximate search, as in
+the JAX package.  Not ported yet: ``ppredict`` / ``pmetric`` (O7).
 """
 import copy
 
@@ -14,7 +14,8 @@ import numpy as np
 from .. import config
 from ..design import mice_var
 
-#: the data size from which the JAX package's gp uses approximate NN
+#: the data size from which the gp and the dgp search neighbours with the
+#: IVF approximate search (the JAX package's switch)
 APPROX_NN_N = 50_000
 
 
@@ -52,9 +53,7 @@ class gp:
         self.m = min(m, self.n_data - 1)
         self.ord_fun = ord_fun
         if self.n_data >= APPROX_NN_N:
-            raise NotImplementedError(
-                f"gp at n >= {APPROX_NN_N} uses the approximate NN search, which "
-                "is not ported to dgp_tpu_torch yet (ROADMAP.md, O5)")
+            self.kernel.nn_method = 'approx'
         self.initialize()
         if self.vecch:
             self.kernel.ord_nn()

@@ -6,8 +6,10 @@ the single-node entry points: the log-likelihood at fixed parameters (the
 ESS target, through K4), the M-step objective of `kernel.maximise`
 (objective and gradient through K1, one node as a group of one),
 prediction, linked prediction and the gp class's LOO.  All run on the
-node's device (``node.device``; default: the card).  Not ported yet: the
-approximate search (``nn_method='approx'``, O5).
+node's device (``node.device``; default: the card).  Every neighbour
+search takes the node's ``nn_method`` ('exact', or the IVF search 'approx'
+that `dgp` and `gp` switch on at n >= 50000), and the ordered search keeps
+the IVF centroids in ``node._ivf_cache`` to warm-start the next refresh.
 """
 import numpy as np
 import torch
@@ -33,12 +35,17 @@ def ord_nn(node, ord=None, NNarray=None, pointer=False, device=None):
     node.rev_ord = np.argsort(node.ord)
     dev = config.resolve_device(device if device is not None else node.device)
     if NNarray is None:
-        node.NNarray = nnmod.nn(_scaled_input(node)[node.ord], node.m, device=dev)
+        if not hasattr(node, '_ivf_cache'):
+            node._ivf_cache = {}
+        node.NNarray = nnmod.nn(_scaled_input(node)[node.ord], node.m,
+                                method=node.nn_method, cache=node._ivf_cache,
+                                device=dev)
     else:
         node.NNarray = np.asarray(NNarray)
     if pointer:
         Xo = _scaled_input(node)[node.ord]
-        node.imp_NNarray = nnmod.get_pred_nn(Xo, Xo, node.m, device=dev)[:, 1:]
+        node.imp_NNarray = nnmod.get_pred_nn(Xo, Xo, node.m, method=node.nn_method,
+                                             device=dev)[:, 1:]
 
 
 def _scaled_input(node):
@@ -109,7 +116,8 @@ def gp_prediction_vecch(node, x, z):
         x = np.concatenate((x, z), axis=1)
     w = node._X()
     NNarray = nnmod.get_pred_nn(x / node.length, w / node.length,
-                                node.pred_m or 50, device=node._dev())
+                                node.pred_m or 50, method=node.nn_method,
+                                device=node._dev())
     if node.loo_state:
         NNarray = NNarray[:, 1:]
     return _with_jitter_retry(
@@ -130,7 +138,8 @@ def linkgp_prediction_vecch(node, m, v, z):
         xq = m
         w = node._X() if node.global_input is not None else node.input
     NNarray = nnmod.get_pred_nn(xq / node.length, w / node.length,
-                                node.pred_m or 50, device=node._dev())
+                                node.pred_m or 50, method=node.nn_method,
+                                device=node._dev())
     if node.loo_state:
         NNarray = NNarray[:, 1:]
     return _with_jitter_retry(
@@ -145,7 +154,8 @@ def loo_gp(gp_model, m):
     node = gp_model.kernel
     X = gp_model.X
     X_scale = X / node.length
-    NNarray = nnmod.get_pred_nn(X_scale, X_scale, m + 1, device=node._dev())
+    NNarray = nnmod.get_pred_nn(X_scale, X_scale, m + 1, method=node.nn_method,
+                                device=node._dev())
     mean, var = _with_jitter_retry(
         core.loo_gp_vecch, node._t(X), node._t(NNarray, torch.int64),
         node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),

@@ -253,11 +253,13 @@ def ancestral_sample(eps, w, idx_asc, block=512):
             // B) * B
     rel = idx_asc - base[:, None]                        # (n_pad, m)
     in_blk = (rel >= 0) & (w != 0)
+    # each row's in-block weights at their columns (a row's neighbours are
+    # distinct); the other lanes park in column B, dropped.  A scatter: an
+    # (n, m, B) one-hot would take 51 GB at n = 1e6
     rel_safe = torch.where(in_blk, rel, B)
-    cols_r = torch.arange(B, dtype=rel.dtype, device=rel.device)
     w_in = torch.where(in_blk, w, 0.0)
-    Wflat = torch.sum(torch.where(rel_safe[:, :, None] == cols_r[None, None, :],
-                                  w_in[:, :, None], 0.0), dim=1)
+    Wflat = torch.zeros((n_pad, B + 1), dtype=w.dtype, device=w.device).scatter_add_(
+        1, rel_safe.long(), w_in)[:, :B]
     M = _unitri_inverse(Wflat.reshape(nb, B, B))          # (nb, B, B)
 
     w_cross = torch.where(in_blk, 0.0, w).reshape(nb, B, m)

@@ -19,7 +19,6 @@ import dgp_tpu
 import dgp_tpu_torch
 from dgp_tpu.models import imputation as jimp
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
-from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models.compiled import CompiledDGP
 from dgp_tpu_torch.ops import cuda_vecchia as cv
 
@@ -220,19 +219,3 @@ def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
         assert all(counts[k]["plain_calls"] > 0 for k in
                    ("block_nllik_grad_parts_t", "cond_weights_t", "block_loglik_parts_t"))
         assert counts["block_loglik_multi_t"]["plain_calls"] == 0   # no angle views
-
-
-def test_large_vecchia_dgp_names_the_missing_search(monkeypatch):
-    """A Vecchia dgp at the size where dgp_tpu switches to the approximate
-    NN search raises until that search is ported; a dense one does not ask."""
-    with pytest.raises(NotImplementedError, match="O5"):
-        tdgp.check_vecchia_size(50_000)
-    tdgp.check_vecchia_size(49_999)
-    monkeypatch.setattr(tdgp, "APPROX_NN_N", 30)
-    rs = np.random.RandomState(1)
-    X, Y = rs.rand(30, 1), rs.rand(30, 1)
-    with pytest.raises(NotImplementedError, match="approximate NN search"):
-        dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=True, m=5, device='cpu')
-    dgp_tpu_torch.nb_seed(0)
-    m = dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=False, device='cpu')
-    assert m.n_data == 30

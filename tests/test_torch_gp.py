@@ -286,10 +286,13 @@ def test_gp_unported_and_device(monkeypatch):
     for call, item in ((g.ppredict, "O7"), (g.pmetric, "O7")):
         with pytest.raises(NotImplementedError, match=item):
             call(X)
-    big = np.linspace(0, 1, 50_000)[:, None]
-    with pytest.raises(NotImplementedError, match="O5"):
-        dgp_tpu_torch.gp(big, big, dgp_tpu_torch.kernel(length=np.array([0.5])),
-                         device='cpu')
+    assert g.kernel.nn_method == 'exact'
+    # from APPROX_NN_N points on, a gp (dense too) constructs with the IVF
+    # search as its node's method, as dgp_tpu's does
+    from dgp_tpu_torch.models import gp as tgp
+    monkeypatch.setattr(tgp, "APPROX_NN_N", len(X))
+    g = dgp_tpu_torch.gp(X, Y, dgp_tpu_torch.kernel(length=np.array([0.5])), device='cpu')
+    assert g.kernel.nn_method == 'approx'
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dgp_tpu_torch.gp(X, Y, dgp_tpu_torch.kernel(length=np.array([0.5])))

@@ -62,11 +62,13 @@ def window(name, fn, out_dir):
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
     all_launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
-    print(json.dumps({"window": name, "wall_s": wall, "device_kernel_s": busy,
-                      "device_busy_share": busy / wall, "launches": launches,
-                      "cuda_launch_kernel_calls": all_launches,
-                      "top_device": _top(ev, "self_device_time_total"),
-                      "top_host": _top(ev, "self_cpu_time_total")}), flush=True)
+    out = {"window": name, "wall_s": wall, "device_kernel_s": busy,
+           "device_busy_share": busy / wall, "launches": launches,
+           "cuda_launch_kernel_calls": all_launches,
+           "top_device": _top(ev, "self_device_time_total"),
+           "top_host": _top(ev, "self_cpu_time_total")}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def _smi():
