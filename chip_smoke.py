@@ -55,6 +55,30 @@ Phases, each printing its results (and its seconds) as one JSON line:
             then on 20000 points.  Fails unless K2 and K3 were launched by
             this path and the RMSE against the noiseless truth is finite and
             at most twice the JAX package's figure in the JSON.
+  design    one sequential-design step at the same configuration, under the
+            protocol of dgp_tpu_torch/data/design_n2000.json (written by
+            tools/make_torch_design_params.py with the JAX package): dgp(...)
+            at the JSON's hyper-parameters, emulator(N=5); ALM, MICE and
+            VIGF (obj=the dgp) at m=50 on 1000 candidates of [-1, 1], each
+            also on a CPU copy of the same imputations
+            (emulator.from_imputations(..., device='cpu')); the 40
+            candidates with the highest ALM scores, with func plus noise of
+            sd 0.05, added by update_xy (n = 2040); train(N=16,
+            chunk_size=16), emulator(N=5), predict on the 1000 test points,
+            loo at m=30 on the 2040 points, 50 draws per imputation by
+            method='sampling' and full_layer=True on the 1000 points;
+            write, then read on the card and on the CPU; summary of the dgp
+            and the emulator.  Fails unless K2 and K3 were launched by
+            update_xy and K1, K2 and K3 by the retraining, no plain version
+            ran, everything is finite, every score is within rtol 1e-9 of
+            the CPU copy's (relative to the largest score where a score is
+            below a thousandth of it) with the same picks, the RMSE and the
+            LOO RMSE (against the observed outputs) are at most twice the
+            JAX package's medians over the protocol's seeds, the sampling
+            mean is within 4 Monte-Carlo standard errors of the mean_var
+            mean at 99% of the points, and the predictions after read are
+            the same bit for bit on the card and within rtol 1e-9 on the
+            CPU.
   train     SEM training of the same configuration from bench.py's starting
             hyper-parameters (length 0.5, nugget 1e-4): train(N=48) as
             warm-up, a timed train(N=152) (200 iterations, the protocol
@@ -175,6 +199,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -221,6 +246,12 @@ GATE_M, GATE_M_OUTSIDE = 40, 64
 GATE_RTOL = 1e-9
 GATE_GP_N, GATE_GP_D, GATE_GP_SEED = 300, 12, 5
 N_PRED = 20000
+# design: the metric scores on the card against the same imputations on the
+# CPU, per value (relative to the largest magnitude for values below a
+# thousandth of it); the RMSE and LOO RMSE at most this factor of the JAX
+# package's medians over the protocol's seeds (data/design_n2000.json);
+# draws per imputation of the sampling check
+DESIGN_RTOL, DESIGN_FACTOR, DESIGN_DRAWS = 1e-9, 2.0, 50
 # parity row `2d` (tools/parity.py:72-87): its gate is 1.15x dgpsi's RMSE
 # 0.0532 on the same draw (PARITY_r05.json; dgp_tpu gives 0.0361)
 TWOD_GATE = 0.0612
@@ -336,7 +367,6 @@ def cuda_ms(fn, reps=20, warm=3, inner=10):
 
 def _data_json(name):
     """A protocol file of dgp_tpu_torch/data in this script's checkout."""
-    from pathlib import Path
     return json.loads((Path(__file__).resolve().parent / "dgp_tpu_torch" / "data"
                        / name).read_text())
 
@@ -1030,6 +1060,152 @@ def phase_main(dev):
           "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"main path checks failed: {checks}")
+    return launches
+
+
+def design_data(p):
+    """(X, Y, candidates, added-point noise, test points) of the design
+    phase's protocol (tools/make_torch_design_params.py:data)."""
+    X, Y = bench_data()
+    cand = np.random.RandomState(p["cand_seed"]).uniform(-1, 1, (p["n_cand"], 1))
+    noise = p["add_noise_sd"] * np.random.RandomState(p["add_noise_seed"]).randn(p["n_add"], 1)
+    z = np.linspace(-1, 1, p["n_test"]).reshape(-1, 1)
+    return X, Y, cand, noise, z
+
+
+def _close_rel(a, b, rtol):
+    """(max relative difference, whether every value is within rtol of b's,
+    or within rtol of b's largest magnitude where b's value is near 0)."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    diff = np.abs(a - b)
+    rel = float(np.max(diff / np.maximum(np.abs(b), 1e-300)))
+    return rel, bool(np.all(diff <= rtol * np.maximum(np.abs(b), 1e-3 * np.max(np.abs(b)))))
+
+
+def phase_design(dev):
+    """One sequential-design step of a DGP user at the main path's width,
+    under the protocol of dgp_tpu_torch/data/design_n2000.json: emulator,
+    ALM/MICE/VIGF against a CPU copy of the same imputations, update_xy with
+    the 40 best ALM candidates, retraining, emulator, predict, LOO,
+    sampling, full_layer, write/read and summary."""
+    import contextlib
+    import copy
+    import io
+    import tempfile
+
+    import torch
+    from dgp_tpu_torch import (dgp, emulator, layers_from_numpy, nb_seed, read, summary,
+                               write)
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    t_phase = time.perf_counter()
+    ref = _data_json("design_n2000.json")
+    p = ref["protocol"]
+    X, Y, cand, noise, z = design_data(p)
+    out, checks = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    cv.reset_launch_counts()
+    nb_seed(p["seeds"][0])
+    m = dgp(X, Y, layers_from_numpy(_params_json()["layers"]), vecchia=True, m=p["m"],
+            device=dev)
+    emu, out["emulator_s"] = timed(lambda: emulator(m.estimate(), N=p["emulator_N"],
+                                                    device=dev))
+    emu_cpu = emulator.from_imputations(copy.deepcopy(emu.all_layer_set), device="cpu")
+    scores = {}
+    for meth in ("ALM", "MICE", "VIGF"):
+        s_card, secs = timed(lambda: emu.metric(cand, method=meth, obj=m, m=p["metric_m"],
+                                                score_only=True))
+        s_cpu = emu_cpu.metric(cand, method=meth, obj=m, m=p["metric_m"], score_only=True)
+        rel, ok = _close_rel(s_card, s_cpu, DESIGN_RTOL)
+        scores[meth] = s_card
+        out[meth] = {"seconds": secs, "index": int(np.argmax(s_card[:, 0])),
+                     "index_cpu": int(np.argmax(s_cpu[:, 0])),
+                     "jax_index": ref["jax"]["by_seed"][str(p["seeds"][0])][meth]["index"],
+                     "max_rel_vs_cpu": rel}
+        checks[f"{meth}_vs_cpu"] = ok and out[meth]["index"] == out[meth]["index_cpu"]
+    add = np.argsort(-scores["ALM"][:, 0], kind="stable")[:p["n_add"]]
+    X2 = np.vstack([X, cand[add]])
+    Y2 = np.vstack([Y, func(cand[add]) + noise])
+    before = launch_counts()
+    _, out["update_xy_s"] = timed(lambda: m.update_xy(X2, Y2))
+    after_update = launch_counts()
+    _, out["train_s"] = timed(lambda: m.train(N=p["train_N"], chunk_size=p["chunk_size"],
+                                              disable=True))
+    after_train = launch_counts()
+    out["launches_update_xy"] = {k: after_update[k] - before[k] for k in SOURCES}
+    out["launches_per_sem_iteration"] = {k: (after_train[k] - after_update[k]) / p["train_N"]
+                                         for k in SOURCES}
+    emu2, out["emulator_after_s"] = timed(lambda: emulator(m.estimate(), N=p["emulator_N"],
+                                                           device=dev))
+    (mu, var), out["predict_s"] = timed(lambda: emu2.predict(z, m=p["pred_m"]))
+    out["rmse"] = float(np.sqrt(np.mean((mu - func(z)) ** 2)))
+    (lm, lv), out["loo_s"] = timed(lambda: emu2.loo(X2, m=p["loo_m"]))
+    out["loo_rmse"] = float(np.sqrt(np.mean((lm - Y2) ** 2)))
+    np.random.seed(p["seeds"][0])
+    (draws,), out["sampling_s"] = timed(lambda: emu2.predict(
+        z, method="sampling", sample_size=DESIGN_DRAWS, m=p["pred_m"]))
+    (mu_l, var_l), out["full_layer_s"] = timed(lambda: emu2.predict(z, m=p["pred_m"],
+                                                                   full_layer=True))
+    S = draws.shape[1]
+    se = np.sqrt(var[:, 0] / S)
+    out["sampling_within_4se"] = float(np.mean(np.abs(draws.mean(axis=1) - mu[:, 0])
+                                               <= 4 * se))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "emulator")
+        _, out["write_s"] = timed(lambda: write(emu2, path))
+        back_card = read(path, device=dev)
+        back_cpu = read(path, device="cpu")
+    mu_c, var_c = back_card.predict(z, m=p["pred_m"])
+    mu_h, var_h = back_cpu.predict(z, m=p["pred_m"])
+    out["read_cpu_max_rel"] = max(_close_rel(mu_h, mu, 1e-9)[0], _close_rel(var_h, var, 1e-9)[0])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        summary(m)
+        summary(emu2)
+    out["summary_lines"] = len(text.getvalue().splitlines())
+    launches = launch_counts()
+    plain = {k: c["plain_calls"] for k, c in cv.launch_counts().items()}
+    gate_rmse = DESIGN_FACTOR * ref["jax"]["rmse_median"]
+    gate_loo = DESIGN_FACTOR * ref["jax"]["loo_rmse_median"]
+    finite = all(bool(np.isfinite(a).all()) for a in
+                 [mu, var, lm, lv, draws, *mu_l, *var_l, *scores.values()]
+                 + [nd.output for layer in m.all_layer for nd in layer]
+                 + [nd.para_path for layer in m.all_layer for nd in layer])
+    checks.update({
+        "launches": all(out["launches_update_xy"][k] > 0
+                        for k in ("block_loglik_multi_t", "cond_weights_t"))
+        and all(out["launches_per_sem_iteration"][k] > 0
+                for k in ("block_nllik_grad_parts_t", "block_loglik_multi_t",
+                          "cond_weights_t")),
+        "no_plain_calls": not any(plain.values()),
+        "n_after": m.n_data == p["n"] + p["n_add"]
+        and all(nd.NNarray.shape == (m.n_data, p["m"] + 1) for layer in m.all_layer
+                for nd in layer),
+        "finite": finite,
+        "rmse": out["rmse"] <= gate_rmse,
+        "loo_rmse": out["loo_rmse"] <= gate_loo,
+        "sampling": out["sampling_within_4se"] >= 0.99 and draws.shape == (len(z), S)
+        and S == p["emulator_N"] * DESIGN_DRAWS,
+        "full_layer": len(mu_l) == 2 and np.array_equal(mu_l[-1], mu),
+        "read_card_equal": bool(np.array_equal(mu_c, mu) and np.array_equal(var_c, var)),
+        "read_cpu_close": out["read_cpu_max_rel"] <= 1e-9,
+        "summary": out["summary_lines"] >= 6,
+    })
+    emit({"phase": "design", "n": p["n"], "n_after": int(m.n_data), "m": p["m"],
+          "N": p["emulator_N"], "n_cand": p["n_cand"], "dtype": "float64", **out,
+          "rmse_gate": gate_rmse, "loo_rmse_gate": gate_loo,
+          "rmse_jax_median": ref["jax"]["rmse_median"],
+          "loo_rmse_jax_median": ref["jax"]["loo_rmse_median"], "launches": launches,
+          "plain_calls": plain, "checks": checks, "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"design phase checks failed: {checks}")
     return launches
 
 
@@ -2075,7 +2251,7 @@ def main():
     phase_build()
     results = phase_kernels(dev)
     launches = {k: 0 for k in SOURCES}
-    for phase in (phase_main, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
+    for phase in (phase_main, phase_design, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
                   phase_linked, phase_lik_vecchia, phase_large_n):
         for k, v in phase(dev).items():
             launches[k] += v

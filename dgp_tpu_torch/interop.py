@@ -14,8 +14,9 @@ training in, the other.  The neighbour search (``nn_method``, and the IVF
 centroids that warm-start its next build, ``_ivf_cache``) comes across
 too, so a carried node searches the way it did.  A likelihood node comes
 across by its ``type`` and ``name`` with the keys of `LIK_KEYS` (a
-Categorical node's label encoder as its ``classes``).  `lgp_from_numpy` carries a whole linked
-system, every imputation's containers, the same way.
+Categorical node's label encoder as its ``classes``).  `dgp_from_numpy`
+carries a whole dgp (data, replicate wiring and layers) and `lgp_from_numpy`
+a whole linked system, every imputation's containers, the same way.
 """
 import numpy as np
 
@@ -148,6 +149,40 @@ def gp_from_numpy(model, device=None):
     self.kernel.target = 'gp'
     if not self.vecch:
         self.kernel.compute_stats()
+    return self
+
+
+def dgp_from_numpy(model, device=None):
+    """A port `dgp` carrying the state of a dgp of either package without
+    drawing anything: its data and replicate wiring, its settings
+    (``n_data, m, vecch, ord_fun, nn_method, block, N, burnin``) and its
+    layers as `node_to_numpy` gives them (latents, orderings, neighbours,
+    hyper-parameter traces), each GP node on ``device`` (default: the
+    card), with an imputer there that has not sampled."""
+    from . import config
+    from .models.dgp import dgp
+    from .models.imputation import imputer
+
+    self = dgp.__new__(dgp)
+    self.device = config.resolve_device(device)
+    dt = config.np_dtype()
+    self.X = np.asarray(model.X, dt)
+    Y = np.asarray(model.Y)
+    self.Y = Y if np.issubdtype(Y.dtype, np.integer) else np.asarray(Y, dt)
+    self.indices = None if model.indices is None else np.asarray(model.indices)
+    self.counts = None if model.counts is None else np.asarray(model.counts)
+    self.check_rep = model.check_rep
+    self.n_data, self.m, self.vecch = int(model.n_data), int(model.m), bool(model.vecch)
+    self.ord_fun, self.nn_method = model.ord_fun, model.nn_method
+    self.block, self.N, self.burnin = model.block, int(model.N), model.burnin
+    self.all_layer = layers_from_numpy(layers_to_numpy(model.all_layer))
+    self.n_layer = len(self.all_layer)
+    for layer in self.all_layer:
+        for node in layer:
+            if node.type == 'gp':
+                node.device = self.device
+                node.ord_fun = model.ord_fun
+    self.imp = imputer(self.all_layer, self.block, self.device)
     return self
 
 

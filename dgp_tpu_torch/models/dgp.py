@@ -8,11 +8,14 @@ kernel-PCA initialiser of narrowing layers, the 'ref' prior's
 coefficients, the Vecchia wiring of each node with the neighbour sets of
 the Hetero exact draw), the initial imputation (10 burn-in sweeps on the
 model's device), SEM training (`train`) with the NN refresh schedule of
-Vecchia models and restarts, `compute_r2`, `aggregate_r2` and `estimate`.
-From n >= 50000 points every GP node searches its neighbours with the IVF
-approximate search (``nn_method = 'approx'``), as in the JAX package.  Not
-ported yet: `update_xy` and `plot` (O6), and multi-device training
-(`ptrain`, ``sharded=True``; O7).
+Vecchia models and restarts, `compute_r2`, `aggregate_r2`, `estimate` and
+`plot`; new data (`update_xy`: the latents of points kept, conditional
+means at new points, the nodes re-wired at the new n and a new imputer's
+burn-in), `update_all_layer`, and the switches `to_vecchia` and
+`remove_vecchia`.  From n >= 50000 points every GP node searches its
+neighbours with the IVF approximate search (``nn_method = 'approx'``), as
+in the JAX package.  Not ported yet: multi-device training (`ptrain`,
+``sharded=True``; O7).
 """
 import copy
 import sys
@@ -604,3 +607,238 @@ class dgp:
                 node.length = np.atleast_1d(est[1:-1])
                 node.nugget = np.atleast_1d(est[-1])
         return final_struct
+
+    def plot(self, layer_no, ker_no, width=4., height=1., ticksize=5.,
+             labelsize=8., hspace=0.1):
+        """Trace plots of a GP node's hyper-parameters over the SEM
+        iterations (dgp.py:1543); needs matplotlib."""
+        import matplotlib.pyplot as plt
+        node = self.all_layer[layer_no - 1][ker_no - 1]
+        if node.type != 'gp':
+            print('There is nothing to plot for a likelihood node.')
+            return
+        n_para = node.para_path.shape[1]
+        fig, axes = plt.subplots(n_para, figsize=(width, n_para * height), dpi=100,
+                                 sharex=True)
+        fig.tight_layout()
+        fig.subplots_adjust(hspace=hspace)
+        for p in range(n_para):
+            axes[p].plot(node.para_path[:, p])
+            axes[p].tick_params(axis='both', which='major', labelsize=ticksize)
+            if p == 0:
+                axes[p].set_ylabel(r'$\sigma^2$', fontsize=labelsize)
+            elif p == n_para - 1:
+                axes[p].set_ylabel(r'$\eta$', fontsize=labelsize)
+            else:
+                axes[p].set_ylabel(r'$\gamma_{%i}$' % p, fontsize=labelsize)
+        plt.show()
+
+    # ------------------------------------------------------------------
+    # new data and structures
+    # ------------------------------------------------------------------
+    def update_all_layer(self, all_layer):
+        """Swap in an externally supplied structure (for example one trained
+        separately) with its hyper-parameters and latents, and reset the
+        training state (dgp.py:760-823): the Vecchia nodes re-wired, a new
+        imputer on the model's device and 10 burn-in sweeps."""
+        self.all_layer = all_layer
+        self.n_layer = len(all_layer)
+        for l, layer in enumerate(self.all_layer):
+            for k, node in enumerate(layer):
+                if l == self.n_layer - 1 and getattr(node, 'rep', None) is not None:
+                    self.indices = node.rep
+                if node.type != 'gp':
+                    continue
+                node.device = self.device
+                node.para_path = np.atleast_2d(
+                    np.concatenate((node.scale, node.length, node.nugget)))
+                node.D = node.input.shape[1]
+                if node.connect is not None:
+                    node.D += len(node.connect)
+                if node.vecch:
+                    self._wire_vecchia_node(l, k, node, layer)
+                if node.prior_name == 'ref':
+                    p = node.input.shape[1]
+                    if node.global_input is not None:
+                        p += node.global_input.shape[1]
+                    node.prior_coef[1] = (1 / len(node.output) ** (1 / p)
+                                          * (node.prior_coef[0] + p))
+                    node.compute_cl()
+        self.vecch = any(node.vecch for node in self._gp_nodes())
+        self.imp = imputer(self.all_layer, self.block, self.device)
+        self.imp.sample(burnin=10)
+        self.compute_r2()
+        self.N = 0
+        self.burnin = None
+
+    def _gp_nodes(self):
+        return [node for layer in self.all_layer for node in layer if node.type == 'gp']
+
+    def update_xy(self, X, Y, reset=False):
+        """Train on new data X, Y from the current state (dgp.py:824): with
+        ``reset`` from re-initialised latents and the first hyper-parameters
+        (10 burn-in sweeps); when the new inputs are a subset or a superset
+        of the old, the latents of the points kept stay and new points get
+        each node's conditional mean (50 sweeps); otherwise re-initialised
+        latents at the current hyper-parameters (200 sweeps).  A new imputer
+        on the model's device draws the burn-in."""
+        dt = config.np_dtype()
+        if isinstance(Y, list):
+            Y = Y[0]
+        if Y.ndim == 1 or X.ndim == 1:
+            raise Exception('The input and output data have to be numpy 2d-arrays.')
+        final = self.all_layer[-1][0]
+        if getattr(final, 'name', None) == 'Categorical':
+            Y = final.class_encoder.transform(np.asarray(Y).flatten()).reshape(-1, 1)
+        self.Y = Y if np.issubdtype(np.asarray(Y).dtype, np.integer) else np.asarray(Y, dt)
+        origin_X = self.X.copy()
+        self.indices = None
+        X = np.asarray(X, dt)
+        self.X = X
+        if self.check_rep:
+            X0, indices, counts = np.unique(X, return_inverse=True, return_counts=True,
+                                            axis=0)
+            if len(X0) != len(X):
+                self.X = X0
+                self.indices = indices.flatten()
+                self.counts = counts
+        self.n_data = self.X.shape[0]
+        self.m = min(self.m, self.n_data - 1)
+        if reset:
+            self.reinit_all_layer(reset_lengthscale=True)
+            burnin = 10
+        elif (self.X[:, None] == origin_X).all(-1).any(-1).all():
+            self._subset_latents(np.where((origin_X == self.X[:, None]).all(-1))[1])
+            burnin = 50
+        elif (origin_X[:, None] == self.X).all(-1).any(-1).all():
+            self._extend_latents(np.where((self.X == origin_X[:, None]).all(-1))[1])
+            burnin = 50
+        else:
+            self.reinit_all_layer(reset_lengthscale=False)
+            burnin = 200
+        self.imp = imputer(self.all_layer, self.block, self.device)
+        self.imp.sample(burnin=burnin)
+        self.compute_r2()
+
+    def _subset_latents(self, sub_idx):
+        """The new X is a subset of the old: keep the latents of its points
+        (dgp.py:1014) and re-wire the Vecchia nodes at the new n."""
+        for l in range(self.n_layer):
+            for k, node in enumerate(self.all_layer[l]):
+                if l == self.n_layer - 1:
+                    if node.type == 'gp' or node.rep is None:
+                        node.input = node.input[sub_idx, :]
+                    else:
+                        uniq = np.concatenate(
+                            [np.unique(node.input[node.rep == i, :], axis=0)
+                             for i in range(np.max(node.rep) + 1)], axis=0)
+                        node.input = uniq[sub_idx, :]
+                    if node.type != 'gp' and self.indices is not None:
+                        node.input = node.input[self.indices, :]
+                    node.rep = self.indices
+                else:
+                    node.input = node.input[sub_idx, :]
+                if node.type == 'gp' and node.connect is not None:
+                    node.global_input = self.X[:, node.connect].copy()
+                self._refresh_node_output(l, k, node, sub_idx=sub_idx)
+                if node.type == 'gp':
+                    node.m = self.m
+                    if node.vecch:
+                        self._wire_vecchia_node(l, k, node, self.all_layer[l])
+
+    def _extend_latents(self, sub_idx):
+        """The old X is a subset of the new: keep the latents of the old
+        points and give each hidden node's new points its conditional mean
+        (dgp.py:890) -- by its Vecchia prediction, or densely after
+        `compute_stats` -- then re-wire the Vecchia nodes at the new n."""
+        global_in = self.X.copy()
+        In = self.X.copy()
+        mask = np.zeros(len(self.X), bool)
+        mask[sub_idx] = True
+        for l in range(self.n_layer):
+            layer = self.all_layer[l]
+            hidden = l != self.n_layer - 1
+            if hidden:
+                Out = np.empty((len(In), len(layer)))
+            for k, node in enumerate(layer):
+                if hidden:
+                    node.m = self.m
+                    x_new = In[~mask, :][:, node.input_dim]
+                    z_new = (global_in[~mask, :][:, node.connect]
+                             if node.connect is not None else None)
+                    if not node.vecch:
+                        node.compute_stats()
+                    mu, _ = node.gp_prediction(x_new, z_new)
+                    node.input = In[:, node.input_dim].copy()
+                    Out[sub_idx, k] = node.output.flatten()
+                    Out[~mask, k] = mu
+                    node.output = Out[:, [k]].copy()
+                    if node.connect is not None:
+                        node.global_input = global_in[:, node.connect].copy()
+                    if node.vecch:
+                        self._wire_vecchia_node(l, k, node, layer)
+                    continue
+                node.rep = self.indices
+                if node.rep is None or node.type == 'gp':
+                    node.input = In[:, node.input_dim].copy()
+                else:
+                    node.input = In[node.rep, :][:, node.input_dim].copy()
+                if node.type == 'gp' and node.connect is not None:
+                    node.global_input = global_in[:, node.connect].copy()
+                self._refresh_node_output(l, k, node)
+                if node.type == 'gp':
+                    node.m = self.m
+                    if node.vecch:
+                        self._wire_vecchia_node(l, k, node, layer)
+            if hidden:
+                In = Out.copy()
+
+    def _refresh_node_output(self, l, k, node, sub_idx=None):
+        """A node's output after new data: the final layer's from Y (means
+        over replicates, with their weights and residual sum), a hidden
+        node's latents at ``sub_idx``."""
+        dt = config.np_dtype()
+        if l == self.n_layer - 1:
+            Ycol = self.Y[:, [k]]
+            if node.type == 'likelihood':
+                node.output = np.asarray(Ycol).copy()
+            elif node.rep is None:
+                node.output = np.asarray(Ycol, dt).copy()
+                node.W_diag = None
+                node.sum_residual = None
+            else:
+                NN = node.rep.max() + 1
+                sum_y = np.bincount(node.rep, weights=np.asarray(Ycol, dt).flatten(),
+                                    minlength=NN)
+                node.W_diag = 1.0 / np.bincount(node.rep, minlength=NN)
+                node.output = (sum_y * node.W_diag).reshape(-1, 1)
+                residual = np.asarray(Ycol, dt) - node.output[node.rep, :]
+                node.sum_residual = (residual.T @ residual).flatten()
+        elif sub_idx is not None:
+            node.output = node.output[sub_idx, :].copy()
+        if node.type == 'gp' and node.prior_name == 'ref':
+            node.compute_cl()
+
+    def to_vecchia(self, m=25, ord_fun=None):
+        """Switch every GP node to the Vecchia approximation with m
+        neighbours (dgp.py:950): orderings and neighbours built, a new
+        imputer."""
+        if self.vecch:
+            raise Exception('The DGP structure is already in Vecchia mode.')
+        self.vecch = True
+        self.m = min(m, self.n_data - 1)
+        self.ord_fun = ord_fun
+        for node in self._gp_nodes():
+            node.vecch, node.m, node.ord_fun = True, self.m, ord_fun
+        self.imp = imputer(self.all_layer, self.block, self.device)
+        self.imp.update_ord_nn()
+
+    def remove_vecchia(self):
+        """Switch every GP node back to dense computation (dgp.py:963), with
+        a new imputer."""
+        if not self.vecch:
+            raise Exception('The DGP structure is already in non-Vecchia mode.')
+        self.vecch = False
+        for node in self._gp_nodes():
+            node.vecch = False
+        self.imp = imputer(self.all_layer, self.block, self.device)

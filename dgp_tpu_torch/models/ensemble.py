@@ -10,9 +10,13 @@ dense inverse once for all chunks; deeper layers work on each imputation's
 own latent inputs, and a dense node's inverses, one per imputation, are
 also computed once.  A dense linked layer holds (n, n) second moments per
 query; `gp_core.linkgp_predict` takes a chunk's queries in batches that fit
-its memory budget.  Likelihood nodes may sit in the final layer: the ensemble
-propagates the GP nodes only, and the emulator applies the likelihood's
-closed-form moments on the host.
+its memory budget.  Queries go in chunks of `_CHUNK`, or fewer where one
+query's Vecchia blocks are large (a dense emulator's LOO conditions each
+point on all n - 1 others): as many as keep the blocks' temporaries within
+`QUERY_BUDGET` (`query_batch`); no result depends on the chunk size.
+Likelihood nodes may sit in the final layer: the ensemble propagates the GP
+nodes only, and the emulator applies the likelihood's closed-form moments
+on the host.
 
 A Vecchia node whose ``nn_method`` is 'approx' (at more than 4 * 256
 training points) searches its prediction neighbours through an IVF index
@@ -27,6 +31,8 @@ from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
 
 _CHUNK = 2048
+#: bytes of Vecchia block temporaries that one chunk of queries may hold
+QUERY_BUDGET = 1 << 30
 
 
 def supported(all_layer_set):
@@ -109,9 +115,12 @@ class CompiledEnsemble:
                 if nd is not None and not nd['vecch']:
                     nd['Rinv'], nd['Rinv_y'] = self._dense_stats(l, nd, self.y_stack[l][k])
         self._build_ivf()
+        #: each GP node's mode, in layer order: the emulator rebuilds the
+        #: ensemble when its nodes' modes no longer match
+        self.vecch_sig = tuple(nd['vecch'] for layer in self.spec for nd in layer
+                               if nd is not None)
         # only Vecchia nodes take the extra diagonal of the jitter retry
-        self._any_vecch = any(nd['vecch'] for layer in self.spec for nd in layer
-                              if nd is not None)
+        self._any_vecch = any(self.vecch_sig)
 
     def _build_ivf(self):
         """IVF indices (centroids, inverted lists) of the approximate-NN
@@ -232,6 +241,22 @@ class CompiledEnsemble:
             in_mean, in_var = means[l], vars_[l]
         return means, vars_
 
+    def query_batch(self, m_pred):
+        """Queries per chunk at ``m_pred`` neighbours: `_CHUNK`, or as many
+        as keep one node's (m+1, m+1) blocks and their temporaries (the
+        kernel's (m+1, m+1, D) differences among them; the imputations run
+        one after another) within `QUERY_BUDGET`, at least one."""
+        item = torch.finfo(self.dtype).bits // 8
+        per_q = 1
+        for l in range(self.n_layer):
+            for k, nd in enumerate(self.spec[l]):
+                if nd is None or not nd['vecch']:
+                    continue
+                m1 = min(m_pred, self.y_stack[l][k].shape[1]) + 1
+                D = len(nd['input_dim']) + len(nd['connect'] or ())
+                per_q = max(per_q, (8 + 4 * D) * m1 * m1 * item)
+        return int(min(_CHUNK, max(1, QUERY_BUDGET // per_q)))
+
     def propagate(self, x, m_pred, loo=False):
         """Run the ensemble through all layers.  Returns (means, vars): per
         layer an (N, M, width) numpy array, or for a final layer that holds
@@ -240,8 +265,9 @@ class CompiledEnsemble:
         M = x.shape[0]
         means = [[] for _ in range(self.n_layer)]
         vars_ = [[] for _ in range(self.n_layer)]
-        for s in range(0, M, _CHUNK):
-            xc = x[s:s + _CHUNK]
+        chunk = self.query_batch(m_pred)
+        for s in range(0, M, chunk):
+            xc = x[s:s + chunk]
             mc, vc = self._chunk(xc, m_pred, loo, 0.0)
             # jitter escalation for chunks whose Vecchia blocks factorised
             # non-finite; keep the healthy entries

@@ -1,12 +1,249 @@
-"""Host-side helpers of the model classes; the counterpart of the parts of
-`dgp_tpu/utils.py` the port needs so far: the latent initialisers of
-narrowing layers (sigmoid-kernel PCA, exact and Nystrom), the label
-encoder of the Categorical likelihood and the nested-list shape check of
-`lgp.set_vecchia`.  The exact kernel PCA and the
-encoder stand in for scikit-learn's `KernelPCA(kernel='sigmoid')` and
-`LabelEncoder`, which the JAX package imports.
+"""Persistence, summaries, thread shims and host-side helpers of the model
+classes; the counterpart of `dgp_tpu/utils.py`.
+
+`write`/`read` persist a gp, dgp, emulator, container or lgp with pickle:
+the object graph is numpy and plain values once the engines and tensor
+caches (an imputer's ``_compiled``, an emulator's ``_ens``) are taken off,
+so a file written on the card loads on a machine without one; `read` puts
+the objects on the device it is given.  `summary` prints the JAX package's
+tables with a small table printer of its own (the JAX package uses
+`tabulate`).  Also the latent initialisers of narrowing layers
+(sigmoid-kernel PCA, exact and Nystrom), the label encoder of the
+Categorical likelihood and the nested-list shape check of
+`lgp.set_vecchia`; the exact kernel PCA and the encoder stand in for
+scikit-learn's `KernelPCA(kernel='sigmoid')` and `LabelEncoder`, which the
+JAX package imports.
 """
+import pickle
+
 import numpy as np
+import torch
+
+from . import config
+
+#: attributes that hold an engine or tensors built from the rest of the
+#: object, rebuilt on demand
+_CACHES = ('_compiled', '_ens')
+
+
+# ----------------------------------------------------------------------
+# persistence
+# ----------------------------------------------------------------------
+def _walk(obj):
+    """Every object reachable from obj through attributes, lists, tuples
+    and dict values, once each."""
+    seen, stack = set(), [obj]
+    while stack:
+        o = stack.pop()
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif hasattr(o, '__dict__') and not isinstance(o, type):
+            yield o
+            stack.extend(o.__dict__.values())
+
+
+class _Pickler(pickle.Pickler):
+    def persistent_id(self, obj):
+        if isinstance(obj, torch.Tensor):
+            raise TypeError("write: the object still holds a torch.Tensor; only "
+                            "numpy state is saved")
+        return None
+
+
+def write(emu, pkl_file):
+    """Save a gp, dgp, emulator, container or lgp to ``<pkl_file>.pkl``
+    (utils.py:18), without its engines and tensor caches, which are put
+    back afterwards."""
+    stripped = []
+    for o in _walk(emu):
+        for attr in _CACHES:
+            if o.__dict__.get(attr) is not None:
+                stripped.append((o, attr, o.__dict__[attr]))
+                setattr(o, attr, None)
+    try:
+        with open(pkl_file + ".pkl", "wb") as f:
+            _Pickler(f).dump(emu)
+    finally:
+        for o, attr, value in stripped:
+            setattr(o, attr, value)
+
+
+def read(pkl_file, device=None):
+    """Load an object saved by `write` (utils.py:30) with every part of it
+    on ``device`` (default: the card)."""
+    dev = config.resolve_device(device)
+    with open(pkl_file + ".pkl", "rb") as f:
+        obj = pickle.load(f)
+    for o in _walk(obj):
+        if 'device' in o.__dict__:
+            o.device = dev
+    return obj
+
+
+# ----------------------------------------------------------------------
+# thread API parity
+# ----------------------------------------------------------------------
+_thread_count = 1
+
+
+def get_thread():
+    """Thread-count parity shim (reference utils.get_thread)."""
+    return _thread_count
+
+
+def set_thread(value):
+    """Thread-count parity shim (reference utils.set_thread): recorded for
+    API compatibility; the device runs the parallel work."""
+    global _thread_count
+    _thread_count = int(value)
+
+
+# ----------------------------------------------------------------------
+# summary tables
+# ----------------------------------------------------------------------
+_FORMATS = {
+    # top, header rule, row rule, bottom: (left, fill, join, right); bar
+    'fancy_grid': (('╒', '═', '╤', '╕'), ('╞', '═', '╪', '╡'),
+                   ('├', '─', '┼', '┤'), ('╘', '═', '╧', '╛'), '│'),
+    'grid': (('+', '-', '+', '+'), ('+', '=', '+', '+'), ('+', '-', '+', '+'),
+             ('+', '-', '+', '+'), '|'),
+}
+
+
+def _table(info, tablefmt='fancy_grid'):
+    """The rows of ``info`` (the first the header) as a grid of
+    left-aligned cells; a cell may hold several lines."""
+    if tablefmt not in _FORMATS:
+        raise ValueError(f"tablefmt must be one of {sorted(_FORMATS)}")
+    top, head, rule, bottom, bar = _FORMATS[tablefmt]
+    cells = [[str(c).split('\n') for c in row] for row in info]
+    widths = [max(len(line) for row in cells for line in row[j])
+              for j in range(len(info[0]))]
+
+    def border(b):
+        return b[0] + b[2].join(b[1] * (w + 2) for w in widths) + b[3]
+
+    def lines(row):
+        h = max(len(c) for c in row)
+        return [bar + bar.join(f" {(c[i] if i < len(c) else ''):<{w}} "
+                               for c, w in zip(row, widths)) + bar for i in range(h)]
+
+    out = [border(top)] + lines(cells[0]) + [border(head)]
+    for i, row in enumerate(cells[1:]):
+        if i:
+            out.append(border(rule))
+        out += lines(row)
+    return '\n'.join(out + [border(bottom)])
+
+
+def _fmt(x, fixed=False):
+    s = np.array2string(np.atleast_1d(x)[0], precision=3, floatmode='fixed')
+    return f"{s} (fixed)" if fixed else s
+
+
+def _lengths(x):
+    return np.array2string(x, precision=3, floatmode='fixed', separator=', ')
+
+
+def summary_rows(obj):
+    """(rows, notes) of `summary`: the table's rows, the header first, and
+    the lines printed under it (utils.py:101-198); None for a trained dgp,
+    which is summarised through its emulator."""
+    name = type(obj).__name__
+    if name == 'kernel':
+        return [['Kernel Fun', 'Length-scale(s)', 'Variance', 'Nugget'],
+                ['Squared-Exp' if obj.name == 'sexp' else 'Matern-2.5', _lengths(obj.length),
+                 _fmt(obj.scale, not obj.scale_est),
+                 _fmt(obj.nugget, not obj.nugget_est)]], []
+    if name == 'gp':
+        k = obj.kernel
+        dims = (np.array2string(k.input_dim + 1, separator=', ') if k.connect is None
+                else np.array2string(np.concatenate((k.input_dim + 1, k.connect + 1)),
+                                     separator=', '))
+        return ([['Kernel Fun', 'Length-scale(s)', 'Variance', 'Nugget', 'Input Dims'],
+                 ['Squared-Exp' if k.name == 'sexp' else 'Matern-2.5', _lengths(k.length),
+                  _fmt(k.scale, not k.scale_est), _fmt(k.nugget, not k.nugget_est), dims]],
+                ["'Input Dims' indicates the dimensions (i.e., column indices) of "
+                 "your input data that are used for GP emulator training."])
+    if name in ('dgp', 'emulator'):
+        if name == 'dgp' and obj.N != 0:
+            return None
+        info = [['Layer No.', 'Node No.', 'Type', 'Length-scale(s)', 'Variance',
+                 'Nugget', 'Input Dims', 'Global Connection']]
+        for l, layer in enumerate(obj.all_layer):
+            for k, nd in enumerate(layer):
+                is_lik = nd.type == 'likelihood'
+                t = ('GP (Squared-Exp)' if nd.name == 'sexp'
+                     else 'GP (Matern-2.5)' if nd.name == 'matern2.5'
+                     else f'Likelihood ({nd.name})')
+                dims = np.array2string(np.asarray(nd.input_dim) + 1, separator=', ')
+                if l == 0 and not is_lik and nd.connect is not None:
+                    dims = np.array2string(np.concatenate((nd.input_dim + 1,
+                                                           nd.connect + 1)), separator=', ')
+                conn = ('NA' if is_lik else 'No' if l == 0
+                        else np.array2string(nd.connect + 1, separator=', ')
+                        if nd.connect is not None else 'No')
+                info.append([f'Layer {l+1}', f'Node {k+1}', t,
+                             'NA' if is_lik else _lengths(nd.length),
+                             'NA' if is_lik else _fmt(nd.scale, not nd.scale_est),
+                             'NA' if is_lik else _fmt(nd.nugget, not nd.nugget_est),
+                             dims, conn])
+        return info, ["1. 'Input Dims' presents the indices of GP nodes in the feeding "
+                      "layer whose outputs feed into the GP node.",
+                      "2. 'Global Connection' indicates the dimensions (i.e., column "
+                      "indices) of the global input data used as additional inputs."]
+    if name == 'lgp':
+        all_layer = obj.all_layer
+        info = [['Layer No.', 'Emulator No.', 'Type', 'Connection', 'External Inputs']]
+        for l, layer in enumerate(all_layer):
+            for k, cont in enumerate(layer):
+                if l == 0:
+                    links = ("Global input: " + np.array2string(
+                        np.asarray(cont.local_input_idx) + 1, separator=', '))
+                    external = 'No'
+                else:
+                    local_input_idx = (cont.local_input_idx
+                                       if isinstance(cont.local_input_idx, list)
+                                       else [None] * (l - 1) + [cont.local_input_idx])
+                    links = ''
+                    for i, idx in enumerate(local_input_idx):
+                        if idx is None:
+                            continue
+                        emu_idx, out_idx = [], []
+                        for cnt, feeding in enumerate(all_layer[i]):
+                            n = 1 if feeding.type == 'gp' else len(feeding.structure[-1])
+                            emu_idx += [cnt] * n
+                            out_idx += list(range(n))
+                        for j in np.atleast_1d(idx):
+                            links += (f"Emu {emu_idx[j]+1} in Layer {i+1}: "
+                                      f"output {out_idx[j]+1}\n")
+                    first = cont.structure if cont.type == 'gp' else cont.structure[0][0]
+                    external = 'No' if first.connect is None else 'Yes'
+                info.append([f'Layer {l+1}', f'Emu {k+1}',
+                             'DGP' if cont.type == 'dgp' else 'GP', links, external])
+        return info, ["1. 'Connection' gives the emulators and output dimensions linked "
+                      "to each emulator.",
+                      "2. 'External Inputs' indicates whether the emulator has inputs "
+                      "not provided by feeding emulators."]
+    raise ValueError(f"summary: no table for a {name}")
+
+
+def summary(obj, tablefmt='fancy_grid'):
+    """Print the table of a kernel, gp, dgp, emulator or lgp (utils.py:69):
+    hyper-parameters and wiring of each node or emulator."""
+    rows = summary_rows(obj)
+    if rows is None:
+        print('To summarise a trained DGP, construct an emulator() and summary() it.')
+        return
+    info, notes = rows
+    print(_table(info, tablefmt))
+    for line in notes:
+        print(line)
 
 
 class LabelEncoder:

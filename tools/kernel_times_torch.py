@@ -19,10 +19,13 @@ torch.profiler (mean over 20 calls), and the same for
 torch.linalg.cholesky_ex of the same blocks.  Prints the card's name and
 power limit, then one JSON line.  Usage, from the repository root:
 
-    python3 tools/kernel_times_torch.py [CHECKOUT] [LABEL]
+    python3 tools/kernel_times_torch.py [CHECKOUT] [LABEL] [--large]
 
 CHECKOUT (default: this repository) is the root of a checkout whose
-dgp_tpu_torch is timed; it must take chip_smoke.py's inputs.
+dgp_tpu_torch is timed; it must take chip_smoke.py's inputs.  With
+``--large`` it times, instead, the four kernels at chip_smoke.py's n = 1e5
+cases (its `_large_inputs`: the large_n phase's data and IVF neighbours),
+in float64.
 """
 import functools
 import importlib.util
@@ -50,6 +53,11 @@ CASES = (("block_nllik_grad_parts_t", "block_nllik_grad_parts_t",
          ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/gp",
           {"n_length": 1, "nugget_est": True}),
          ("block_loglik_parts_t", "block_loglik_parts_t/gp", {}))
+LARGE_CASES = (("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/n1e5",
+                {"n_length": 2, "nugget_est": True}),
+               ("block_loglik_multi_t", "block_loglik_multi_t/n1e5", {"dl": 1}),
+               ("cond_weights_t", "cond_weights_t/n1e5", {}),
+               ("block_loglik_parts_t", "block_loglik_parts_t/n1e5", {}))
 
 
 def device_ms(fn, symbol=None, reps=20):
@@ -84,8 +92,10 @@ def main():
     if not torch.cuda.is_available():
         print("kernel_times_torch: CUDA is not available", file=sys.stderr)
         return 1
-    checkout = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT
-    label = sys.argv[2] if len(sys.argv) > 2 else str(checkout)
+    large = "--large" in sys.argv
+    args = [a for a in sys.argv[1:] if a != "--large"]
+    checkout = Path(args[0]).resolve() if args else ROOT
+    label = args[1] if len(args) > 1 else str(checkout)
     sys.path.insert(0, str(checkout))
     spec = importlib.util.spec_from_file_location("chip_smoke_inputs", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -100,10 +110,10 @@ def main():
     dev = torch.device("cuda", 0)
     cv.build()
     calls = {}
-    for dt in (torch.float64, torch.float32):
+    for dt in (torch.float64,) if large else (torch.float64, torch.float32):
         dname = str(dt).split(".")[1]
-        ins = cs._slice_inputs(dt, dev, cs.NUGGET_BENCH)
-        for kname, case, kw in CASES:
+        ins = (cs._large_inputs if large else cs._slice_inputs)(dt, dev, cs.NUGGET_BENCH)
+        for kname, case, kw in LARGE_CASES if large else CASES:
             args = ins[case]
             blocks = cs._blocks_of(kname, args)
             dense = [a.contiguous() for a in args]
@@ -116,7 +126,7 @@ def main():
         # chip_smoke.py's timed cases beyond the main path (blocks of two
         # rows per lane, K1 with 12 length lanes), where this checkout's
         # kernels take them
-        for kname, shape in cs.VARIANT_TIMES:
+        for kname, shape in () if large else cs.VARIANT_TIMES:
             kw = cs._edge_kw(kname, shape, "sexp")
             args = [torch.as_tensor(a, dtype=dt, device=dev)
                     for a in cs._edge_inputs(kname, shape, 0)]
