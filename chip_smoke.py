@@ -111,16 +111,38 @@ Phases, each printing its results (and its seconds) as one JSON line:
             kernels, at one row per lane and at two (m1 = 33, 48, 64: the
             last d inside and a launch plan that fails one d beyond, where
             the gate says no); then bench.py's Vecchia DGP at m=64 (m1 = 65,
-            outside the kernels' bound), which must be refused on the card
-            with NotImplementedError, nothing launched and no plain version
-            run in a kernel's place; then the same at m=40 (m1 = 41, two
-            rows per lane): construction, 4 SEM iterations, emulator(N=2)
-            and predict.  Fails unless K1, K2 and K3 were launched, no plain
-            version ran, the angle evaluator applies and the upper
-            log-likelihood of the trained state agrees with the same call on
-            a CPU engine to rtol 1e-9.  Last a Vecchia gp on 12 inputs with
-            12 lengthscales (n=300), trained on the card (K1 takes its 12
-            length lanes) and on the CPU: the parameters agree to rtol 1e-6.
+            outside the kernels' bound), which runs through the large-block
+            route of vecchia.core (the JAX package's XLA branch):
+            construction, 4 SEM iterations, emulator(N=2) and predict on
+            1000 points, with route calls for K1, K3 and K4, no kernel
+            launched and no plain version run, and the upper log-likelihood
+            of the trained state within rtol 1e-9 of a CPU engine carrying
+            the same state; a wrapper called directly at m1 = 65 must still
+            raise NotImplementedError on the card; the route's log-likelihood,
+            conditional weights and M-step objective are timed at n=2000 for
+            m = 64 and 100.  Then the same model at m=40 (m1 = 41, two rows
+            per lane): construction, 4 SEM iterations, emulator(N=2) and
+            predict.  Fails unless K1, K2 and K3 were launched, no plain
+            version ran, the route was not taken, the angle evaluator
+            applies and the upper log-likelihood of the trained state
+            agrees with the same call on a CPU engine to rtol 1e-9.  Last a
+            Vecchia gp on 12 inputs with 12 lengthscales (n=300), trained on
+            the card (K1 takes its 12 length lanes) and on the CPU: the
+            parameters agree to rtol 1e-6.
+  parallel  O7 on the main path's model and data (n=2000, m=25, the JSON's
+            hyper-parameters) on the card's one-device mesh: ptrain(N=16)
+            of a model built with device='cuda', whose mesh must be the
+            card once, against a twin's train(N=16) on cuda:0 from the same
+            nb_seed (the hyper-parameter paths and latents equal bit for
+            bit, the same K1, K2 and K3 launches per iteration); the p*
+            methods are aliases of the plain calls: emulator(N=5)'s ppredict
+            on 20000 points at m=50, ploo at m=30 and pmetric (ALM on 1000
+            candidates) equal to predict, loo and metric bit for bit; the gp
+            phase's dense gp, ppredict on 20000 points and pmetric (MICE);
+            the linked phase's system at its first seed, lgp.ppredict on 200
+            points; multistart on Branin from 64 starts, one batched L-BFGS
+            on the card, which must raise no RuntimeWarning (the scipy path)
+            and find a value below 0.5.
   linked    linked emulation at the main path's width, under the protocol
             of dgp_tpu_torch/data/linked_n2000.json (written by
             tools/make_torch_params.py linked with the JAX package): the
@@ -244,6 +266,12 @@ GATE_ITERS = 4
 # lengthscales
 GATE_M, GATE_M_OUTSIDE = 40, 64
 GATE_RTOL = 1e-9
+# the large-block route (blocks outside the kernels' bound) timed at n=2000
+ROUTE_TIMED_M = (64, 100)
+# parallel: ptrain against train, the p* methods on the main path's model;
+# multistart's starts and its bar on Branin (minimum 0.398)
+PARALLEL_ITERS, MULTISTART_STARTS, BRANIN_BAR = 16, 64, 0.5
+PARALLEL_LGP_POINTS = 200
 GATE_GP_N, GATE_GP_D, GATE_GP_SEED = 300, 12, 5
 N_PRED = 20000
 # design: the metric scores on the card against the same imputations on the
@@ -1546,32 +1574,100 @@ def gate_gp_data():
     return X, Y
 
 
+def _upper_loglik(m, dev):
+    """The upper log-likelihood of a trained model's state on the card and
+    on a CPU engine carrying the same state."""
+    from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
+    from dgp_tpu_torch.models.compiled import CompiledDGP
+    lls = []
+    for device in (dev, "cpu"):
+        eng = CompiledDGP(layers_from_numpy(layers_to_numpy(m.all_layer)), device=device)
+        lat, par = eng.get_state()
+        lls.append(float(eng._upper_loglik(0, lat, par, eng.get_nn_state())))
+    return lls
+
+
+def _route_times(dev, X, Y):
+    """Milliseconds per call of the large-block route at n = 2000 on the
+    main path's data (ordered by a fixed permutation, exact neighbours of
+    the inputs scaled by bench.py's lengthscale 0.5, nugget 1e-4): the
+    log-likelihood (K4's bound), the conditional weights (K3's) and the
+    M-step objective with its gradient (K1's), at each m of
+    ROUTE_TIMED_M."""
+    import torch
+    from dgp_tpu_torch.vecchia import core as vcore
+    from dgp_tpu_torch.vecchia import nn as vnn
+    o = np.random.RandomState(0).permutation(N_TRAIN)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Xo, yo = torch.as_tensor(X[o], **f64), torch.as_tensor(Y[o, 0], **f64)
+    length, nugget = torch.tensor([0.5], **f64), 1e-4
+    nd = torch.ones(N_TRAIN, **f64)
+    lt = torch.log(torch.tensor([0.5, nugget], **f64))
+    out = {}
+    for m in ROUTE_TIMED_M:
+        NN = torch.as_tensor(vnn.nn(X[o] / 0.5, m, device=dev), device=dev)
+        kw = dict(name="sexp", n_length=1, scale_est=True, nugget_est=True,
+                  fixed_scale=1.0, fixed_nugget=nugget, n_orig=N_TRAIN, sum_residual=None)
+        calls = {
+            "K4_vecchia_llik": lambda: vcore.vecchia_llik(Xo, yo, NN, 1.0, length, nugget,
+                                                          nd, "sexp"),
+            "K3_cond_weights": lambda: vcore.cond_weights(Xo, NN, length, nugget, "sexp"),
+            "K1_vecchia_nllik_fg": lambda: vcore.vecchia_nllik_fg(lt, Xo, yo, NN, nd, **kw),
+        }
+        vcore.reset_route_counts()
+        out[f"m{m}"] = {k: cuda_ms(fn, reps=5, warm=1, inner=2) for k, fn in calls.items()}
+        out[f"m{m}"]["route_calls"] = vcore.route_counts()
+        out[f"m{m}"]["calls_each"] = 1 + 5 * 2
+    return out
+
+
 def phase_gate(dev):
     import torch
     from dgp_tpu_torch import dgp, emulator, gp, kernel, nb_seed
-    from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
-    from dgp_tpu_torch.models.compiled import CompiledDGP
     from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.vecchia import core as vcore
 
     t_phase = time.perf_counter()
     formula_rows, formula_ok = _gate_formula_rows(torch, cv)
     X, Y = bench_data()
     z = np.linspace(-1, 1, 1000).reshape(-1, 1)
-    # outside the bound (m1 = 65): refused on the card, by the first wrapper
-    # the construction reaches, with nothing launched and nothing run plain
+    # outside the bound (m1 = 65): the large-block route of vecchia.core, as
+    # dgp_tpu's XLA branch; no kernel launched and no plain version run
     nb_seed(123)
     cv.reset_launch_counts()
+    vcore.reset_route_counts()
+    t0 = time.perf_counter()
+    mo = dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M_OUTSIDE, device=dev)
+    mo.train(N=GATE_ITERS, disable=True, chunk_size=16)
+    mu_o, var_o = emulator(mo.estimate(), N=2, device=dev).predict(z, m=50)
+    torch.cuda.synchronize()
+    seconds_o = time.perf_counter() - t0
+    counts_o, routes_o = cv.launch_counts(), vcore.route_counts()
+    lls_o = _upper_loglik(mo, dev)
+    # a wrapper called directly outside its bound still refuses on the card
+    rs = np.random.RandomState(0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Xg = torch.as_tensor(rs.rand(GATE_M_OUTSIDE + 1, 2, 8), **f64)
+    yg = torch.as_tensor(rs.rand(GATE_M_OUTSIDE + 1, 8), **f64)
     try:
-        dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M_OUTSIDE, device=dev)
+        cv.block_loglik_parts_t(Xg, yg, 1.1 + 0 * yg, name="sexp")
         refusal = None
     except NotImplementedError as e:
         refusal = str(e)
-    outside = {"refusal": refusal, "counts": cv.launch_counts(),
+    outside = {"seconds": seconds_o, "counts": counts_o, "route_calls": routes_o,
                "use_kernel": {kid: cv.use_kernel(kid, GATE_M_OUTSIDE + 1, 2)
-                              for kid in cv.KERNEL_ID.values()}}
+                              for kid in cv.KERNEL_ID.values()},
+               "upper_loglik_card": lls_o[0], "upper_loglik_cpu": lls_o[1],
+               "rmse": float(np.sqrt(np.mean((mu_o - func(z)) ** 2))),
+               "finite": bool(np.isfinite(mu_o).all() and np.isfinite(var_o).all()
+                              and all(np.isfinite(nd.para_path).all()
+                                      for layer in mo.all_layer for nd in layer)),
+               "wrapper_refusal": refusal,
+               "route_ms_n2000": _route_times(dev, X, Y)}
     # m = 40 (m1 = 41): two rows per lane, through the kernels
     nb_seed(123)
     cv.reset_launch_counts()
+    vcore.reset_route_counts()
     t0 = time.perf_counter()
     m = dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M, device=dev)
     m.train(N=GATE_ITERS, disable=True, chunk_size=16)
@@ -1580,14 +1676,9 @@ def phase_gate(dev):
     seconds = time.perf_counter() - t0
     counts = cv.launch_counts()
     launches = {k: c["launches"] for k, c in counts.items()}
-    # the trained state's upper log-likelihood, on the card and on a CPU
-    # engine carrying the same state
-    lls = []
-    for device in (dev, "cpu"):
-        eng = CompiledDGP(layers_from_numpy(layers_to_numpy(m.all_layer)), device=device)
-        lat, par = eng.get_state()
-        lls.append(float(eng._upper_loglik(0, lat, par, eng.get_nn_state())))
-    inside = {"launches": launches, "seconds": seconds,
+    routes_in = vcore.route_counts()
+    lls = _upper_loglik(m, dev)
+    inside = {"launches": launches, "seconds": seconds, "route_calls": routes_in,
               "plain_calls": {k: c["plain_calls"] for k, c in counts.items()},
               "angle_applicable": m.imp._engine()._angle_applicable(0),
               "upper_loglik_card": lls[0], "upper_loglik_cpu": lls[1],
@@ -1614,10 +1705,18 @@ def phase_gate(dev):
     gcard, gcpu = gps[str(dev)], gps["cpu"]
     checks = {
         "shared_bytes_formula": formula_ok,
-        "outside_refused": refusal is not None and f"m1={GATE_M_OUTSIDE + 1}" in refusal
-        and not any(outside["use_kernel"].values()),
-        "outside_nothing_ran": all(c == {"launches": 0, "plain_calls": 0}
-                                   for c in outside["counts"].values()),
+        "outside_route": not any(outside["use_kernel"].values())
+        and all(routes_o[k] > 0 for k in ("K1", "K3", "K4")),
+        "outside_no_kernel_no_plain": all(c == {"launches": 0, "plain_calls": 0}
+                                          for c in counts_o.values()),
+        "outside_loglik_card_vs_cpu": bool(np.isclose(lls_o[0], lls_o[1], rtol=GATE_RTOL,
+                                                      atol=0.0)),
+        "outside_finite": outside["finite"],
+        "outside_wrapper_refused": refusal is not None
+        and f"m1={GATE_M_OUTSIDE + 1}" in refusal,
+        "route_timed": all(v["route_calls"] == {k: v["calls_each"] for k in ("K1", "K3", "K4")}
+                           for v in outside["route_ms_n2000"].values()),
+        "inside_no_route": not any(routes_in.values()),
         "inside_launches": inside["angle_applicable"] and all(
             launches[k] > 0 for k in ("block_nllik_grad_parts_t",
                                       "block_loglik_multi_t", "cond_weights_t")),
@@ -1635,6 +1734,144 @@ def phase_gate(dev):
           "checks": checks, "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"gate phase checks failed: {checks}")
+    return launches
+
+
+def _branin_torch(x2d):
+    """Branin as a torch objective for multistart (its negative; minimum
+    0.397887)."""
+    import torch
+    x, y = x2d[:, 0], x2d[:, 1]
+    a, b, c, r, s, t = 1, 5.1 / (4 * np.pi**2), 5 / np.pi, 6, 10, 1 / (8 * np.pi)
+    val = a * (y - b * x**2 + c * x - r) ** 2 + s * (1 - t) * torch.cos(x) + s
+    return (-val).reshape(-1, 1)
+
+
+def phase_parallel(dev):
+    import warnings
+    import torch
+    from dgp_tpu_torch import (container, dgp, emulator, gp, kernel, layers_from_numpy,
+                               lgp, nb_seed, utils)
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    params = _params_json()
+    X, Y = bench_data()
+    # a model built with device='cuda' (no index) has the one card's mesh
+    mesh = pmesh.model_mesh("cuda")
+    cv.reset_launch_counts()
+
+    def same(a, b):
+        return all(np.array_equal(u, v) for u, v in zip(a, b))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ptrain (device='cuda') against a twin's train (cuda:0) from the same
+    # nb_seed
+    runs = {}
+    for how, where in (("ptrain", "cuda"), ("train", dev)):
+        nb_seed(123)
+        m = dgp(X, Y, layers_from_numpy(params["layers"]), vecchia=True, m=M_TRAIN,
+                device=where)
+        before = launch_counts()
+        _, t = timed(lambda: getattr(m, how)(N=PARALLEL_ITERS, disable=True))
+        runs[how] = {"model": m, "seconds": t,
+                     "per_iteration": {k: (v - before[k]) / PARALLEL_ITERS
+                                       for k, v in launch_counts().items()}}
+    mp, mt = runs["ptrain"]["model"], runs["train"]["model"]
+    ptrain_equal = all(np.array_equal(a.para_path, b.para_path)
+                       and np.array_equal(a.output, b.output)
+                       for la, lb in zip(mp.all_layer, mt.all_layer) for a, b in zip(la, lb))
+    # the emulator's p* methods against the one-device calls
+    nb_seed(123)
+    emu = emulator(mp.estimate(), N=5, device=dev)
+    zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
+    cand = np.random.RandomState(7).uniform(-1, 1, (1000, 1))
+    emu.predict(zp[:10], m=50)                   # builds the ensemble
+    pp, t_pp = timed(lambda: emu.ppredict(zp, m=50))
+    p1, t_p1 = timed(lambda: emu.predict(zp, m=50))
+    pl, t_pl = timed(lambda: emu.ploo(mp.X, m=30))
+    l1, t_l1 = timed(lambda: emu.loo(mp.X, m=30))
+    pm, t_pm = timed(lambda: emu.pmetric(cand, method="ALM", score_only=True))
+    m1, t_m1 = timed(lambda: emu.metric(cand, method="ALM", score_only=True))
+    emulator_rows = {"ppredict_20000_s": t_pp, "predict_20000_s": t_p1, "ploo_s": t_pl,
+                     "loo_s": t_l1, "pmetric_alm_s": t_pm, "metric_alm_s": t_m1}
+    # the gp phase's dense gp
+    ref = _data_json("gp_n2000.json")["protocol"]
+    g = gp(X, Y, kernel(length=np.array([ref["length"]]), name=ref["kernel"],
+                        nugget=ref["nugget"], scale_est=ref["scale_est"],
+                        nugget_est=ref["nugget_est"]), device=dev)
+    g.train()
+    g.predict(zp[:10])                           # first-call work out of the timing
+    gpp, t_gpp = timed(lambda: g.ppredict(zp))
+    gp1, t_gp1 = timed(lambda: g.predict(zp))
+    gpm = g.pmetric(cand, method="MICE", score_only=True)
+    gm1 = g.metric(cand, method="MICE", score_only=True)
+    # lgp on the linked phase's system, one seed
+    lref = _data_json("linked_n2000.json")
+    lp = lref["protocol"]
+    X1, Y1, X2, Y2 = linked_data(lp)
+    np.random.seed(lp["gp_ord_seed"])
+    g1 = gp(X1, Y1, kernel(length=np.array([lp["gp_length"]]), name=lp["gp_kernel"],
+                           scale_est=True, nugget_est=True), vecchia=True, m=lp["m"],
+            device=dev)
+    g1.train()
+    seed = lp["lgp_seeds"][0]
+    nb_seed(seed)
+    np.random.seed(seed)
+    m2 = dgp(X2, Y2, linked_layers(lref), vecchia=True, m=lp["m"], device=dev)
+    system = lgp([[container(g1.export(), local_input_idx=np.array([0]), device=dev)],
+                  [container(m2.estimate(), local_input_idx=np.array([0]), device=dev)]],
+                 N=lp["lgp_N"], device=dev)
+    zl = np.linspace(-1, 1, PARALLEL_LGP_POINTS).reshape(-1, 1)
+    system.predict(zl[:4], m=lp["pred_m"])       # first-call work out of the timing
+    lpp, t_lpp = timed(lambda: system.ppredict(zl, m=lp["pred_m"]))
+    lp1, t_lp1 = timed(lambda: system.predict(zl, m=lp["pred_m"]))
+    # multistart on Branin, all starts in one batched L-BFGS on the card
+    inits = np.random.RandomState(9).uniform([-5, 0], [10, 15], (MULTISTART_STARTS, 2))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        best, t_ms = timed(lambda: utils.multistart(_branin_torch, inits,
+                                                    np.array([-5.0, 0.0]),
+                                                    np.array([10.0, 15.0]), device=dev))
+    best_value = float(-_branin_torch(torch.as_tensor(best[None]))[0, 0])
+    ms_warnings = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    per_it = {k: {h: runs[h]["per_iteration"][k] for h in runs}
+              for k in ("block_nllik_grad_parts_t", "block_loglik_multi_t", "cond_weights_t")}
+    checks = {
+        "one_device_mesh": mesh == (dev,),
+        "ptrain_equals_train": ptrain_equal and mp.N == mt.N == PARALLEL_ITERS,
+        "ptrain_launches": all(v["ptrain"] > 0 and v["ptrain"] == v["train"]
+                               for v in per_it.values()),
+        "emulator_ppredict": same(pp, p1) and pp[0].shape == (N_PRED, 1),
+        "emulator_ploo": same(pl, l1),
+        "emulator_pmetric": np.array_equal(pm, m1),
+        "gp_ppredict": same(gpp, gp1),
+        "gp_pmetric": np.array_equal(gpm, gm1),
+        "lgp_ppredict": all(same(a, b) for a, b in zip(lpp, lp1)),
+        "finite": bool(np.isfinite(pp[0]).all() and np.isfinite(lpp[0][0]).all()),
+        "multistart": not ms_warnings and best_value < BRANIN_BAR,
+    }
+    launches = launch_counts()
+    emit({"phase": "parallel", "n": N_TRAIN, "m": M_TRAIN, "mesh": [str(d) for d in mesh],
+          "sem_iterations": PARALLEL_ITERS, "ptrain_s": runs["ptrain"]["seconds"],
+          "train_s": runs["train"]["seconds"], "launches_per_iteration": per_it,
+          "emulator": emulator_rows, "gp_ppredict_20000_s": t_gpp,
+          "gp_predict_20000_s": t_gp1, "lgp_points": PARALLEL_LGP_POINTS,
+          "lgp_ppredict_s": t_lpp, "lgp_predict_s": t_lp1,
+          "multistart": {"starts": MULTISTART_STARTS, "seconds": t_ms,
+                         "best": best.tolist(), "best_value": best_value,
+                         "runtime_warnings": ms_warnings},
+          "launches": launches, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"parallel phase checks failed: {checks}")
     return launches
 
 
@@ -2252,7 +2489,7 @@ def main():
     results = phase_kernels(dev)
     launches = {k: 0 for k in SOURCES}
     for phase in (phase_main, phase_design, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
-                  phase_linked, phase_lik_vecchia, phase_large_n):
+                  phase_parallel, phase_linked, phase_lik_vecchia, phase_large_n):
         for k, v in phase(dev).items():
             launches[k] += v
     for k, v in phase_host_bound().items():

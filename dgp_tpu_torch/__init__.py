@@ -13,8 +13,10 @@ or node-wise ESS, the exact draw of the Hetero mean), new data
 (prediction by moments or sampling, every layer with ``full_layer``, LOO,
 ALM/MICE/VIGF, `nllik`); linked emulation (`container`, `lgp`); prior
 paths (`path`); `write`/`read`, `summary` and `read_dgpsi` (dgpsi
-checkpoints).  Multi-device work (`ptrain`, `ppredict`, `pmetric`) is not
-ported yet (ROADMAP.md).
+checkpoints); `ptrain`, the p* methods (`ppredict`, `ploo`, `pmetric`)
+and ``sharded=True``, which compute on the model's own card
+(`parallel/mesh.py`), and `utils.multistart`.  Splitting rows or the SEM
+state over several cards is not ported (ROADMAP.md).
 
 Every entry point runs on the current CUDA device unless its ``device``
 argument says otherwise (``device='cpu'``), and raises where there is no

@@ -17,8 +17,9 @@ iterations into one program; here `train_chunk` is a plain loop that runs
 eagerly, with the ESS rounds' host checks as its only synchronisations.
 
 The kernels carry the Vecchia hot paths (on the CPU their wrappers run
-the plain versions; on the card, blocks outside the kernels' bounds --
-`ops.cuda_vecchia.use_kernel` -- are refused): K2 evaluates the ESS
+the plain versions; blocks outside the kernels' bounds --
+`ops.cuda_vecchia.use_kernel` -- go, on every device, the large-block
+route of `vecchia.core`, and the angle views step aside): K2 evaluates the ESS
 candidates of a layer through maintained angle views
 (`_build_angle_plan` / `_plan_ll`), K3
 gives the prior draws' conditional weights (`vecchia.core.cond_weights`),

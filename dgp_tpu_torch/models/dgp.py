@@ -14,8 +14,9 @@ means at new points, the nodes re-wired at the new n and a new imputer's
 burn-in), `update_all_layer`, and the switches `to_vecchia` and
 `remove_vecchia`.  From n >= 50000 points every GP node searches its
 neighbours with the IVF approximate search (``nn_method = 'approx'``), as
-in the JAX package.  Not ported yet: multi-device training (`ptrain`,
-``sharded=True``; O7).
+in the JAX package.  `ptrain` is ``train(sharded=True)``: on a
+one-device mesh (`parallel.mesh`) the same training; sharding the SEM
+state across several cards is not ported and raises (ROADMAP.md).
 """
 import copy
 import sys
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import config, rng, utils
+from ..parallel import mesh as pmesh
 from .node import kernel as ker
 from .node import combine
 from .gp import gp, APPROX_NN_N
@@ -481,15 +483,18 @@ class dgp:
         schedule.
         A non-finite hyper-parameter, R^2 or latent restarts the call from
         re-initialised latents, at most 3 times (dgp.py:1402-1412).
-        ``disable`` silences the per-chunk progress line on stderr."""
-        if sharded:
-            raise NotImplementedError("multi-device training is not ported to "
-                                      "dgp_tpu_torch yet (ROADMAP.md, O7)")
+        ``disable`` silences the per-chunk progress line on stderr.
+        ``sharded`` places the SEM state on the mesh of the model's device
+        (`parallel.mesh.shard_latent_state`): on one device it is this
+        training; on several it raises, as the multi-GPU SEM is not
+        ported."""
         N0 = self.N
         restarts, max_restarts = 0, 3
         while True:
             engine = self.imp._engine()
             state = engine.get_state()
+            if sharded:
+                state = pmesh.shard_latent_state(state, pmesh.model_mesh(self.device))
             if self.N == 0 and getattr(self.all_layer[-1][0], 'name', None) == 'Categorical':
                 state = self._inflate_scales(state)
             gens = (rng.next_generator(self.device), rng.next_generator('cpu'))
@@ -542,6 +547,12 @@ class dgp:
             self.reinit_all_layer(reset_lengthscale=True, row=0)
             self.imp.invalidate()
             self.imp.sample(burnin=10)
+
+    def ptrain(self, N=500, ess_burn=10, disable=False, core_num=None):
+        """`train` with ``sharded=True`` (the reference's process pool of
+        M-step optimisations, dgp.py:1414, is the batched L-BFGS of every
+        node group here; ``core_num`` is ignored)."""
+        return self.train(N=N, ess_burn=ess_burn, disable=disable, sharded=True)
 
     def _append_paths(self, snapshots):
         """Append the chunks' hyper-parameter rows to each GP node's

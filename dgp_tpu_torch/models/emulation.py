@@ -15,6 +15,10 @@ returns, and `nllik` gives the negative predicted log-likelihood.
 `to_vecchia`, `remove_vecchia` and `change_vecch_state` switch the
 imputations' nodes between dense and Vecchia prediction; the ensemble is
 rebuilt whenever the nodes' modes differ from the ones it was built on.
+`ppredict`, `ploo` and `pmetric` are aliases of `predict`, `loo` and
+`metric`, and ``predict(sharded=True)`` is the plain call on the
+emulator's device (`parallel/mesh.py`); the ``chunk_num`` and
+``core_num`` of the reference's process pools are accepted and ignored.
 """
 import copy
 from contextlib import contextmanager
@@ -131,6 +135,11 @@ class emulator:
             final_res = type(final_res)(item[indices, :] for item in final_res)
         return final_res
 
+    def ploo(self, X, method=None, sample_size=50, m=30, core_num=None):
+        """`loo` (an alias, as in the JAX package; ``core_num`` is
+        ignored)."""
+        return self.loo(X, method=method, sample_size=sample_size, m=m)
+
     # ------------------------------------------------------------------
     def _propagate(self, x, m):
         """Means and variances of every layer at x through the ensemble,
@@ -164,7 +173,7 @@ class emulator:
         return lik_mean, lik_var
 
     def predict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
-                aggregation=True):
+                aggregation=True, sharded=False):
         """Predict at x (M, d) through the imputation ensemble
         (emulation.py:631).  ``method='mean_var'``: with ``aggregation``
         the N imputations combined as a Gaussian mixture, each (M, n_out)
@@ -173,7 +182,8 @@ class emulator:
         over layers of the aggregated moments.  ``method='sampling'``:
         ``sample_size`` draws per imputation, a list over outputs of (M,
         N * sample_size) arrays (with ``full_layer``, a list over layers of
-        such lists)."""
+        such lists).  ``sharded`` is accepted for the JAX package's
+        signature; the call computes on the emulator's device."""
         if x.ndim == 1:
             raise Exception('The testing input has to be a numpy 2d-array')
         x = np.asarray(x, config.np_dtype())
@@ -225,6 +235,13 @@ class emulator:
             mu, sigma2 = final[0].prediction(mu, sigma2)
             return np.asarray(mu).reshape(M, -1), np.asarray(sigma2).reshape(M, -1)
         return mu, sigma2
+
+    def ppredict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
+                 chunk_num=None, core_num=None):
+        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
+        reference's process pool, emulation.py:578, are ignored)."""
+        return self.predict(x, method=method, full_layer=full_layer,
+                            sample_size=sample_size, m=m)
 
     def _sampling_output(self, mean_pred, variance_pred, likelihood_mean,
                          likelihood_variance, full_layer, is_cat):
@@ -327,6 +344,13 @@ class emulator:
             return score
         idx = np.argmax(score, axis=0)
         return idx, score[idx, np.arange(score.shape[1])]
+
+    def pmetric(self, x_cand, method='ALM', obj=None, nugget_s=1., m=50,
+                score_only=False, chunk_num=None, core_num=None):
+        """`metric` (an alias, as in the JAX package; ``chunk_num`` and
+        ``core_num`` are ignored)."""
+        return self.metric(x_cand, method=method, obj=obj, nugget_s=nugget_s, m=m,
+                           score_only=score_only)
 
     def _mice_var(self, nd, x, x_cand, nugget_s):
         return mice_var(x, x_cand, nd.input_dim, nd.connect, nd.name, nd.length,

@@ -5,7 +5,9 @@ collapsing, train / predict / loo / metric (ALM, MICE, VIGF), the switch
 to and from the Vecchia approximation, and export.  The node's compute
 runs on the gp's ``device`` (default: the card).  From n >= 50000 points
 the node's Vecchia neighbours come from the IVF approximate search, as in
-the JAX package.  Not ported yet: ``ppredict`` / ``pmetric`` (O7).
+the JAX package.  ``ppredict`` and ``pmetric`` are aliases of `predict`
+and `metric`, and ``predict(sharded=True)`` is the plain call on the gp's
+device (`parallel/mesh.py`).
 """
 import copy
 
@@ -181,8 +183,9 @@ class gp:
                                        size=(sample_size, len(mu))).T
             return samples if self.indices is None else samples[self.indices, :]
 
-    def predict(self, x, method='mean_var', sample_size=50, m=50):
-        """Predict at test inputs (gp.py:412)."""
+    def predict(self, x, method='mean_var', sample_size=50, m=50, sharded=False):
+        """Predict at test inputs (gp.py:412).  ``sharded`` is accepted for
+        the JAX package's signature; the call computes on the gp's device."""
         if x.ndim == 1:
             raise Exception('The testing input has to be a numpy 2d-array')
         x = np.asarray(x, config.np_dtype())
@@ -194,9 +197,11 @@ class gp:
         elif method == 'sampling':
             return np.random.normal(mu, np.sqrt(sigma2), size=(sample_size, len(x))).T
 
-    def ppredict(self, *args, **kwargs):
-        raise NotImplementedError("ppredict is not ported to dgp_tpu_torch yet "
-                                  "(ROADMAP.md, O7)")
+    def ppredict(self, x, method='mean_var', sample_size=50, m=50, chunk_num=None,
+                 core_num=None):
+        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
+        reference's process pool, gp.py:373-410, are ignored)."""
+        return self.predict(x, method=method, sample_size=sample_size, m=m)
 
     def metric(self, x_cand, method='MICE', nugget_s=1., m=50, score_only=False):
         """ALM / MICE / VIGF sequential-design criteria (gp.py:271)."""
@@ -230,6 +235,11 @@ class gp:
             return idx, vigf[idx, 0]
         raise ValueError(f"unknown method: {method}")
 
-    def pmetric(self, *args, **kwargs):
-        raise NotImplementedError("pmetric is not ported to dgp_tpu_torch yet "
-                                  "(ROADMAP.md, O7)")
+    def pmetric(self, x_cand, method='MICE', nugget_s=1., m=50, score_only=False,
+                chunk_num=None, core_num=None):
+        """`metric`, unchanged: an alias, as in the JAX package
+        (`dgp_tpu/models/gp.py:241-244`).  The criteria score every
+        candidate in one batched call on the gp's device, so there is
+        nothing to split; ``chunk_num`` and ``core_num`` are ignored."""
+        return self.metric(x_cand, method=method, nugget_s=nugget_s, m=m,
+                           score_only=score_only)

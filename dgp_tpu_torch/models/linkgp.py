@@ -11,8 +11,9 @@ and, within one, over the system's containers; every node's prediction
 computes on lgp's device.  The JAX package also has a device pass over all
 imputations at once (`dgp_tpu/models/linked_ensemble.py`, one jitted
 program per query chunk); in eager PyTorch that pass measured no faster
-than this loop on the card, so it is not ported (PERF.md, PR 7).  Not
-ported yet: ``ppredict`` and ``sharded=True`` (O7).
+than this loop on the card, so it is not ported (PERF.md, PR 7).
+``predict(sharded=True)`` and `ppredict` are the plain call on lgp's
+device (`parallel/mesh.py`).
 """
 import copy
 
@@ -155,10 +156,8 @@ class lgp:
         of its containers' external inputs or None).  'mean_var' gives the
         mean and variance of the final layer's outputs (with ``full_layer``,
         of every layer's), mixed over the imputations; 'sampling' gives
-        ``sample_size`` draws per imputation."""
-        if sharded:
-            raise NotImplementedError("sharded prediction is not ported to dgp_tpu_torch "
-                                      "yet (ROADMAP.md, O7)")
+        ``sample_size`` draws per imputation.  ``sharded`` is accepted for
+        the JAX package's signature; the call computes on lgp's device."""
         if isinstance(x, list) and len(x) != self.L:
             raise Exception('When the test input is a list it must have global '
                             'inputs for all layers (use None for layers without).')
@@ -299,9 +298,12 @@ class lgp:
                     for i in range(sample_size)]).T
         return out
 
-    def ppredict(self, *args, **kwargs):
-        raise NotImplementedError("ppredict is not ported to dgp_tpu_torch yet "
-                                  "(ROADMAP.md, O7)")
+    def ppredict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
+                 chunk_num=None, core_num=None):
+        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
+        reference's process pool are ignored)."""
+        return self.predict(x, method=method, full_layer=full_layer,
+                            sample_size=sample_size, m=m)
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -26,9 +26,11 @@ These are unified so that a group shares one batched objective:
     lengths and the nugget lane with a zero-padded characteristic length.
 
 Groups are keyed by (mode, kernel name, m + 1): Vecchia groups evaluate
-every objective and gradient through one K1 launch; dense groups (m + 1 =
-0) factor the G nodes' (n, n) matrices in one batched Cholesky and take the
-gradient from autograd.
+every objective and gradient through one K1 launch, or, where K1's bound
+refuses the group's blocks, through the large-block route of
+`vecchia.core` (the gradient by autograd, as the JAX package's
+`_vecch_nll_xla`); dense groups (m + 1 = 0) factor the G nodes' (n, n)
+matrices in one batched Cholesky and take the gradient from autograd.
 """
 import torch
 
@@ -88,24 +90,33 @@ def _assemble(logdet, quad, nugget64, op, n):
     return nll + op['nug_est_f'] * extra, scale
 
 
+def _exp_lanes(lt_full):
+    """Log-lanes (..., d_max + 1) -> lengths (..., d_max) and nugget (...)."""
+    return torch.exp(lt_full[..., :-1]), torch.exp(lt_full[..., -1])
+
+
 def _lanes(lt, op):
     """Node parameters (G, p_max) -> full lanes: lengths (G, d_max) and
     nugget (G,)."""
-    lt_full = torch.einsum('gfp,gp->gf', op['A'], lt) + op['b']
-    return torch.exp(lt_full[:, :-1]), torch.exp(lt_full[:, -1])
+    return _exp_lanes(torch.einsum('gfp,gp->gf', op['A'], lt) + op['b'])
 
 
-def _vecch_fg(lt, op, *, name, d_max, n, has_ref):
+def _vecch_fg(lt, op, *, name, d_max, n, has_ref, route=False):
     """(nll (G,), grad (G, p_max), scale (G,)) of every node of the group
-    through one K1 launch.  Operands are in the kernels' transposed
-    (G, m1, ..., n) layout; ``has_ref`` says whether a node of the group
-    has the 'ref' prior."""
-    length_full, nugget = _lanes(lt, op)
-    Xg, diag, dnug = cv.scale_blocks_t(op['Xg_raw'], op['nug_g'], op['valid'],
-                                       length_full, nugget,
-                                       vcore._f32_jitter(op['Xg_raw'].dtype))
-    ld, q, dld, dq = cv.block_nllik_grad_parts_t(
-        Xg, op['yg'], diag, dnug, name=name, n_length=d_max, nugget_est=True)
+    through one K1 launch, or with ``route`` through the large-block route.
+    Operands are in the kernels' transposed (G, m1, ..., n) layout;
+    ``has_ref`` says whether a node of the group has the 'ref' prior."""
+    lt_full = torch.einsum('gfp,gp->gf', op['A'], lt) + op['b']
+    length_full, nugget = _exp_lanes(lt_full)
+    if route:
+        ld, q, dld, dq = vcore.nllik_grad_route(op['Xg_raw'], op['yg'], op['nug_g'],
+                                                op['valid'], lt_full, _exp_lanes, name)
+    else:
+        Xg, diag, dnug = cv.scale_blocks_t(op['Xg_raw'], op['nug_g'], op['valid'],
+                                           length_full, nugget,
+                                           vcore._f32_jitter(op['Xg_raw'].dtype))
+        ld, q, dld, dq = cv.block_nllik_grad_parts_t(
+            Xg, op['yg'], diag, dnug, name=name, n_length=d_max, nugget_est=True)
     logdet, quad = linalg.sum64(ld, dim=-1), linalg.sum64(q, dim=-1)
     dlogdet, dquad = linalg.sum64(dld, dim=-1), linalg.sum64(dq, dim=-1)
     nugget64 = nugget.to(torch.float64)
@@ -156,10 +167,17 @@ def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref):
     Returns:
         (lt (G, p_max), scale (G,), ok (G,)), ``ok`` marking a finite result.
     """
-    def fg(lt):
-        if mode == 'dense':
+    if mode == 'dense':
+        def fg(lt):
             return _dense_fg(lt, ops, name=name, n=n, has_ref=has_ref)
-        return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n, has_ref=has_ref)
+    else:
+        # K1 or the large-block route, decided from the blocks' shape
+        m1 = ops['Xg_raw'].shape[-3]
+        route = not cv.use_kernel("K1", m1, d_max, ops['Xg_raw'].dtype)
+
+        def fg(lt):
+            return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n, has_ref=has_ref,
+                             route=route)
 
     # history=4: the node problems have 1-3 parameters, so a short curvature
     # memory loses nothing.  The profiled scale rides along as aux.

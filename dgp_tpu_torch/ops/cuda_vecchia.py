@@ -30,8 +30,10 @@ outside the bound that adds one to the wrapper's ``plain_calls``, so a run
 on the CPU shows which calls the card would refuse.  A CUDA tensor inside
 the bound goes to the kernel (adding one to ``launches``); outside it the
 wrapper raises NotImplementedError before anything is built: no plain
-version runs on the card in a kernel's place (the JAX package hands blocks
-above 64 rows to XLA).  Any other device raises, and a kernel that fails to
+version runs on the card in a kernel's place.  The callers do not send such
+blocks here: as the JAX package hands blocks above 64 rows to XLA, they
+take `vecchia.core`'s large-block route, decided by the same gate.  Any
+other device raises, and a kernel that fails to
 build or to launch raises too: the gate decides on shape, it is not a
 fallback.  The library is built at first use into
 ``dgp_tpu_torch/_build/`` from the sources in the package; nothing is

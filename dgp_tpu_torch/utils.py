@@ -12,14 +12,18 @@ tables with a small table printer of its own (the JAX package uses
 Categorical likelihood and the nested-list shape check of
 `lgp.set_vecchia`; the exact kernel PCA and the encoder stand in for
 scikit-learn's `KernelPCA(kernel='sigmoid')` and `LabelEncoder`, which the
-JAX package imports.
+JAX package imports.  `multistart` maximises an objective from many starts
+as one batched bounded L-BFGS on the card.
 """
 import pickle
+import warnings
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from . import config
+from .ops import lbfgs
 
 #: attributes that hold an engine or tensors built from the rest of the
 #: object, rebuilt on demand
@@ -331,3 +335,108 @@ def have_same_shape(list1, list2):
         elif isinstance(a, list) or isinstance(b, list):
             return False
     return True
+
+
+# ----------------------------------------------------------------------
+# multistart optimisation (role of reference utils.py:271)
+# ----------------------------------------------------------------------
+class _NumpyUse(TorchFunctionMode):
+    """Records whether an objective turns its input into a numpy array (a
+    numpy objective), and lets it do so on a detached host copy."""
+
+    def __init__(self):
+        super().__init__()
+        self.used = False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, '__name__', '') in ('__array__', 'numpy'):
+            self.used = True
+            args = (args[0].detach().cpu(),) + tuple(args[1:])
+        return func(*args, **(kwargs or {}))
+
+
+def _torch_objective(func, x0, args):
+    """Whether ``func`` returns a torch tensor that depends on its input
+    without passing it through numpy: one call on the first start, as a
+    (1, D) tensor that requires its gradient."""
+    x = x0[None, :].clone().requires_grad_(True)
+    probe = _NumpyUse()
+    with torch.enable_grad(), probe, warnings.catch_warnings():
+        # numpy wrapping its results in tensors warns of its own API
+        warnings.simplefilter('ignore', DeprecationWarning)
+        val = func(x, *args)
+    return isinstance(val, torch.Tensor) and val.requires_grad and not probe.used
+
+
+def multistart(func, initials, lb, up, args=(), method='L-BFGS-B', core_num=None,
+               out_dim=0, int_mask=None, device=None):
+    """Multistart bounded maximisation of ``func``; returns the best start
+    (`dgp_tpu/utils.py:243-316`).
+
+    ``func`` maps a (1, D) input to its values (first row; output
+    ``out_dim``, or the mean over outputs with -1).  When it is written in
+    torch, all starts run as one batched bounded L-BFGS on ``device``
+    (default: the card; `ops.lbfgs`, 100 iterations, max(30, 20 + 5D)
+    evaluations), each start's objective and gradient from
+    `torch.func.vmap` of its autograd, as the JAX package vmaps its own.
+    A numpy objective, or a batched result that is not finite, falls back
+    to scipy's L-BFGS-B per start (a torch objective still gets tensors)
+    with a RuntimeWarning; any other error propagates.  ``int_mask`` marks integer dimensions, rounded inside the
+    objective and in the returned optimum (reference utils.py:311-320).
+    ``core_num`` (the reference's process pool) is ignored.
+    """
+    initials = np.atleast_2d(np.asarray(initials, np.float64))
+    lb = np.asarray(lb, np.float64)
+    up = np.asarray(up, np.float64)
+    D = len(lb)
+    maxfun = int(max(30, 20 + 5 * D))
+    mask = np.zeros(D, bool)
+    if int_mask is not None:
+        mask[np.asarray(int_mask)] = True
+    dev = config.resolve_device(device)
+    x0 = torch.as_tensor(initials, dtype=torch.float64, device=dev)
+    why = None
+    in_torch = _torch_objective(func, x0[0], args)
+    if not in_torch:
+        why = ("TypeError: the objective does not return a torch tensor that "
+               "depends on its input")
+    else:
+        mask_t = torch.as_tensor(mask, device=dev)
+
+        def obj(x):
+            x = torch.where(mask_t, torch.round(x), x)
+            v0 = func(x[None, :], *args)[0]
+            v = -v0.mean() if out_dim == -1 else -v0.reshape(-1)[out_dim]
+            return v.to(torch.float64)
+
+        grad_and_value = torch.func.vmap(torch.func.grad_and_value(obj))
+
+        def fg(x):
+            g, v = grad_and_value(x)
+            return v, g
+
+        t = dict(dtype=torch.float64, device=dev)
+        xs, fs, _ = lbfgs.minimize(fg, x0, torch.as_tensor(lb, **t),
+                                   torch.as_tensor(up, **t), maxiter=100, maxfun=maxfun)
+        xs, fs = xs.cpu().numpy(), fs.cpu().numpy()
+        if not np.all(np.isfinite(fs)):
+            why = "FloatingPointError: non-finite multistart objective"
+    if why is not None:
+        warnings.warn(f"multistart: device path failed ({why}); falling back to "
+                      "scipy L-BFGS-B", RuntimeWarning)
+        from scipy.optimize import Bounds, minimize as sp_minimize
+
+        def wrapped(x, *fargs):
+            x = np.atleast_2d(np.where(mask, np.round(x), x))
+            v0 = func(torch.as_tensor(x, device=dev) if in_torch else x, *fargs)[0]
+            return float(-v0.mean() if out_dim == -1 else -v0.reshape(-1)[out_dim])
+
+        results = [sp_minimize(wrapped, x0_, args=args, method=method,
+                               bounds=Bounds(lb, up),
+                               options={'maxiter': 100, 'maxfun': maxfun})
+                   for x0_ in initials]
+        xs = np.asarray([r.x for r in results])
+        fs = np.asarray([r.fun for r in results])
+    best = xs[int(np.argmin(fs))].copy()
+    best[mask] = np.round(best[mask])
+    return best

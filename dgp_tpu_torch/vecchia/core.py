@@ -12,9 +12,22 @@ log-likelihood at fixed parameters (`vecchia_llik`, K4), the M-step
 objective with its analytic gradient (`vecchia_nllik_fg`, K1) and the
 conditional weights of ancestral sampling (`cond_weights`, K3).
 `vecchia_nllik` keeps the masked-block form with an autograd gradient as
-the reference for K1.  Prediction (`gp_vecch`, `link_gp_vecch`) is
-batched torch.linalg, and so are the closed-form LOO (`loo_gp_vecch`) and
-the exact draw of the Hetero mean (`post_het_vecch`).
+the reference for K1.
+
+Blocks the kernels do not take (`cv.use_kernel`: more than 64 rows, or
+staged tiles beyond one SM's shared memory) go the large-block route, the
+counterpart of the JAX package's XLA branch (`dgp_tpu/vecchia/core.py:
+56-88, 216`; `models/mstep.py:165-174`): the same masked blocks as
+`vecchia_nllik`, factored by `linalg.chol_small` in chunks of points that
+keep their temporaries within `ROUTE_BUDGET` bytes, with K1's gradients
+from autograd.  Each caller decides from the shapes alone, the same on
+every device, before anything runs; the route returns the per-point
+arrays the kernel would, so no result depends on the chunk, and
+`route_counts` counts its calls per kernel id.
+
+Prediction (`gp_vecch`, `link_gp_vecch`) is batched torch.linalg, and so
+are the closed-form LOO (`loo_gp_vecch`) and the exact draw of the Hetero
+mean (`post_het_vecch`).
 """
 import numpy as np
 import torch
@@ -44,20 +57,138 @@ def _eye_like(K):
     return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
 
 
+def _masked_blocks(Xi, yi, nd_i, valid, length, nugget, name):
+    """(..., m+1, m+1) kernel blocks of gathered neighbour sets Xi (...,
+    m+1, d) with invalid lanes decoupled to the identity, and the masked
+    targets; ``length`` and ``nugget`` broadcast against Xi's and nd_i's
+    leading axes."""
+    K = kops.k_cross(Xi, Xi, length, name)
+    both = valid[..., :, None] & valid[..., None, :]
+    K = torch.where(both, K, _eye_like(K))
+    diag = torch.where(valid, 1.0 + nugget * nd_i + _f32_jitter(K.dtype), 1.0)
+    return kops.set_diag(K, diag), torch.where(valid, yi, 0.0)
+
+
 def _blocks(X, y, NNarray, length, nugget, name, nugget_diag):
     """Masked (n, m+1, m+1) kernel blocks in ascending order (self last)
     plus masked targets.  Returns (K, y_blk, valid)."""
     rev = torch.flip(NNarray, dims=(1,))
     valid = rev >= 0
     safe = torch.where(valid, rev, 0)
-    Xi = X[safe]                                   # (n, m+1, d)
-    yi = torch.where(valid, y[safe], 0.0)
-    nug_i = nugget * nugget_diag[safe]
-    K = kops.k_cross(Xi, Xi, length, name)
-    both = valid[:, :, None] & valid[:, None, :]
-    K = torch.where(both, K, _eye_like(K))
-    diag = torch.where(valid, 1.0 + nug_i + _f32_jitter(K.dtype), 1.0)
-    return kops.set_diag(K, diag), yi, valid
+    K, yi = _masked_blocks(X[safe], y[safe], nugget_diag[safe], valid, length, nugget,
+                           name)
+    return K, yi, valid
+
+
+# ----------------------------------------------------------------------
+# the large-block route: blocks outside the kernels' bound
+# ----------------------------------------------------------------------
+#: bytes of block temporaries one chunk of the large-block route may hold
+#: (the ensemble's query budget): m = 200 at n = 1e5 has 32 GB of float64
+#: blocks
+ROUTE_BUDGET = 1 << 30
+
+_ROUTE_COUNTS = {"K1": 0, "K3": 0, "K4": 0}
+
+
+def route_counts():
+    """Calls of the large-block route since the last reset, by the id of
+    the kernel whose bound sent them there."""
+    return dict(_ROUTE_COUNTS)
+
+
+def reset_route_counts():
+    for kid in _ROUTE_COUNTS:
+        _ROUTE_COUNTS[kid] = 0
+
+
+def _route_step(lead, m1, d, dtype):
+    """Points per chunk: as many as keep ``lead`` (the product of the
+    leading candidate or node axes) blocks of m1 rows each, and their
+    temporaries (the kernel's (m1, m1, d) differences among them), within
+    `ROUTE_BUDGET`; at least one."""
+    item = torch.finfo(dtype).bits // 8
+    per_point = max(1, lead) * (8 + 4 * d) * m1 * m1 * item
+    return max(1, ROUTE_BUDGET // per_point)
+
+
+def _chunks(n, step):
+    return [slice(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def _llik_route(X, y, NNarray, length, nugget, nugget_diag, name):
+    """K4's per-point (logdet (..., n), quad (..., n)) on masked blocks,
+    chunk by chunk; X may carry leading candidate axes (..., n, d)."""
+    _ROUTE_COUNTS["K4"] += 1
+    rev = torch.flip(NNarray, dims=(1,))
+    valid = rev >= 0
+    safe = torch.where(valid, rev, 0)
+    n, m1 = NNarray.shape
+    step = _route_step(int(np.prod(X.shape[:-2])), m1, X.shape[-1], X.dtype)
+    parts = []
+    for sl in _chunks(n, step):
+        idx = safe[sl]
+        K, yi = _masked_blocks(X[..., idx, :], y[idx], nugget_diag[idx], valid[sl],
+                               length, nugget, name)
+        L = linalg.chol_small(K)
+        Ly = linalg.fwd_solve_small(L, torch.broadcast_to(yi, K.shape[:-1]))
+        parts.append((2.0 * torch.log(torch.abs(L[..., -1, -1])), Ly[..., -1] ** 2))
+    return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
+
+
+def _cond_weights_route(X, NNarray, length, nugget, name, nugget_diag):
+    """K3's (w (n, m), sigma (n,)) on masked blocks, chunk by chunk."""
+    _ROUTE_COUNTS["K3"] += 1
+    rev = torch.flip(NNarray, dims=(1,))
+    valid = rev >= 0
+    safe = torch.where(valid, rev, 0)
+    n, m1 = NNarray.shape
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    parts = []
+    for sl in _chunks(n, _route_step(1, m1, X.shape[-1], X.dtype)):
+        idx = safe[sl]
+        K, _ = _masked_blocks(X[idx], zero, nugget_diag[idx], valid[sl], length, nugget,
+                              name)
+        L = linalg.chol_small(K)
+        # w^T = L[-1, :-1] inv(L[:-1, :-1]): w = solve(L[:-1, :-1]^T, L[-1, :-1])
+        parts.append((linalg.bwd_solve_small(L[:, :-1, :-1], L[:, -1, :-1]),
+                      L[:, -1, -1]))
+    return tuple(torch.cat(p, dim=0) for p in zip(*parts))
+
+
+def nllik_grad_route(Xg_raw, yg, nug_g, valid, lanes, params, name):
+    """K1's per-point outputs by autograd on masked blocks, chunk by
+    chunk: (logdet (..., n), quad (..., n), dlogdet (..., p, n), dquad
+    (..., p, n)), the gradients in the log-parameters ``lanes`` (..., p);
+    dquad is, as K1's, the gradient of -quad.
+    The operands are K1's raw gathers in the transposed layout
+    (`cv.gather_raw_t`; a leading node axis allowed): Xg_raw (..., m1, d,
+    n), yg, nug_g and valid (..., m1, n).  ``params(lanes)`` gives (length
+    (..., n_length), nugget (...)); each point differentiates its own copy
+    of the lanes, so its gradient does not depend on the chunk."""
+    _ROUTE_COUNTS["K1"] += 1
+    m1, d, n = Xg_raw.shape[-3:]
+    lead = lanes.shape[:-1]
+    p = lanes.shape[-1]
+    parts = []
+    for sl in _chunks(n, _route_step(int(np.prod(lead)), m1, d, Xg_raw.dtype)):
+        Xi = Xg_raw[..., sl].movedim(-1, -3)                  # (..., c, m1, d)
+        vi, yi, ni = (t[..., sl].transpose(-1, -2) for t in (valid, yg, nug_g))
+        with torch.enable_grad():
+            lp = (lanes.detach()[..., None, :].expand(*lead, Xi.shape[-3], p)
+                  .clone().requires_grad_(True))              # (..., c, p)
+            length, nugget = params(lp)
+            K, yb = _masked_blocks(Xi, yi, ni, vi, length[..., None, :],
+                                   nugget[..., None], name)
+            L = linalg.chol_small(K)
+            Ly = linalg.fwd_solve_small(L, yb)
+            logdet = 2.0 * torch.log(torch.abs(L[..., -1, -1]))
+            quad = Ly[..., -1] ** 2
+            dlogdet, = torch.autograd.grad(logdet.sum(), lp, retain_graph=True)
+            dquad, = torch.autograd.grad(-quad.sum(), lp)
+        parts.append((logdet.detach(), quad.detach(), dlogdet.transpose(-1, -2),
+                      dquad.transpose(-1, -2)))
+    return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
 def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
@@ -68,10 +199,13 @@ def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
     X may carry a leading candidate axis, (K, n, d), for K inputs that
     share y, the NN structure and the parameters (the candidates of one
     node-wise ESS round); the result is then (K,).  One K4 launch either
-    way."""
-    Xg, yg, diag = cv.gather_scale_t(X, y, NNarray, length, nugget, nugget_diag,
-                                     _f32_jitter(X.dtype))
-    logdet_i, quad_i = cv.block_loglik_parts_t(Xg, yg, diag, name=name)
+    way, or the large-block route outside K4's bound."""
+    if cv.use_kernel("K4", NNarray.shape[1], X.shape[-1], X.dtype):
+        Xg, yg, diag = cv.gather_scale_t(X, y, NNarray, length, nugget, nugget_diag,
+                                         _f32_jitter(X.dtype))
+        logdet_i, quad_i = cv.block_loglik_parts_t(Xg, yg, diag, name=name)
+    else:
+        logdet_i, quad_i = _llik_route(X, y, NNarray, length, nugget, nugget_diag, name)
     quad = linalg.sum64(quad_i, dim=-1)
     logdet = linalg.sum64(logdet_i, dim=-1)
     scale64 = torch.as_tensor(scale, dtype=torch.float64, device=quad.device)
@@ -99,8 +233,9 @@ def _profiled(logdet, quad, nugget, *, n, scale_est, nugget_est, fixed_scale,
 
 
 def _params(log_theta, nugget_est, fixed_nugget):
+    """(length, nugget) of log-parameters (..., p)."""
     if nugget_est:
-        return torch.exp(log_theta[:-1]), torch.exp(log_theta[-1])
+        return torch.exp(log_theta[..., :-1]), torch.exp(log_theta[..., -1])
     return torch.exp(log_theta), fixed_nugget
 
 
@@ -146,15 +281,24 @@ def vecchia_nllik_fg(log_theta, X, y, NNarray, nugget_diag, *, name, n_length,
     ``raw`` optionally carries the parameter-independent block gathers of
     `cv.gather_raw_t`, so that the evaluations of one optimisation gather
     once.  The 'ref' prior's characteristic length comes from X as the
-    Vecchia node computes it (`gp_core.compute_cl` with vecch=True)."""
+    Vecchia node computes it (`gp_core.compute_cl` with vecch=True).
+    Outside K1's bound the parts come from the large-block route."""
     length, nugget = _params(log_theta, nugget_est, fixed_nugget)
     if raw is None:
         raw = cv.gather_raw_t(X, y, NNarray, nugget_diag)
     Xg_raw, yg, nug_g, valid = raw
-    Xg, diag, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, length, nugget,
-                                       _f32_jitter(X.dtype))
-    logdet_i, quad_i, dlogdet_i, dquad_i = cv.block_nllik_grad_parts_t(
-        Xg, yg, diag, dnug, name=name, n_length=n_length, nugget_est=nugget_est)
+    if cv.use_kernel("K1", NNarray.shape[1], X.shape[1], X.dtype):
+        Xg, diag, dnug = cv.scale_blocks_t(Xg_raw, nug_g, valid, length, nugget,
+                                           _f32_jitter(X.dtype))
+        logdet_i, quad_i, dlogdet_i, dquad_i = cv.block_nllik_grad_parts_t(
+            Xg, yg, diag, dnug, name=name, n_length=n_length, nugget_est=nugget_est)
+    else:
+        def params(lt):
+            ln, nug = _params(lt, nugget_est, fixed_nugget)
+            return ln, torch.as_tensor(nug, dtype=lt.dtype,
+                                       device=lt.device).expand(lt.shape[:-1])
+        logdet_i, quad_i, dlogdet_i, dquad_i = nllik_grad_route(
+            Xg_raw, yg, nug_g, valid, log_theta, params, name)
     quad, logdet = linalg.sum64(quad_i), linalg.sum64(logdet_i)
     dquad, dlogdet = linalg.sum64(dquad_i, dim=1), linalg.sum64(dlogdet_i, dim=1)
     n = X.shape[0]
@@ -189,21 +333,26 @@ def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None):
 
     ``pre`` optionally carries the parameter-independent gathered blocks
     (Xg_raw (m1, d, n), nug_g (m1, n), validT (m1, n)) from
-    `CompiledDGP._chunk_static`."""
+    `CompiledDGP._chunk_static`; the large-block route, outside K3's bound,
+    gathers its own."""
     n = X.shape[0]
     nd = (torch.ones(n, dtype=X.dtype, device=X.device) if nugget_diag is None
           else nugget_diag)
     rev = torch.flip(NNarray, dims=(1,))
     valid = rev >= 0
     jit = _f32_jitter(X.dtype)
-    if pre is not None:
-        Xg_raw, nug_g, validT = pre
-        Xg, diag, _ = cv.scale_blocks_t(Xg_raw, nug_g, validT, length, nugget, jit)
+    if not cv.use_kernel("K3", NNarray.shape[1], X.shape[1], X.dtype):
+        w, sigma = _cond_weights_route(X, NNarray, length, nugget, name, nd)
     else:
-        Xg, _, diag = cv.gather_scale_t(X, torch.zeros_like(X[:, 0]), NNarray,
-                                        length, nugget, nd, jit)
-    w_t, sigma = cv.cond_weights_t(Xg, diag, name=name)
-    w = torch.where(valid[:, :-1], w_t.T, 0.0)
+        if pre is not None:
+            Xg_raw, nug_g, validT = pre
+            Xg, diag, _ = cv.scale_blocks_t(Xg_raw, nug_g, validT, length, nugget, jit)
+        else:
+            Xg, _, diag = cv.gather_scale_t(X, torch.zeros_like(X[:, 0]), NNarray,
+                                            length, nugget, nd, jit)
+        w_t, sigma = cv.cond_weights_t(Xg, diag, name=name)
+        w = w_t.T
+    w = torch.where(valid[:, :-1], w, 0.0)
     idx_asc = torch.where(valid, rev, 0)[:, :-1]
     return w, sigma, idx_asc, valid
 

@@ -5,9 +5,10 @@ K1 with any number of length lanes up to d, staged tiles within one SM's
 shared memory); the shared-memory formula it shares with the CUDA sources;
 the wrappers' ``plain_calls`` counters on the CPU and their refusal off it;
 Vecchia DGPs inside the bound (m = 12, and m = 40 on two rows per lane) and
-outside it (m = 64) on the CPU against dgp_tpu at rtol 1e-9; and the
-NotImplementedError of a Vecchia dgp at the size that needs the approximate
-NN search."""
+outside it (m = 64, through the large-block route of `vecchia.core`) on the
+CPU against dgp_tpu at rtol 1e-9; the route's log-likelihood, conditional
+weights and M-step group objective at m = 64 and m = 100 against dgp_tpu's
+XLA branch, and its arrays at one chunk and at several."""
 
 import numpy as np
 import jax
@@ -18,9 +19,14 @@ import torch
 import dgp_tpu
 import dgp_tpu_torch
 from dgp_tpu.models import imputation as jimp
+from dgp_tpu.models import mstep as jmstep
+from dgp_tpu.vecchia import core as jcore
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
+from dgp_tpu_torch.models import mstep as tmstep
 from dgp_tpu_torch.models.compiled import CompiledDGP
 from dgp_tpu_torch.ops import cuda_vecchia as cv
+from dgp_tpu_torch.vecchia import core as vcore
+from dgp_tpu_torch.vecchia import nn as vnn
 
 torch.set_num_threads(1)
 
@@ -171,22 +177,28 @@ def _layers(pkg):
                                    scale_est=True, connect=np.arange(1))])
 
 
-@pytest.mark.parametrize("m,inside", [(40, True), (64, False), (12, True)])
-def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
-    """On the CPU a Vecchia DGP at m = 64 runs (every wrapper's plain
-    version, counted as outside the bound) and its log-likelihoods agree
-    with dgp_tpu's; at m = 12 and at m = 40 (two rows per lane on the card)
-    nothing is counted as a plain call, and the angle evaluator applies."""
-    rs = np.random.RandomState(0)
-    X = rs.rand(90, 1) * 2 - 1
-    Y = _func(X) + 0.05 * rs.randn(90, 1)
+def _jax_model(X, Y, m):
+    """A dgp_tpu Vecchia DGP without its compiled initial imputation."""
     dgp_tpu.nb_seed(0)
     sample = jimp.imputer.sample
     jimp.imputer.sample = lambda self, burnin=0: None
     try:
-        mj = dgp_tpu.dgp(X, Y, _layers(dgp_tpu), vecchia=True, m=m)
+        return dgp_tpu.dgp(X, Y, _layers(dgp_tpu), vecchia=True, m=m)
     finally:
         jimp.imputer.sample = sample
+
+
+@pytest.mark.parametrize("m,inside", [(40, True), (64, False), (12, True)])
+def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
+    """On the CPU a Vecchia DGP at m = 64 runs (the callers send its blocks
+    down the large-block route, as on the card) and its log-likelihoods
+    agree with dgp_tpu's; at m = 12 and at m = 40 (two rows per lane on the
+    card) the route is not taken, and the angle evaluator applies.  No
+    wrapper is called outside its bound either way."""
+    rs = np.random.RandomState(0)
+    X = rs.rand(90, 1) * 2 - 1
+    Y = _func(X) + 0.05 * rs.randn(90, 1)
+    mj = _jax_model(X, Y, m)
     eng_j = mj.imp._engine()
     eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(mj.all_layer)), device='cpu')
     assert eng_t._angle_applicable(0) is inside
@@ -196,26 +208,138 @@ def test_vecchia_dgp_outside_the_bound_matches_jax(m, inside):
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
     cv.reset_launch_counts()
+    vcore.reset_route_counts()
     ref = jax.jit(lambda lat: eng_j._upper_loglik(0, (lat,), par_j, nn_j))
     cands = np.asarray(lat_j[0])[None] + 0.1 * rs.normal(size=(3,) + tuple(lat_t[0].shape))
     out = eng_t._upper_loglik(0, (torch.as_tensor(cands),), par_t, nn_t)
     np.testing.assert_allclose(out.numpy(), [float(ref(jnp.asarray(c))) for c in cands],
                                rtol=1e-9)
-    counts = cv.launch_counts()
-    assert counts["block_loglik_parts_t"]["plain_calls"] == (0 if inside else 1)
+    assert vcore.route_counts()["K4"] == (0 if inside else 1)
     # the whole path on the port: imputation, SEM iterations, prediction
     dgp_tpu_torch.nb_seed(0)
     cv.reset_launch_counts()
+    vcore.reset_route_counts()
     mt = dgp_tpu_torch.dgp(X, Y, _layers(dgp_tpu_torch), vecchia=True, m=m, device='cpu')
     mt.train(N=3, disable=True)
     mu, var = dgp_tpu_torch.emulator(mt.estimate(), N=2, device='cpu').predict(
         np.linspace(-1, 1, 20)[:, None], m=50)
     assert np.isfinite(mu).all() and np.isfinite(var).all()
     counts = cv.launch_counts()
-    assert all(c["launches"] == 0 for c in counts.values())
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in counts.values())
+    routes = vcore.route_counts()
     if inside:
-        assert all(c["plain_calls"] == 0 for c in counts.values())
+        assert all(v == 0 for v in routes.values())
     else:
-        assert all(counts[k]["plain_calls"] > 0 for k in
-                   ("block_nllik_grad_parts_t", "cond_weights_t", "block_loglik_parts_t"))
-        assert counts["block_loglik_multi_t"]["plain_calls"] == 0   # no angle views
+        assert all(routes[k] > 0 for k in ("K1", "K3", "K4"))
+
+
+def _route_inputs(m, n=150, d=2, seed=3):
+    """Float64 inputs of one Vecchia node at m neighbours: ordered inputs,
+    targets, the exact ordered NN array, replicate-like nugget weights."""
+    rs = np.random.RandomState(seed)
+    X = rs.rand(n, d)
+    y = np.sin(4 * X).sum(axis=1) + 0.05 * rs.randn(n)
+    NN = vnn.nn(X / 0.4, m, device='cpu')
+    nd = 1.0 + rs.rand(n)
+    return X, y, NN, nd
+
+
+@pytest.mark.parametrize("m,name", [(64, "sexp"), (100, "sexp"), (64, "matern2.5")])
+def test_route_matches_jax_xla_branch(m, name):
+    """Outside the kernels' bound the route's log-likelihood (alone and for
+    two candidate inputs) and conditional weights equal dgp_tpu's XLA branch
+    on the same float64 inputs at rtol 1e-9.  The JAX side is jitted: its
+    column-unrolled factor costs minutes op by op."""
+    X, y, NN, nd = _route_inputs(m)
+    assert not any(cv.use_kernel(k, m + 1, 2) for k in ("K1", "K3", "K4"))
+    length, nugget, scale = np.array([0.4, 0.7]), 1e-3, 1.3
+    T, J = torch.as_tensor, jnp.asarray
+    cands = np.stack([X, X[::-1] * 0.9])
+    vcore.reset_route_counts()
+    ll = vcore.vecchia_llik(T(X), T(y), T(NN), scale, T(length), nugget, T(nd), name)
+    llk = vcore.vecchia_llik(T(cands), T(y), T(NN), scale, T(length), nugget, T(nd), name)
+    w, sigma, idx, _ = vcore.cond_weights(T(X), T(NN), T(length), nugget, name, T(nd))
+    assert vcore.route_counts() == {"K1": 0, "K3": 1, "K4": 2}
+    llik_j = jax.jit(lambda Xc: jcore.vecchia_llik(Xc, J(y), J(NN), scale, J(length),
+                                                   nugget, J(nd), name))
+    np.testing.assert_allclose(float(ll), float(llik_j(J(X))), rtol=1e-9)
+    np.testing.assert_allclose(llk.numpy(), [float(llik_j(J(c))) for c in cands],
+                               rtol=1e-9)
+    wj, sj, ij, _ = jax.jit(lambda Xc: jcore.cond_weights(Xc, J(NN), J(length), nugget,
+                                                          name, J(nd)))(J(X))
+    np.testing.assert_allclose(w.numpy(), np.asarray(wj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(sigma.numpy(), np.asarray(sj), rtol=1e-9)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ij))
+
+
+@pytest.mark.parametrize("m", [64, 100])
+def test_route_m_step_group_matches_jax(m):
+    """One M-step group of both layers' nodes at blocks of m + 1 rows, at
+    the starting parameters and at a shifted point: the route's objective
+    equals dgp_tpu's `_vecch_nll_xla` at rtol 1e-9 and its gradient the
+    autodiff gradient at rtol 1e-7; `run_group` takes the route."""
+    rs = np.random.RandomState(1)
+    X = rs.rand(130, 1) * 2 - 1
+    Y = _func(X) + 0.05 * rs.randn(130, 1)
+    mj = _jax_model(X, Y, m)
+    eng_j = mj.imp._engine()
+    eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(mj.all_layer)), device='cpu')
+    (lat_j, par_j), nn_j = eng_j.get_state(), eng_j.get_nn_state()
+    (lat_t, par_t), nn_t = eng_t.get_state(), eng_t.get_nn_state()
+    cs_j, cs_t = eng_j._chunk_static(nn_j), eng_t._chunk_static(nn_t)
+    es = [(0, 0), (1, 0)]
+    d_max = max(eng_t.spec[l][k].D for l, k in es)
+    p_max = max(eng_t.spec[l][k].n_length + eng_t.spec[l][k].nugget_est for l, k in es)
+    built = [eng_t._node_operands(l, k, eng_t.spec[l][k], lat_t, par_t, d_max, p_max,
+                                  cs_t) for l, k in es]
+    ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
+    lt0 = torch.stack([b[1] for b in built])
+    ops_j = [eng_j._node_operands(l, k, eng_j.spec[l][k], lat_j, par_j, nn_j, d_max,
+                                  p_max, "vecch", cs_j)[0] for l, k in es]
+    fg_j = jax.jit(jax.value_and_grad(
+        lambda t, op: jmstep._vecch_nll_xla(t, op, name='sexp', n=eng_j.n), has_aux=True))
+    for shift in (0.0, 0.3):
+        lt = lt0 + shift * (torch.stack([b[2] for b in built]) != 0)
+        vcore.reset_route_counts()
+        nll, g, _ = tmstep._vecch_fg(lt, ops, name='sexp', d_max=d_max, n=eng_t.n,
+                                     has_ref=False, route=True)
+        assert vcore.route_counts()["K1"] == 1
+        for i in range(len(es)):
+            (ref, _), gj = fg_j(jnp.asarray(lt[i].numpy()), ops_j[i])
+            np.testing.assert_allclose(float(nll[i]), float(ref), rtol=1e-9)
+            np.testing.assert_allclose(g[i].numpy(), np.asarray(gj), rtol=1e-7, atol=1e-9)
+    vcore.reset_route_counts()
+    tmstep.run_group(ops, lt0, torch.stack([b[2] for b in built]),
+                     torch.stack([b[3] for b in built]), [2, 2], name='sexp',
+                     mode='vecch', d_max=d_max, n=eng_t.n, has_ref=False)
+    assert vcore.route_counts()["K1"] == 2
+
+
+def test_route_arrays_do_not_depend_on_the_chunk(monkeypatch):
+    """Each route gives the same arrays in one chunk and in chunks of 7
+    points (a ragged last chunk), K1's gradients included."""
+    m = 70
+    X, y, NN, nd = _route_inputs(m, n=40)
+    T = torch.as_tensor
+    Xt, yt, NNt, ndt = T(X), T(y), T(NN), T(nd)
+    length = T(np.array([0.4, 0.7]))
+    lanes = torch.log(T(np.array([0.4, 0.7, 1e-3])))
+    raw = cv.gather_raw_t(Xt, yt, NNt, ndt)
+
+    def run():
+        parts = vcore._llik_route(torch.stack([Xt, 0.9 * Xt]), yt, NNt, length, 1e-3,
+                                  ndt, 'matern2.5')
+        parts += vcore._cond_weights_route(Xt, NNt, length, 1e-3, 'sexp', ndt)
+        parts += vcore.nllik_grad_route(*raw, lanes, lambda lt: (torch.exp(lt[..., :-1]),
+                                                                 torch.exp(lt[..., -1])),
+                                        'sexp')
+        return parts
+
+    one = run()
+    per_point = 2 * (8 + 4 * 2) * (m + 1) ** 2 * 8
+    monkeypatch.setattr(vcore, "ROUTE_BUDGET", 7 * per_point)
+    assert vcore._route_step(2, m + 1, 2, torch.float64) == 7
+    several = run()
+    for a, b in zip(one, several):
+        assert torch.isfinite(a).all()
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -283,9 +283,11 @@ def test_gp_update_xy_and_export(vecchia):
 def test_gp_unported_and_device(monkeypatch):
     X, Y = _gp_data(False)
     g = dgp_tpu_torch.gp(X, Y, dgp_tpu_torch.kernel(length=np.array([0.5])), device='cpu')
-    for call, item in ((g.ppredict, "O7"), (g.pmetric, "O7")):
-        with pytest.raises(NotImplementedError, match=item):
-            call(X)
+    # O7: ppredict is an alias of predict, pmetric of metric
+    for a, b in zip(g.ppredict(X, chunk_num=2), g.predict(X)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(g.pmetric(X, score_only=True, core_num=2),
+                                  g.metric(X, score_only=True))
     assert g.kernel.nn_method == 'exact'
     # from APPROX_NN_N points on, a gp (dense too) constructs with the IVF
     # search as its node's method, as dgp_tpu's does
