@@ -129,13 +129,20 @@ Phases, each printing its results (and its seconds) as one JSON line:
             Vecchia gp on 12 inputs with 12 lengthscales (n=300), trained on
             the card (K1 takes its 12 length lanes) and on the CPU: the
             parameters agree to rtol 1e-6.
-  parallel  O7 on the main path's model and data (n=2000, m=25, the JSON's
-            hyper-parameters) on the card's one-device mesh: ptrain(N=16)
-            of a model built with device='cuda', whose mesh must be the
-            card once, against a twin's train(N=16) on cuda:0 from the same
-            nb_seed (the hyper-parameter paths and latents equal bit for
-            bit, the same K1, K2 and K3 launches per iteration); the p*
-            methods are aliases of the plain calls: emulator(N=5)'s ppredict
+  parallel  O7: the split over a mesh -- every visible card, or on a
+            machine with one card two shares of it (the mesh that
+            model_mesh('cuda') gives must name each card once) -- against
+            the one-device calls.  ptrain(N=16) of the main path's model
+            (n=2000, m=25, the JSON's hyper-parameters, built with
+            device='cuda') and of large_n's bench.py n = 1e5 model, each
+            against a twin's train(N=16) from the same nb_seed: the
+            hyper-parameter paths, latents and R^2 equal bit for bit after
+            2 more iterations under torch.profiler, in which each split
+            kernel (K1, K2, K3) is launched once per share where train
+            launches it once, with as many host reads (device-to-host
+            copies) per SEM iteration; seconds, syncs and launches per card
+            are printed.  Then the p* methods split their row chunks (whole
+            chunks of 2048 queries a share): emulator(N=5)'s ppredict
             on 20000 points at m=50, ploo at m=30 and pmetric (ALM on 1000
             candidates) equal to predict, loo and metric bit for bit; the gp
             phase's dense gp, ppredict on 20000 points and pmetric (MICE);
@@ -271,6 +278,8 @@ ROUTE_TIMED_M = (64, 100)
 # parallel: ptrain against train, the p* methods on the main path's model;
 # multistart's starts and its bar on Branin (minimum 0.398)
 PARALLEL_ITERS, MULTISTART_STARTS, BRANIN_BAR = 16, 64, 0.5
+#: SEM iterations after the timed ones that the parallel phase profiles
+PARALLEL_PROFILED = 2
 PARALLEL_LGP_POINTS = 200
 GATE_GP_N, GATE_GP_D, GATE_GP_SEED = 300, 12, 5
 N_PRED = 20000
@@ -1747,6 +1756,50 @@ def _branin_torch(x2d):
     return (-val).reshape(-1, 1)
 
 
+def _models_equal(ma, mb):
+    """Hyper-parameter paths, latents and R^2 of two trained dgps equal bit
+    for bit."""
+    return all(np.array_equal(a.para_path, b.para_path) and np.array_equal(a.output, b.output)
+               and (a.R2 is None or np.array_equal(a.R2, b.R2))
+               for la, lb in zip(ma.all_layer, mb.all_layer) for a, b in zip(la, lb)
+               if a.type == "gp")
+
+
+def _sem_pair(build, iters, profiled):
+    """`train` and `ptrain` (on the mesh the caller set) of two models that
+    `build` makes alike: ``iters`` timed SEM iterations, then ``profiled``
+    more under torch.profiler, for the host reads (device-to-host copies)
+    and synchronisations per iteration and the kernel launches per
+    iteration by card.  Returns (rows, the models)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+
+    rows, models = {}, {}
+    for how in ("train", "ptrain"):
+        m = build()
+        _, t = _timed(lambda: getattr(m, how)(N=iters, disable=True))
+        models[how] = m
+        before, cards = cv.launch_counts(), cv.launch_counts_by_device()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            getattr(m, how)(N=profiled, disable=True)
+            torch.cuda.synchronize()
+        after, cards_after = cv.launch_counts(), cv.launch_counts_by_device()
+        ev = prof.key_averages()
+        rows[how] = {
+            "seconds": t,
+            "host_reads_per_iteration": sum(e.count for e in ev if "DtoH" in e.key)
+            / profiled,
+            "syncs_per_iteration": sum(e.count for e in ev if e.key in (
+                "cudaStreamSynchronize", "cudaDeviceSynchronize")) / profiled,
+            "launches_per_iteration": {
+                k: (after[k]["launches"] - before[k]["launches"]) / profiled for k in after},
+            "launches_per_iteration_by_card": {
+                k: {d: (c - cards[k].get(d, 0)) / profiled
+                    for d, c in cards_after[k].items()} for k in after}}
+    return rows, models
+
+
 def phase_parallel(dev):
     import warnings
     import torch
@@ -1758,97 +1811,117 @@ def phase_parallel(dev):
     t_phase = time.perf_counter()
     params = _params_json()
     X, Y = bench_data()
-    # a model built with device='cuda' (no index) has the one card's mesh
-    mesh = pmesh.model_mesh("cuda")
+    # a model built with device='cuda' (no index) has the visible cards'
+    # mesh, each card once
+    real_mesh = pmesh.model_mesh
+    mesh = real_mesh("cuda")
+    # the split's mesh: every card, or on one card two shares of it
+    split_mesh = mesh if torch.cuda.device_count() > 1 else (dev, dev)
     cv.reset_launch_counts()
 
     def same(a, b):
         return all(np.array_equal(u, v) for u, v in zip(a, b))
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    pmesh.model_mesh = lambda device: split_mesh
+    try:
+        # ptrain (device='cuda') against a twin's train (cuda:0) from the
+        # same nb_seed, at the main path's n = 2000 and at large_n's 1e5
+        def build_main():
+            nb_seed(123)
+            return dgp(X, Y, layers_from_numpy(params["layers"]), vecchia=True, m=M_TRAIN,
+                       device="cuda")
+        sem, models = _sem_pair(build_main, PARALLEL_ITERS, PARALLEL_PROFILED)
+        mp, mt = models["ptrain"], models["train"]
+        lp_ = _data_json("large_n1e5.json")["protocol"]
+        XL, YL = large_data(lp_)
 
-    # ptrain (device='cuda') against a twin's train (cuda:0) from the same
-    # nb_seed
-    runs = {}
-    for how, where in (("ptrain", "cuda"), ("train", dev)):
+        def build_large():
+            nb_seed(lp_["dgp_seed"])
+            return dgp(XL, YL, _bench_layers(), vecchia=True, m=lp_["dgp_m"],
+                       check_rep=False, device=dev)
+        sem_large, models_large = _sem_pair(build_large, PARALLEL_ITERS, PARALLEL_PROFILED)
+        large_equal = _models_equal(models_large["ptrain"], models_large["train"])
+        del models_large
+        # the emulator's p* methods against the one-device calls
         nb_seed(123)
-        m = dgp(X, Y, layers_from_numpy(params["layers"]), vecchia=True, m=M_TRAIN,
-                device=where)
-        before = launch_counts()
-        _, t = timed(lambda: getattr(m, how)(N=PARALLEL_ITERS, disable=True))
-        runs[how] = {"model": m, "seconds": t,
-                     "per_iteration": {k: (v - before[k]) / PARALLEL_ITERS
-                                       for k, v in launch_counts().items()}}
-    mp, mt = runs["ptrain"]["model"], runs["train"]["model"]
-    ptrain_equal = all(np.array_equal(a.para_path, b.para_path)
-                       and np.array_equal(a.output, b.output)
-                       for la, lb in zip(mp.all_layer, mt.all_layer) for a, b in zip(la, lb))
-    # the emulator's p* methods against the one-device calls
-    nb_seed(123)
-    emu = emulator(mp.estimate(), N=5, device=dev)
-    zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
-    cand = np.random.RandomState(7).uniform(-1, 1, (1000, 1))
-    emu.predict(zp[:10], m=50)                   # builds the ensemble
-    pp, t_pp = timed(lambda: emu.ppredict(zp, m=50))
-    p1, t_p1 = timed(lambda: emu.predict(zp, m=50))
-    pl, t_pl = timed(lambda: emu.ploo(mp.X, m=30))
-    l1, t_l1 = timed(lambda: emu.loo(mp.X, m=30))
-    pm, t_pm = timed(lambda: emu.pmetric(cand, method="ALM", score_only=True))
-    m1, t_m1 = timed(lambda: emu.metric(cand, method="ALM", score_only=True))
-    emulator_rows = {"ppredict_20000_s": t_pp, "predict_20000_s": t_p1, "ploo_s": t_pl,
-                     "loo_s": t_l1, "pmetric_alm_s": t_pm, "metric_alm_s": t_m1}
-    # the gp phase's dense gp
-    ref = _data_json("gp_n2000.json")["protocol"]
-    g = gp(X, Y, kernel(length=np.array([ref["length"]]), name=ref["kernel"],
-                        nugget=ref["nugget"], scale_est=ref["scale_est"],
-                        nugget_est=ref["nugget_est"]), device=dev)
-    g.train()
-    g.predict(zp[:10])                           # first-call work out of the timing
-    gpp, t_gpp = timed(lambda: g.ppredict(zp))
-    gp1, t_gp1 = timed(lambda: g.predict(zp))
-    gpm = g.pmetric(cand, method="MICE", score_only=True)
-    gm1 = g.metric(cand, method="MICE", score_only=True)
-    # lgp on the linked phase's system, one seed
-    lref = _data_json("linked_n2000.json")
-    lp = lref["protocol"]
-    X1, Y1, X2, Y2 = linked_data(lp)
-    np.random.seed(lp["gp_ord_seed"])
-    g1 = gp(X1, Y1, kernel(length=np.array([lp["gp_length"]]), name=lp["gp_kernel"],
-                           scale_est=True, nugget_est=True), vecchia=True, m=lp["m"],
-            device=dev)
-    g1.train()
-    seed = lp["lgp_seeds"][0]
-    nb_seed(seed)
-    np.random.seed(seed)
-    m2 = dgp(X2, Y2, linked_layers(lref), vecchia=True, m=lp["m"], device=dev)
-    system = lgp([[container(g1.export(), local_input_idx=np.array([0]), device=dev)],
-                  [container(m2.estimate(), local_input_idx=np.array([0]), device=dev)]],
-                 N=lp["lgp_N"], device=dev)
-    zl = np.linspace(-1, 1, PARALLEL_LGP_POINTS).reshape(-1, 1)
-    system.predict(zl[:4], m=lp["pred_m"])       # first-call work out of the timing
-    lpp, t_lpp = timed(lambda: system.ppredict(zl, m=lp["pred_m"]))
-    lp1, t_lp1 = timed(lambda: system.predict(zl, m=lp["pred_m"]))
+        emu = emulator(mp.estimate(), N=5, device=dev)
+        zp = np.linspace(-1, 1, N_PRED).reshape(-1, 1)
+        cand = np.random.RandomState(7).uniform(-1, 1, (1000, 1))
+        emu.predict(zp, m=50)              # builds the ensemble, grows the pools
+        pp, t_pp = _timed(lambda: emu.ppredict(zp, m=50))
+        p1, t_p1 = _timed(lambda: emu.predict(zp, m=50))
+        pl, t_pl = _timed(lambda: emu.ploo(mp.X, m=30))
+        l1, t_l1 = _timed(lambda: emu.loo(mp.X, m=30))
+        pm, t_pm = _timed(lambda: emu.pmetric(cand, method="ALM", score_only=True))
+        m1, t_m1 = _timed(lambda: emu.metric(cand, method="ALM", score_only=True))
+        emulator_rows = {"ppredict_20000_s": t_pp, "predict_20000_s": t_p1, "ploo_s": t_pl,
+                         "loo_s": t_l1, "pmetric_alm_s": t_pm, "metric_alm_s": t_m1,
+                         "replicas": sorted(emu._ens._replicas)}
+        # the gp phase's dense gp
+        ref = _data_json("gp_n2000.json")["protocol"]
+        g = gp(X, Y, kernel(length=np.array([ref["length"]]), name=ref["kernel"],
+                            nugget=ref["nugget"], scale_est=ref["scale_est"],
+                            nugget_est=ref["nugget_est"]), device=dev)
+        g.train()
+        g.predict(zp)                                # first-call work out of the timing
+        gpp, t_gpp = _timed(lambda: g.ppredict(zp))
+        gp1, t_gp1 = _timed(lambda: g.predict(zp))
+        gpm = g.pmetric(cand, method="MICE", score_only=True)
+        gm1 = g.metric(cand, method="MICE", score_only=True)
+        # lgp on the linked phase's system, one seed
+        lref = _data_json("linked_n2000.json")
+        lp = lref["protocol"]
+        X1, Y1, X2, Y2 = linked_data(lp)
+        np.random.seed(lp["gp_ord_seed"])
+        g1 = gp(X1, Y1, kernel(length=np.array([lp["gp_length"]]), name=lp["gp_kernel"],
+                               scale_est=True, nugget_est=True), vecchia=True, m=lp["m"],
+                device=dev)
+        g1.train()
+        seed = lp["lgp_seeds"][0]
+        nb_seed(seed)
+        np.random.seed(seed)
+        m2 = dgp(X2, Y2, linked_layers(lref), vecchia=True, m=lp["m"], device=dev)
+        system = lgp([[container(g1.export(), local_input_idx=np.array([0]), device=dev)],
+                      [container(m2.estimate(), local_input_idx=np.array([0]),
+                                 device=dev)]], N=lp["lgp_N"], device=dev)
+        zl = np.linspace(-1, 1, PARALLEL_LGP_POINTS).reshape(-1, 1)
+        system.predict(zl[:4], m=lp["pred_m"])       # first-call work out of the timing
+        lpp, t_lpp = _timed(lambda: system.ppredict(zl, m=lp["pred_m"]))
+        lp1, t_lp1 = _timed(lambda: system.predict(zl, m=lp["pred_m"]))
+    finally:
+        pmesh.model_mesh = real_mesh
     # multistart on Branin, all starts in one batched L-BFGS on the card
     inits = np.random.RandomState(9).uniform([-5, 0], [10, 15], (MULTISTART_STARTS, 2))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        best, t_ms = timed(lambda: utils.multistart(_branin_torch, inits,
-                                                    np.array([-5.0, 0.0]),
-                                                    np.array([10.0, 15.0]), device=dev))
+        best, t_ms = _timed(lambda: utils.multistart(_branin_torch, inits,
+                                                     np.array([-5.0, 0.0]),
+                                                     np.array([10.0, 15.0]), device=dev))
     best_value = float(-_branin_torch(torch.as_tensor(best[None]))[0, 0])
     ms_warnings = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
-    per_it = {k: {h: runs[h]["per_iteration"][k] for h in runs}
-              for k in ("block_nllik_grad_parts_t", "block_loglik_multi_t", "cond_weights_t")}
+    kernels_split = ("block_nllik_grad_parts_t", "block_loglik_multi_t", "cond_weights_t")
+
+    def launches_split(rows, n):
+        shares = len(pmesh.shard_rows(n, split_mesh))
+        per = {h: rows[h]["launches_per_iteration"] for h in rows}
+        return all(per["train"][k] > 0 and per["ptrain"][k] == shares * per["train"][k]
+                   for k in kernels_split)
+
+    def reads_equal(rows):
+        return (rows["train"]["host_reads_per_iteration"] > 0
+                and rows["ptrain"]["host_reads_per_iteration"]
+                == rows["train"]["host_reads_per_iteration"])
+
     checks = {
-        "one_device_mesh": mesh == (dev,),
-        "ptrain_equals_train": ptrain_equal and mp.N == mt.N == PARALLEL_ITERS,
-        "ptrain_launches": all(v["ptrain"] > 0 and v["ptrain"] == v["train"]
-                               for v in per_it.values()),
+        "mesh_names_each_card_once": mesh[0] == dev and len(set(mesh)) == len(mesh)
+        == torch.cuda.device_count(),
+        "split_mesh": len(split_mesh) == max(2, len(mesh)),
+        "ptrain_equals_train": _models_equal(mp, mt)
+        and mp.N == mt.N == PARALLEL_ITERS + PARALLEL_PROFILED,
+        "ptrain_equals_train_1e5": large_equal,
+        "ptrain_launches": launches_split(sem, N_TRAIN)
+        and launches_split(sem_large, lp_["n"]),
+        "ptrain_host_reads": reads_equal(sem) and reads_equal(sem_large),
         "emulator_ppredict": same(pp, p1) and pp[0].shape == (N_PRED, 1),
         "emulator_ploo": same(pl, l1),
         "emulator_pmetric": np.array_equal(pm, m1),
@@ -1860,16 +1933,20 @@ def phase_parallel(dev):
     }
     launches = launch_counts()
     emit({"phase": "parallel", "n": N_TRAIN, "m": M_TRAIN, "mesh": [str(d) for d in mesh],
-          "sem_iterations": PARALLEL_ITERS, "ptrain_s": runs["ptrain"]["seconds"],
-          "train_s": runs["train"]["seconds"], "launches_per_iteration": per_it,
+          "split_mesh": [str(d) for d in split_mesh], "sem_iterations": PARALLEL_ITERS,
+          "profiled_iterations": PARALLEL_PROFILED,
+          "sem_n2000": sem, "sem_n1e5": sem_large,
+          "ptrain_s": sem["ptrain"]["seconds"], "train_s": sem["train"]["seconds"],
+          "ptrain_1e5_s": sem_large["ptrain"]["seconds"],
+          "train_1e5_s": sem_large["train"]["seconds"],
           "emulator": emulator_rows, "gp_ppredict_20000_s": t_gpp,
           "gp_predict_20000_s": t_gp1, "lgp_points": PARALLEL_LGP_POINTS,
           "lgp_ppredict_s": t_lpp, "lgp_predict_s": t_lp1,
           "multistart": {"starts": MULTISTART_STARTS, "seconds": t_ms,
                          "best": best.tolist(), "best_value": best_value,
                          "runtime_warnings": ms_warnings},
-          "launches": launches, "checks": checks,
-          "seconds": time.perf_counter() - t_phase})
+          "launches": launches, "launches_by_card": cv.launch_counts_by_device(),
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"parallel phase checks failed: {checks}")
     return launches

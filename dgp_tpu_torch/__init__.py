@@ -14,9 +14,9 @@ or node-wise ESS, the exact draw of the Hetero mean), new data
 ALM/MICE/VIGF, `nllik`); linked emulation (`container`, `lgp`); prior
 paths (`path`); `write`/`read`, `summary` and `read_dgpsi` (dgpsi
 checkpoints); `ptrain`, the p* methods (`ppredict`, `ploo`, `pmetric`)
-and ``sharded=True``, which compute on the model's own card
-(`parallel/mesh.py`), and `utils.multistart`.  Splitting rows or the SEM
-state over several cards is not ported (ROADMAP.md).
+and ``sharded=True``, which split SEM's per-point kernel calls or the
+prediction rows over every visible card with the one-card results
+(`parallel/mesh.py`), and `utils.multistart`.
 
 Every entry point runs on the current CUDA device unless its ``device``
 argument says otherwise (``device='cpu'``), and raises where there is no

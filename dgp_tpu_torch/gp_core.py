@@ -172,7 +172,9 @@ def gp_predict(x, X, Rinv, Rinv_y, scale, length, nugget, *, name):
     """Dense GP prediction at deterministic inputs x (M, d) -> (mean, var)."""
     r = kernels.k_cross(X, x, length, name)      # (n, M)
     mean = r.T @ Rinv_y
-    rRr = torch.sum(r * (Rinv @ r), dim=0)
+    # each query's sum over a contiguous row: its order does not depend on
+    # how many queries the call holds (a split into shares)
+    rRr = torch.sum((r * (Rinv @ r)).T.contiguous(), dim=1)
     var = torch.abs(scale * (1.0 + nugget - rRr))
     return mean, var
 
@@ -212,7 +214,10 @@ def linkgp_predict(m, v, z, X, Zglobal, Rinv, Rinv_y, scale, length, nugget,
         J = J * (Iz[:, :, None] * Iz[:, None, :])
     tr = linalg.trace_prod(Rinv, J)
     mu = I @ Rinv_y
-    var = torch.abs(linalg.quad_form(J, Rinv_y) - mu**2 + scale * (1.0 + nugget - tr))
+    # J's quadratic form as a product and a sum over contiguous rows: each
+    # query's value does not depend on how many queries the call holds
+    quad = torch.sum((J @ Rinv_y[:, None])[..., 0] * Rinv_y, dim=-1)
+    var = torch.abs(quad - mu**2 + scale * (1.0 + nugget - tr))
     return mu, var
 
 

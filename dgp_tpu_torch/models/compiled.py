@@ -41,6 +41,18 @@ A Vecchia model's NN refresh (`refresh_nn`) rebuilds every node's ordering
 and neighbours on the device, with the exact search or, for a node whose
 ``nn_method`` is 'approx' (`dgp` sets it at n >= 50000), the IVF search of
 `vecchia.nn`, at any n in one path.
+
+Every per-point kernel call of SEM -- K1, K2, K3, K4 and the large-block
+route -- runs over the shares of the Vecchia ordering (`_Shares`,
+`parallel.mesh.Split`): one share on the engine's device, or with a mesh
+of several devices (`train_chunk(mesh=...)`, `dgp.train(sharded=True)`)
+one per device.  Each share's chunk statics, angle views and M-step blocks
+are built on its device from its rows of the neighbour sets and its copy
+of the state (`parallel.mesh.shard_latent_state`, refreshed after every
+change of the latents); the per-point outputs come back to the engine's
+device, joined in share order, and are reduced there.  Random draws, the
+ancestral pass, ESS decisions, the L-BFGS state, likelihood nodes, dense
+nodes, R^2 and the NN refresh stay on the engine's device.
 """
 import numpy as np
 import torch
@@ -50,6 +62,7 @@ from ..ess import ess_update
 from ..ops import cuda_vecchia as cv
 from ..ops import kernels as kops
 from ..ops import linalg
+from ..parallel import mesh as pmesh
 from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
 from . import mstep
@@ -84,6 +97,45 @@ class NodeSpec:
         # the node's input width (node.D of the object graph)
         self.D = len(self.input_dim) + (len(self.connect) if self.connect else 0)
         self.vecch = bool(getattr(obj, 'vecch', False))
+
+
+class _Share:
+    """One share of the Vecchia ordering: its range ``sl`` of the points,
+    the engine's static tensors (the first share's are the engine's own,
+    every other share's copies on its device), every Vecchia node's whole
+    ordering and the share's rows of its neighbour sets (``nn``), and its
+    chunk statics (``cs``)."""
+
+    def __init__(self, engine, device, sl, nn_state, first):
+        def put(t):
+            return t if first or t is None else pmesh.move(t, device)
+        self.sl = sl
+        self.X = put(engine.X)
+        self.y_final = [put(y) for y in engine.y_final]
+        self.w_diag = [put(w) for w in engine.w_diag]
+        self.nn = tuple(tuple(None if d is None else
+                              {'ord': put(d['ord']), 'NN': put(d['NN'][sl])}
+                              for d in layer) for layer in nn_state or ())
+        self.cs = engine._chunk_static(self)
+
+
+class _Shares:
+    """The shares of the Vecchia ordering over ``mesh`` (by default the
+    engine's device alone: one share, on the engine's own tensors; the
+    first share is always the engine's), and the state on each share's
+    device (`sync`)."""
+
+    def __init__(self, engine, nn_state, mesh=None):
+        self.split = pmesh.Split((engine.device,) + tuple(mesh or ())[1:], engine.n)
+        self.items = [_Share(engine, dev, sl, nn_state, i == 0)
+                      for i, (dev, sl) in enumerate(self.split.shares)]
+        self.states = None
+
+    def sync(self, latents, params):
+        """The state on every share's device: itself on the first, a copy
+        on each other (n x width values per latent layer)."""
+        st = pmesh.shard_latent_state((latents, params), self.split.devices)
+        self.states = [st] if len(self.split) == 1 else list(st)
 
 
 class CompiledDGP:
@@ -297,17 +349,21 @@ class CompiledDGP:
             Xn = torch.cat([Xn, G.expand(Xn.shape[:-2] + G.shape)], dim=-1)
         return Xn
 
-    def _nd(self, k, sp, n):
-        w_diag = self.w_diag[k] if (sp.is_final and sp.has_rep) else None
+    def _nd(self, on, k, sp):
+        """Node k's nugget multipliers from the static tensors of ``on``
+        (the engine or a `_Share`), on its device."""
+        w_diag = on.w_diag[k] if (sp.is_final and sp.has_rep) else None
         return w_diag if w_diag is not None else torch.ones(
-            n, dtype=self.dtype, device=self.device)
+            on.X.shape[0], dtype=self.dtype, device=on.X.device)
 
-    def _gp_loglik(self, l, k, latents, params, nn_state):
+    def _gp_loglik(self, l, k, latents, params, nn_state, shares=None):
         """Log-likelihood of node (l, k): a scalar, or (K,) when
         latents[l - 1] carries K candidates.  A Vecchia node goes through
-        K4 (one launch), a dense node through one batched Cholesky; the
-        'ref' prior adds its term at the characteristic length of each
-        candidate's input."""
+        K4, one launch per share of ``shares`` (by default one share on the
+        engine's device), each on its copy of the candidates' ordered
+        inputs; a dense node through one batched Cholesky.  The 'ref' prior
+        adds its term at the characteristic length of each candidate's
+        input."""
         sp = self.spec[l][k]
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
@@ -319,11 +375,17 @@ class CompiledDGP:
                                          name=sp.name, w_diag=w_diag,
                                          ref_prior_coef=ref_coef,
                                          n_length=sp.n_length, vecch=False)
-        ns = nn_state[l][k]
-        nd = self._nd(k, sp, Xn.shape[-2])
-        o = ns['ord']
-        ll = vcore.vecchia_llik(Xn[..., o, :], y[o], ns['NN'], p['scale'],
-                                p['length'], p['nugget'], nd[o], sp.name)
+        shares = shares or _Shares(self, nn_state)
+        split = shares.split
+        o = nn_state[l][k]['ord']
+        nd = self._nd(self, k, sp)
+
+        def part(dev, sl, sh, X_i, y_i, nd_i, ln_i, nug_i):
+            return vcore.llik_parts(X_i, y_i, sh.nn[l][k]['NN'], ln_i, nug_i, nd_i,
+                                    sp.name, sl.start)
+        ll = vcore.llik_total(*split.gathered(
+            part, shares.items, *(split.copies(t) for t in (
+                Xn[..., o, :], y[o], nd[o], p['length'], p['nugget']))), p['scale'])
         if ref_coef is not None:
             cl = gp_core.compute_cl(Xn, Xn.shape[-2], sp.n_length, True)
             ll = ll + gp_core.log_prior(p['length'], p['nugget'], prior_name='ref',
@@ -346,38 +408,40 @@ class CompiledDGP:
             fn = likelihoods.llik_fn(sp.name)
         return fn(f, self.y_lik[k])
 
-    def _upper_loglik(self, l, latents, params, nn_state):
+    def _upper_loglik(self, l, latents, params, nn_state, shares=None):
+        shares = shares or _Shares(self, nn_state)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         for k, sp in enumerate(self.spec[l + 1]):
             if sp.kind == 'gp':
-                total = total + self._gp_loglik(l + 1, k, latents, params, nn_state)
+                total = total + self._gp_loglik(l + 1, k, latents, params, nn_state,
+                                                shares)
             else:
                 total = total + self._lik_loglik(k, latents)
         return total
 
-    def _chunk_static(self, nn_state):
+    def _chunk_static(self, sh):
         """Gathered NN views whose source and indices are fixed for a whole
         I-step (global X columns, y_final, the replicate diagonal, the NN
-        structure), one stacked gather per Vecchia node.  Returns
+        structure), one stacked gather per Vecchia node, for the points of
+        the share ``sh`` from its static tensors, on its device.  Returns
         {(l, k): dict}."""
         cs = {}
         for l, layer in enumerate(self.spec):
             for k, sp in enumerate(layer):
                 if not sp.vecch:
                     continue
-                ns = nn_state[l][k]
+                ns = sh.nn[l][k]
                 ordv = ns['ord']
                 rev = torch.flip(ns['NN'], dims=(1,))
                 validT = (rev >= 0).T                      # (m1, n)
                 safeT = torch.where(validT, rev.T, 0)
                 idx_comp = ordv[safeT]                     # src[ordv][safeT]
-                n = ordv.shape[0]
-                stat_cols = ([self.X[:, c] for c in sp.input_dim] if l == 0 else [])
+                stat_cols = ([sh.X[:, c] for c in sp.input_dim] if l == 0 else [])
                 if sp.connect is not None:
-                    stat_cols += [self.X[:, c] for c in sp.connect]
-                rows = stat_cols + [self._nd(k, sp, n)]
+                    stat_cols += [sh.X[:, c] for c in sp.connect]
+                rows = stat_cols + [self._nd(sh, k, sp)]
                 if sp.is_final:
-                    rows.append(self.y_final[k])
+                    rows.append(sh.y_final[k])
                 src = torch.stack(rows, dim=0)             # (r, n)
                 G = src[:, idx_comp].transpose(0, 1)       # (m1, r, n)
                 d_s = len(stat_cols)
@@ -391,7 +455,7 @@ class CompiledDGP:
                 }
         return cs
 
-    def _draw_prior_node(self, l, k, latents, params, nn_state, gen):
+    def _draw_prior_node(self, l, k, latents, params, nn_state, gen, shares=None):
         """nu ~ N(0, scale * K) for one hidden node (Vecchia ancestral
         sampling, or a dense Cholesky)."""
         sp = self.spec[l][k]
@@ -401,15 +465,39 @@ class CompiledDGP:
             K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
             return linalg.mvn_sample(gen, linalg.safe_cholesky(K))
         ns = nn_state[l][k]
-        samp = vcore.fmvn_sp(gen, Xn[ns['ord']], ns['NN'], p['scale'],
-                             p['length'], p['nugget'], sp.name)
+        Xo = Xn[ns['ord']]
+        parts = self._cond_parts(l, k, Xo, p, shares or _Shares(self, nn_state), False)
+        samp = vcore.fmvn_sp(gen, Xo, ns['NN'], p['scale'], p['length'], p['nugget'],
+                             sp.name, parts=parts)
         return samp[ns['rev']]
 
+    def _cond_parts(self, l, k, Xo, p, shares, use_cs):
+        """The conditional weights (w, sigma) of node (l, k) at its ordered
+        input Xo, one K3 launch per share on its copy of Xo (with ``use_cs``
+        from the share's chunk statics), joined on the engine's device."""
+        sp = self.spec[l][k]
+        split = shares.split
+
+        def part(dev, sl, sh, X_i, ln_i, nug_i):
+            pre = None
+            if use_cs:
+                st = sh.cs[(l, k)]
+                # prior draws carry no replicate diagonal: ones on valid lanes
+                pre = (st['Xg_stat'], torch.where(st['validT'], 1.0, 0.0).to(self.dtype),
+                       st['validT'])
+            return vcore.cond_parts(X_i, sh.nn[l][k]['NN'], ln_i, nug_i, sp.name,
+                                    pre=pre, start=sl.start)
+        parts = split.run(part, shares.items, *(split.copies(t) for t in
+                                                (Xo, p['length'], p['nugget'])))
+        return vcore.join_weights(split.gather, parts, shares.items[0].nn[l][k]['NN'], Xo)
+
     def _draw_prior_node_batch(self, l, k, latents, params, nn_state, gen, S,
-                               cs=None):
+                               shares=None):
         """S iid prior draws for a node whose input is static within the
-        I-step (layer 0): one K3 launch and one ancestral pass for all the
-        ESS sweeps of an I-step."""
+        I-step (layer 0): one K3 launch per share of ``shares`` (by default
+        one share on the engine's device), from the shares' chunk statics at
+        layer 0, and one ancestral pass for all the ESS sweeps of an
+        I-step."""
         sp = self.spec[l][k]
         p = params[l][k]
         Xn = self._node_input(l, k, latents)
@@ -421,22 +509,21 @@ class CompiledDGP:
                               device=self.device)
             return (L @ eps).T
         ns = nn_state[l][k]
-        pre = None
-        if cs is not None and l == 0 and (l, k) in cs:
-            st = cs[(l, k)]
-            # prior draws carry no replicate diagonal: all-ones on valid lanes
-            ones_g = torch.where(st['validT'], 1.0, 0.0).to(self.dtype)
-            pre = (st['Xg_stat'], ones_g, st['validT'])
+        parts = self._cond_parts(l, k, Xn[ns['ord']], p, shares or _Shares(self, nn_state),
+                                 l == 0)
         w, sigma, idx_asc, _ = vcore.cond_weights(
-            Xn[ns['ord']], ns['NN'], p['length'], p['nugget'], sp.name, pre=pre)
+            Xn[ns['ord']], ns['NN'], p['length'], p['nugget'], sp.name, parts=parts)
         eps = (torch.randn((S, n), generator=gen, dtype=self.dtype,
                            device=self.device)
                * torch.sqrt(p['scale']) * sigma[None, :])
         samp = vcore.ancestral_sample(eps, w, idx_asc)
         return samp[:, ns['rev']]
 
-    def _ess_block_layer(self, l, latents, views, params, nn_state, gens,
+    def _ess_block_layer(self, l, latents, views, params, nn_state, gens, shares,
                          pre_nu=None, s=None, plan=None):
+        """One block ESS transition of layer l.  ``plan`` (the layer's angle
+        plans) and the layer's views are lists with one entry per share of
+        ``shares``, each on its share's device."""
         gen, host_gen = gens
         cols = []
         for k in range(len(self.spec[l])):
@@ -444,13 +531,13 @@ class CompiledDGP:
                 cols.append(pre_nu[(l, k)][s])
             else:
                 cols.append(self._draw_prior_node(l, k, latents, params,
-                                                  nn_state, gen))
+                                                  nn_state, gen, shares))
         nu = torch.stack(cols, dim=1)
         f = latents[l]
 
         def log_lik(fp):
             lat2 = latents[:l] + (fp,) + latents[l + 1:]
-            return self._upper_loglik(l, lat2, params, nn_state)
+            return self._upper_loglik(l, lat2, params, nn_state, shares)
 
         if plan is None:
             # the candidates of a round as one batch: K4 with a candidate
@@ -465,18 +552,20 @@ class CompiledDGP:
                                spec=config.ess_spec(f.shape[0]))
             return latents[:l] + (f_new,) + latents[l + 1:], views
 
-        # angle path: gathered block views are maintained across sweeps
-        A_list = views[l]
-        B_list = [nd_['B_all'][s] if nd_['B_all'] is not None
-                  else self._gather_latent_view(nd_, nu) for nd_ in plan['nodes']]
-        ll = self._plan_ll(plan, l, latents, nu, A_list, B_list)
+        # angle path: gathered block views are maintained across sweeps,
+        # each share's on its device
+        A_lists = views[l]
+        B_lists = [[nd_['B_all'][s] if nd_['B_all'] is not None
+                    else self._gather_latent_view(nd_, nu_i) for nd_ in p['nodes']]
+                   for p, nu_i in zip(plan, shares.split.copies(nu))]
+        ll = self._plan_ll(plan, l, latents, nu, A_lists, B_lists, shares)
         f_new, (c_a, s_a) = ess_update(host_gen, f, nu, log_lik,
                                        log_lik_angles=ll,
                                        spec=config.ess_spec(f.shape[0]),
                                        return_angle=True)
-        new_A = tuple(c_a * A + s_a * B for A, B in zip(A_list, B_list))
-        views = views[:l] + (new_A,) + views[l + 1:]
-        return latents[:l] + (f_new,) + latents[l + 1:], views
+        new_A = [tuple(c_a * A + s_a * B for A, B in zip(Al, Bl))
+                 for Al, Bl in zip(A_lists, B_lists)]
+        return latents[:l] + (f_new,) + latents[l + 1:], views[:l] + (new_A,) + views[l + 1:]
 
     def _angle_applicable(self, l):
         """The angle evaluator applies when every upper GP node is Vecchia,
@@ -505,7 +594,7 @@ class CompiledDGP:
             G = torch.cat([G, G.new_zeros((m1, nd_['dg'], n))], dim=1)
         return G
 
-    def _build_angle_plan(self, l, latents, params, nn_state, pre_nu, S, cs=None):
+    def _build_angle_plan(self, l, latents, params, sh, pre_nu, S):
         """Per-I-step static views for layer l's angle evaluator (or None).
 
         ESS candidates are linear in (f, nu), so each upper node's gathered,
@@ -513,54 +602,38 @@ class CompiledDGP:
         + sentinels), the block diagonals and -- for final nodes -- the
         gathered targets are fixed for the I-step; the A views start here
         and are maintained across sweeps by the accepted-angle combine, and
-        layer-0 nu views are gathered for all S sweeps at once."""
+        layer-0 nu views are gathered for all S sweeps at once.  The views
+        cover the points of the share ``sh``, built from its chunk statics
+        and the state (latents, params) on its device."""
         if not (self.block and not self._layer_is_exact(l)
                 and config.ess_spec(latents[l].shape[0]) > 1
                 and self._angle_applicable(l)):
             return None
         dt = self.dtype
-        n = latents[l].shape[0]
+        dev = latents[l].device
         nodes = []
         for j, sp in enumerate(self.spec[l + 1]):
             if sp.kind != 'gp':
                 continue
             p = params[l + 1][j]
-            ns = nn_state[l + 1][j]
-            st = cs.get((l + 1, j)) if cs is not None else None
+            st = sh.cs[(l + 1, j)]
             dl = len(sp.input_dim)
             dg = len(sp.connect) if sp.connect is not None else 0
             length_full = torch.broadcast_to(p['length'], (dl + dg,))
-            if st is not None:
-                ordv, validT, safeT = st['ordv'], st['validT'], st['safeT']
-            else:
-                ordv = ns['ord']
-                rev = torch.flip(ns['NN'], dims=(1,))
-                validT = (rev >= 0).T
-                safeT = torch.where(validT, rev.T, 0)
-            m1 = safeT.shape[0]
-            sent = cv.sentinels(n, m1, dt, self.device)
+            ordv, validT, safeT = st['ordv'], st['validT'], st['safeT']
+            m1, n_c = safeT.shape
+            sent = cv.sentinels(n_c, m1, dt, dev, sh.sl.start)
             nd_ = dict(name=sp.name, j=j, dl=dl, dg=dg, cols=list(sp.input_dim),
                        ordv=ordv, safeT=safeT, validT=validT,
                        s_lat=length_full[:dl], scale=p['scale'],
                        is_final=sp.is_final)
-            C = torch.zeros((m1, dl, n), dtype=dt, device=self.device)
+            C = torch.zeros((m1, dl, n_c), dtype=dt, device=dev)
             if dg:
-                if st is not None:
-                    Cg = st['Xg_stat'] / length_full[dl:, None]
-                else:
-                    Gg = (self.X[:, list(sp.connect)][ordv] / length_full[dl:]).T
-                    Cg = Gg[:, safeT].transpose(0, 1)
-                C = torch.cat([C, Cg], dim=1)
+                C = torch.cat([C, st['Xg_stat'] / length_full[dl:, None]], dim=1)
             nd_['C'] = torch.where(validT[:, None, :], C, sent[:, None, :])
-            ndiag_g = (st['nd_g'] if st is not None
-                       else self._nd(j, sp, n)[ordv][safeT])
             nd_['diag'] = torch.where(
-                validT, 1.0 + p['nugget'] * ndiag_g + vcore._f32_jitter(dt), 1.0)
-            if sp.is_final:
-                nd_['yg'] = (st['yg_stat'] if st is not None else
-                             torch.where(validT, self.y_final[j][ordv][safeT], 0.0))
-            else:
-                nd_['yg'] = None
+                validT, 1.0 + p['nugget'] * st['nd_g'] + vcore._f32_jitter(dt), 1.0)
+            nd_['yg'] = st['yg_stat'] if sp.is_final else None
             nd_['B_all'] = None
             if pre_nu is not None and all((l, c) in pre_nu for c in nd_['cols']):
                 # one batched gather for the A0 view and all S nu views
@@ -569,11 +642,10 @@ class CompiledDGP:
                 lat0 = latents[l][:, nd_['cols']][None]        # (1, n, dl)
                 allv = torch.cat([lat0, nu_all], dim=0)
                 Ms = torch.movedim(allv / nd_['s_lat'], 1, 2)  # (S+1, dl, n)
-                idx_comp = st['idx_comp'] if st is not None else ordv[safeT]
-                G = torch.movedim(Ms[:, :, idx_comp], 2, 1)    # (S+1, m1, dl, n)
+                G = torch.movedim(Ms[:, :, st['idx_comp']], 2, 1)  # (S+1, m1, dl, n)
                 G = torch.where(validT[None, :, None, :], G, 0.0)
                 if dg:
-                    G = torch.cat([G, G.new_zeros((S + 1, m1, dg, n))], dim=2)
+                    G = torch.cat([G, G.new_zeros((S + 1, m1, dg, n_c))], dim=2)
                 nd_['A0'] = G[0]
                 nd_['B_all'] = G[1:]
             else:
@@ -582,25 +654,35 @@ class CompiledDGP:
         lik_nodes = [j for j, sp in enumerate(self.spec[l + 1]) if sp.kind != 'gp']
         return dict(nodes=nodes, lik=lik_nodes)
 
-    def _plan_ll(self, plan, l, latents, nu, A_list, B_list):
+    def _plan_ll(self, plans, l, latents, nu, A_lists, B_lists, shares):
         """Angle evaluator from maintained views: (cos (K,), sin (K,)) ->
         (K,) float64 upper-layer log-liks of the candidates cos*f + sin*nu,
-        one K2 launch per upper GP node, and one call on all K candidates
-        per likelihood node."""
+        one K2 launch per upper GP node and share of ``shares`` (``plans``,
+        ``A_lists`` and ``B_lists`` hold one entry per share, and the
+        shares' states are current), and one call on all K candidates per
+        likelihood node."""
+        lats = [st[0] for st in shares.states]
+        plan = plans[0]
+
+        def k2(j, p, A, B, lat, cosv, sinv):
+            nd_ = p['nodes'][j]
+            if nd_['yg'] is not None:
+                yg = nd_['yg']
+            else:
+                y = lat[l + 1][:, nd_['j']]
+                yg = torch.where(nd_['validT'], y[nd_['ordv']][nd_['safeT']], 0.0)
+            return cv.block_loglik_multi_t(A[j], B[j], nd_['C'], yg, nd_['diag'],
+                                           cosv, sinv, name=nd_['name'], dl=nd_['dl'])
+
         def ll(cosv, sinv):
             cosv = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
             sinv = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
             total = torch.zeros(cosv.shape[0], dtype=torch.float64,
                                 device=self.device)
-            for nd_, A, B in zip(plan['nodes'], A_list, B_list):
-                if nd_['yg'] is not None:
-                    yg = nd_['yg']
-                else:
-                    y = latents[l + 1][:, nd_['j']]
-                    yg = torch.where(nd_['validT'], y[nd_['ordv']][nd_['safeT']], 0.0)
-                ld, q = cv.block_loglik_multi_t(A, B, nd_['C'], yg, nd_['diag'],
-                                                cosv, sinv, name=nd_['name'],
-                                                dl=nd_['dl'])
+            angles = [shares.split.copies(cosv), shares.split.copies(sinv)]
+            for j, nd_ in enumerate(plan['nodes']):
+                ld, q = shares.split.gathered(lambda dev, sl, *a, j=j: k2(j, *a),
+                                              plans, A_lists, B_lists, lats, *angles)
                 total = total - 0.5 * (linalg.sum64(ld, dim=1)
                                        + linalg.sum64(q, dim=1)
                                        / nd_['scale'].to(torch.float64))
@@ -669,21 +751,24 @@ class CompiledDGP:
         self.exact_draws['dense'] += 1
         return self._post_het(v, Gamma, y_eff, gen)
 
-    def _nodewise_loglik(self, l, k, linked, F, latents, params, nn_state):
+    def _nodewise_loglik(self, l, k, linked, F, latents, params, nn_state, shares=None):
         """Log-likelihood of the upper nodes ``linked`` to hidden node (l, k)
-        with its column set to F: (n,) -> a scalar, (K, n) -> (K,)."""
+        with its column set to F: (n,) -> a scalar, (K, n) -> (K,); over
+        the shares as `_gp_loglik`."""
+        shares = shares or _Shares(self, nn_state)
         lat = latents[l].expand(F.shape[:-1] + latents[l].shape).clone()
         lat[..., k] = F
         lat2 = latents[:l] + (lat,) + latents[l + 1:]
         total = torch.zeros(F.shape[:-1], dtype=torch.float64, device=self.device)
         for j in linked:
             if self.spec[l + 1][j].kind == 'gp':
-                total = total + self._gp_loglik(l + 1, j, lat2, params, nn_state)
+                total = total + self._gp_loglik(l + 1, j, lat2, params, nn_state,
+                                                shares)
             else:
                 total = total + self._lik_loglik(j, lat2)
         return total
 
-    def _ess_nodewise_layer(self, l, latents, params, nn_state, gens,
+    def _ess_nodewise_layer(self, l, latents, params, nn_state, gens, shares,
                             pre_nu=None, s=None):
         """One transition per node of layer l against the upper nodes wired
         to it: the exact draw for the mean of a Hetero node, else ESS, whose
@@ -704,11 +789,12 @@ class CompiledDGP:
             if pre_nu is not None and (l, k) in pre_nu:
                 nu = pre_nu[(l, k)][s]
             else:
-                nu = self._draw_prior_node(l, k, latents, params, nn_state, gen)
+                nu = self._draw_prior_node(l, k, latents, params, nn_state, gen, shares)
             f = latents[l][:, k]
 
             def log_lik(F, l=l, k=k, linked=linked):
-                return self._nodewise_loglik(l, k, linked, F, latents, params, nn_state)
+                return self._nodewise_loglik(l, k, linked, F, latents, params, nn_state,
+                                             shares)
 
             def log_lik_angles(cosv, sinv, f=f, nu=nu, log_lik=log_lik):
                 c = torch.as_tensor(cosv, dtype=self.dtype, device=self.device)
@@ -729,34 +815,51 @@ class CompiledDGP:
         return any(sp.kind != 'gp' and sp.exact_post_idx is not None
                    for sp in self.spec[l + 1])
 
-    def _sweep(self, latents, views, params, nn_state, gens, pre_nu=None,
+    def _sweep(self, latents, views, params, nn_state, gens, shares, pre_nu=None,
                s=None, plans=None):
         for l in range(self.n_layer - 1):
             if not self.block or self._layer_is_exact(l):
                 latents = self._ess_nodewise_layer(l, latents, params, nn_state,
-                                                   gens, pre_nu, s)
-                continue
-            plan = plans[l] if plans is not None else None
-            latents, views = self._ess_block_layer(l, latents, views, params,
-                                                   nn_state, gens, pre_nu, s, plan)
+                                                   gens, shares, pre_nu, s)
+            else:
+                plan = plans[l] if plans is not None else None
+                latents, views = self._ess_block_layer(l, latents, views, params,
+                                                       nn_state, gens, shares, pre_nu, s,
+                                                       plan)
+            shares.sync(latents, params)
         return latents, views
 
-    def _i_step(self, latents, params, nn_state, gens, burnin, cs=None):
+    def _share_plans(self, l, pre_nu, S, shares):
+        """Layer l's angle plans, one per share, each built on its share's
+        device from the share's copy of the state and of ``pre_nu``."""
+        pn = ([None] * len(shares.split) if not pre_nu else
+              [dict(zip(pre_nu, vs)) for vs in zip(*(shares.split.copies(v)
+                                                      for v in pre_nu.values()))])
+        plans = shares.split.run(
+            lambda dev, sl, sh, st, pn_i: self._build_angle_plan(l, st[0], st[1], sh, pn_i, S),
+            shares.items, shares.states, pn)
+        return None if plans[0] is None else plans
+
+    def _i_step(self, latents, params, nn_state, gens, burnin, shares=None):
+        """One I-step: ``burnin`` + 1 ESS sweeps over the shares of
+        ``shares`` (by default one share on the engine's device)."""
         S = burnin + 1
+        shares = shares or _Shares(self, nn_state)
+        shares.sync(latents, params)
         # layer-0 prior draws are iid across sweeps (their inputs are the
         # fixed global X), so draw them all at once
         pre_nu = {}
         if self.n_layer > 1:
             for k in range(len(self.spec[0])):
                 pre_nu[(0, k)] = self._draw_prior_node_batch(
-                    0, k, latents, params, nn_state, gens[0], S, cs)
-        plans = tuple(self._build_angle_plan(l, latents, params, nn_state,
-                                             pre_nu if l == 0 else None, S, cs)
+                    0, k, latents, params, nn_state, gens[0], S, shares)
+        plans = tuple(self._share_plans(l, pre_nu if l == 0 else None, S, shares)
                       for l in range(self.n_layer - 1))
-        views = tuple(None if plan is None else tuple(nd_['A0'] for nd_ in plan['nodes'])
-                      for plan in plans)
+        views = tuple(None if ps is None else
+                      [tuple(nd_['A0'] for nd_ in plan['nodes']) for plan in ps]
+                      for ps in plans)
         for s in range(S):
-            latents, views = self._sweep(latents, views, params, nn_state, gens,
+            latents, views = self._sweep(latents, views, params, nn_state, gens, shares,
                                          pre_nu, s, plans)
         return latents
 
@@ -778,12 +881,11 @@ class CompiledDGP:
         ub[p_k:] = 0.0
         return self._t(lb), self._t(ub)
 
-    def _node_operands(self, l, k, sp, latents, params, d_max, p_max, cs):
+    def _node_operands(self, l, k, sp, latents, params, d_max, p_max):
         """Stackable operands of GP node (l, k) for the batched M-step:
-        (op dict, lt0, lb, ub, maxfun).  A Vecchia node's blocks splice the
-        latent columns, gathered here, with the chunk-static views of
-        ``cs``; a dense node brings its zero-padded input, target and
-        replicate diagonal."""
+        (op dict, lt0, lb, ub, maxfun).  A dense node brings its zero-padded
+        input, target and replicate diagonal; a Vecchia node's blocks are
+        built per share (`_vecch_operands`)."""
         dt = self.dtype
         p = params[l][k]
         d_k = sp.D
@@ -826,9 +928,7 @@ class CompiledDGP:
         if not sp.vecch:
             op.update(X=torch.nn.functional.pad(Xn, (0, d_max - d_k)),
                       y=self.y_final[k] if sp.is_final else latents[l][:, k],
-                      w_diag=self._nd(k, sp, self.n))
-        else:
-            self._vecch_operands(op, l, k, sp, latents, d_max, cs)
+                      w_diag=self._nd(self, k, sp))
         lt0 = torch.log(p['length'])
         if sp.nugget_est:
             lt0 = torch.cat([lt0, torch.log(p['nugget'])[None]])
@@ -838,8 +938,10 @@ class CompiledDGP:
         maxfun = min(max(30, 20 + 5 * sp.D), config.MSTEP_MAXFUN_CAP)
         return op, lt0, lb, ub, maxfun
 
-    def _vecch_operands(self, op, l, k, sp, latents, d_max, cs):
-        """A Vecchia node's M-step blocks in the kernels' layout."""
+    def _vecch_operands(self, l, k, sp, latents, d_max, cs):
+        """A Vecchia node's M-step blocks in the kernels' layout, for the
+        points and on the device of the chunk statics ``cs``: a dict of
+        Xg_raw, yg, nug_g and valid."""
         dt = self.dtype
         d_k = sp.D
         st = cs[(l, k)]
@@ -853,14 +955,30 @@ class CompiledDGP:
         parts = [Gd[:, :len(sp.input_dim)]] if l > 0 else []
         parts.append(st['Xg_stat'])
         if d_k < d_max:
-            parts.append(torch.zeros((m1, d_max - d_k, n), dtype=dt, device=self.device))
-        op.update(Xg_raw=torch.cat(parts, dim=1),
-                  yg=st['yg_stat'] if sp.is_final else torch.where(valid, Gd[:, -1], 0.0),
-                  nug_g=st['nd_g'], valid=valid)
+            parts.append(torch.zeros((m1, d_max - d_k, n), dtype=dt, device=valid.device))
+        return dict(Xg_raw=torch.cat(parts, dim=1),
+                    yg=st['yg_stat'] if sp.is_final else torch.where(valid, Gd[:, -1], 0.0),
+                    nug_g=st['nd_g'], valid=valid)
 
-    def _m_step(self, latents, params, nn_state, cs):
+    def _group_blocks(self, es, d_max, shares):
+        """The M-step blocks of the Vecchia group ``es`` ((l, k, spec)
+        triples): per share of ``shares``, the group's stacked Xg_raw, yg,
+        nug_g and valid, built on its device from its copy of the latents
+        (the shares' states are current)."""
+        def blocks(dev, sl, sh, st):
+            per = [self._vecch_operands(l, k, sp, st[0], d_max, sh.cs) for l, k, sp in es]
+            return {key: torch.stack([o[key] for o in per]) for key in per[0]}
+        return shares.split.run(blocks, shares.items, shares.states)
+
+    def _m_step(self, latents, params, nn_state, shares=None):
         """Per-node bounded L-BFGS of every GP node, one batched
-        optimisation per (mode, kernel name, m + 1) group."""
+        optimisation per (mode, kernel name, m + 1) group.  A Vecchia
+        group's blocks are built on the device of every share of ``shares``
+        (by default one share on the engine's device) from its copy of the
+        latents, and each objective evaluation launches K1 (or the route)
+        per share."""
+        shares = shares or _Shares(self, nn_state)
+        shares.sync(latents, params)
         groups = {}
         for l, layer in enumerate(self.spec):
             for k, sp in enumerate(layer):
@@ -873,14 +991,16 @@ class CompiledDGP:
         for (mode, name, _m1), es in groups.items():
             d_max = max(sp.D for _, _, sp in es)
             p_max = max(sp.n_length + (1 if sp.nugget_est else 0) for _, _, sp in es)
-            built = [self._node_operands(l, k, sp, latents, params, d_max, p_max, cs)
+            built = [self._node_operands(l, k, sp, latents, params, d_max, p_max)
                      for l, k, sp in es]
             ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
             lt0, lb, ub = (torch.stack([b[i] for b in built]) for i in (1, 2, 3))
+            parts = self._group_blocks(es, d_max, shares) if mode == 'vecch' else None
             lt, scale, ok = mstep.run_group(
                 ops, lt0, lb, ub, [b[4] for b in built], name=name, mode=mode,
                 d_max=d_max, n=self.n,
-                has_ref=any(sp.prior_name == 'ref' for _, _, sp in es))
+                has_ref=any(sp.prior_name == 'ref' for _, _, sp in es),
+                parts=parts, split=shares.split)
             for i, (l, k, _) in enumerate(es):
                 results[(l, k)] = (lt[i], scale[i], ok[i], lt0[i])
 
@@ -939,29 +1059,30 @@ class CompiledDGP:
         ``gen`` draws the device-side normals; ``host_gen`` (a CPU
         generator) the ESS uniforms."""
         latents, params = state
-        nn_state = self.get_nn_state()
-        cs = self._chunk_static(nn_state)
-        latents = self._i_step(latents, params, nn_state, (gen, host_gen),
-                               burnin, cs)
+        latents = self._i_step(latents, params, self.get_nn_state(), (gen, host_gen),
+                               burnin)
         return latents, params
 
-    def train_chunk(self, state, gens, n_iters, ess_burn, nn_state=None):
+    def train_chunk(self, state, gens, n_iters, ess_burn, nn_state=None, mesh=None):
         """Run ``n_iters`` SEM iterations (I-step, R^2, M-step) from
         ``state``.  ``gens`` is (device generator, CPU generator for the ESS
         uniforms); ``nn_state`` may carry a device-refreshed NN structure
-        (see refresh_nn) and by default is read from the node objects.
+        (see refresh_nn) and by default is read from the node objects.  The
+        per-point kernel calls run over the shares of ``mesh``
+        (`parallel.mesh.model_mesh`; by default the engine's device alone),
+        with the same results on any mesh (`_Shares`).
         Returns (state, para, r2): per GP node an (n_iters, 2 + p) tensor of
         para_path rows, and per globally connected node an (n_iters, d)
         tensor of R^2 values."""
         if nn_state is None:
             nn_state = self.get_nn_state()
         latents, params = state
-        cs = self._chunk_static(nn_state)
+        shares = _Shares(self, nn_state, mesh)
         paras, r2s = [], []
         for _ in range(n_iters):
-            latents = self._i_step(latents, params, nn_state, gens, ess_burn, cs)
+            latents = self._i_step(latents, params, nn_state, gens, ess_burn, shares)
             r2s.append(self._r2_vector(latents))
-            params = self._m_step(latents, params, nn_state, cs)
+            params = self._m_step(latents, params, nn_state, shares)
             paras.append(self._para_vector(params))
         para = tuple(torch.stack(col) for col in zip(*paras))
         r2 = tuple(torch.stack(col) for col in zip(*r2s))

@@ -15,8 +15,8 @@ burn-in), `update_all_layer`, and the switches `to_vecchia` and
 `remove_vecchia`.  From n >= 50000 points every GP node searches its
 neighbours with the IVF approximate search (``nn_method = 'approx'``), as
 in the JAX package.  `ptrain` is ``train(sharded=True)``: on a
-one-device mesh (`parallel.mesh`) the same training; sharding the SEM
-state across several cards is not ported and raises (ROADMAP.md).
+one-device mesh (`parallel.mesh`) the same training; on several devices
+SEM's per-point kernel calls are split over them, with the same results.
 """
 import copy
 import sys
@@ -484,17 +484,17 @@ class dgp:
         A non-finite hyper-parameter, R^2 or latent restarts the call from
         re-initialised latents, at most 3 times (dgp.py:1402-1412).
         ``disable`` silences the per-chunk progress line on stderr.
-        ``sharded`` places the SEM state on the mesh of the model's device
-        (`parallel.mesh.shard_latent_state`): on one device it is this
-        training; on several it raises, as the multi-GPU SEM is not
-        ported."""
+        ``sharded`` trains on the mesh of the model's device
+        (`parallel.mesh.model_mesh`): on one device it is this training; on
+        several, every per-point kernel call of SEM is split over the mesh's
+        devices (`CompiledDGP.train_chunk`), with the same results bit for
+        bit."""
         N0 = self.N
         restarts, max_restarts = 0, 3
+        split = {'mesh': pmesh.model_mesh(self.device)} if sharded else {}
         while True:
             engine = self.imp._engine()
             state = engine.get_state()
-            if sharded:
-                state = pmesh.shard_latent_state(state, pmesh.model_mesh(self.device))
             if self.N == 0 and getattr(self.all_layer[-1][0], 'name', None) == 'Categorical':
                 state = self._inflate_scales(state)
             gens = (rng.next_generator(self.device), rng.next_generator('cpu'))
@@ -513,7 +513,7 @@ class dgp:
                         nxt *= 2
                     this = min(this, nxt - g)
                 state, para, r2 = engine.train_chunk(state, gens, this, ess_burn,
-                                                     nn_state=nn_dev)
+                                                     nn_state=nn_dev, **split)
                 ok = bool(torch.stack([torch.isfinite(t).all()
                                        for grp in (para, r2, state[0])
                                        for t in grp]).all())
@@ -549,9 +549,10 @@ class dgp:
             self.imp.sample(burnin=10)
 
     def ptrain(self, N=500, ess_burn=10, disable=False, core_num=None):
-        """`train` with ``sharded=True`` (the reference's process pool of
-        M-step optimisations, dgp.py:1414, is the batched L-BFGS of every
-        node group here; ``core_num`` is ignored)."""
+        """`train` with ``sharded=True``: SEM split over the devices of the
+        model's mesh (the reference's process pool of M-step optimisations,
+        dgp.py:1414, is the batched L-BFGS of every node group here;
+        ``core_num`` is ignored)."""
         return self.train(N=N, ess_burn=ess_burn, disable=disable, sharded=True)
 
     def _append_paths(self, snapshots):

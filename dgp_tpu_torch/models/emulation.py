@@ -15,10 +15,11 @@ returns, and `nllik` gives the negative predicted log-likelihood.
 `to_vecchia`, `remove_vecchia` and `change_vecch_state` switch the
 imputations' nodes between dense and Vecchia prediction; the ensemble is
 rebuilt whenever the nodes' modes differ from the ones it was built on.
-`ppredict`, `ploo` and `pmetric` are aliases of `predict`, `loo` and
-`metric`, and ``predict(sharded=True)`` is the plain call on the
-emulator's device (`parallel/mesh.py`); the ``chunk_num`` and
-``core_num`` of the reference's process pools are accepted and ignored.
+`ppredict`, `ploo` and `pmetric` are `predict`, `loo` and `metric` with
+``sharded=True``: the ensemble splits the query rows over the devices of
+the emulator's mesh (`parallel/mesh.py`, `CompiledEnsemble.propagate`),
+with the same results bit for bit; the ``chunk_num`` and ``core_num`` of
+the reference's process pools are accepted and ignored.
 """
 import copy
 from contextlib import contextmanager
@@ -27,6 +28,7 @@ import numpy as np
 
 from .. import config
 from ..design import mice_var
+from ..parallel import mesh as pmesh
 from .imputation import imputer
 from .ensemble import CompiledEnsemble
 
@@ -116,12 +118,13 @@ class emulator:
                     node.vecch = False
                 node.loo_state = False
 
-    def loo(self, X, method=None, sample_size=50, m=30):
+    def loo(self, X, method=None, sample_size=50, m=30, sharded=False):
         """Leave-one-out predictions at the training inputs X, by
         self-excluding nearest-neighbour prediction (emulation.py:109): a
         Vecchia emulator conditions each point on its m nearest others, a
         dense one on all others.  Replicated rows of X are predicted once
-        and the results spread back to them."""
+        and the results spread back to them.  ``sharded`` as in
+        `predict`."""
         if method is None:
             method = 'mean_var'
         isrep = len(X) != len(self.all_layer[0][0].input)
@@ -130,26 +133,30 @@ class emulator:
             indices = indices.flatten()
         m_pred = m + 1 if self.vecch else X.shape[0]
         with self.change_vecch_state():
-            final_res = self.predict(X, method=method, sample_size=sample_size, m=m_pred)
+            final_res = self.predict(X, method=method, sample_size=sample_size, m=m_pred,
+                                     sharded=sharded)
         if isrep:
             final_res = type(final_res)(item[indices, :] for item in final_res)
         return final_res
 
     def ploo(self, X, method=None, sample_size=50, m=30, core_num=None):
-        """`loo` (an alias, as in the JAX package; ``core_num`` is
-        ignored)."""
-        return self.loo(X, method=method, sample_size=sample_size, m=m)
+        """`loo` with ``sharded=True`` (``core_num`` is ignored)."""
+        return self.loo(X, method=method, sample_size=sample_size, m=m, sharded=True)
 
     # ------------------------------------------------------------------
-    def _propagate(self, x, m):
+    def _propagate(self, x, m, sharded=False):
         """Means and variances of every layer at x through the ensemble,
-        rebuilt when the nodes' dense/Vecchia modes changed since it was
-        built (emulation.py:210-228)."""
+        rebuilt (with its replicas on other devices) when the nodes'
+        dense/Vecchia modes changed since it was built (emulation.py:
+        210-228); with ``sharded``, the query rows split over the
+        emulator's mesh."""
         nodes = _gp_nodes(self.all_layer_set[0])
         if self._ens is None or self._ens.vecch_sig != tuple(nd.vecch for nd in nodes):
             self._ens = CompiledEnsemble(self.all_layer_set, self.device)
         loo = any(node.loo_state for node in nodes)
-        return self._ens.propagate(np.asarray(x, config.np_dtype()), m, loo=loo)
+        mesh = pmesh.model_mesh(self.device) if sharded else None
+        return self._ens.propagate(np.asarray(x, config.np_dtype()), m, loo=loo,
+                                   mesh=mesh)
 
     def _final_moments(self, i, one_imputed, means, vars_, in_mean, in_var):
         """(mean, var) of imputation i's final layer, (M, n_out): a GP
@@ -182,8 +189,9 @@ class emulator:
         over layers of the aggregated moments.  ``method='sampling'``:
         ``sample_size`` draws per imputation, a list over outputs of (M,
         N * sample_size) arrays (with ``full_layer``, a list over layers of
-        such lists).  ``sharded`` is accepted for the JAX package's
-        signature; the call computes on the emulator's device."""
+        such lists).  ``sharded`` splits the query rows over the devices
+        of the emulator's mesh (`parallel.mesh.model_mesh`); the results
+        are the same bit for bit."""
         if x.ndim == 1:
             raise Exception('The testing input has to be a numpy 2d-array')
         x = np.asarray(x, config.np_dtype())
@@ -192,7 +200,7 @@ class emulator:
         M = len(x)
         if method == 'mean_var':
             sample_size = 1
-        means, vars_ = self._propagate(x, m)
+        means, vars_ = self._propagate(x, m, sharded)
         mean_pred, variance_pred = [], []
         likelihood_mean, likelihood_variance = [], []
         for i, one_imputed in enumerate(self.all_layer_set):
@@ -238,10 +246,10 @@ class emulator:
 
     def ppredict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
                  chunk_num=None, core_num=None):
-        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
-        reference's process pool, emulation.py:578, are ignored)."""
+        """`predict` with ``sharded=True`` (``chunk_num`` and ``core_num``
+        of the reference's process pool, emulation.py:578, are ignored)."""
         return self.predict(x, method=method, full_layer=full_layer,
-                            sample_size=sample_size, m=m)
+                            sample_size=sample_size, m=m, sharded=True)
 
     def _sampling_output(self, mean_pred, variance_pred, likelihood_mean,
                          likelihood_variance, full_layer, is_cat):
@@ -315,7 +323,7 @@ class emulator:
 
     # ------------------------------------------------------------------
     def metric(self, x_cand, method='ALM', obj=None, nugget_s=1., m=50,
-               score_only=False):
+               score_only=False, sharded=False):
         """Sequential-design criteria over the ensemble (emulation.py:323):
         ALM (the predictive variance; of the last hidden layer under a
         likelihood), MICE (the predictive variance over the smoothed
@@ -323,21 +331,22 @@ class emulator:
         imputations) or VIGF (the variance of the improvement for global
         fit; ``obj`` is the dgp, whose X gives each candidate's nearest
         training point).  The scores (M, D) with ``score_only``, else the
-        index of the best candidate per output and its score."""
+        index of the best candidate per output and its score.
+        ``sharded`` as in `predict`."""
         if x_cand.ndim == 1:
             raise Exception('The candidate design set has to be a numpy 2d-array.')
         x_cand = np.asarray(x_cand, config.np_dtype())
         islik = self.all_layer[-1][0].type == 'likelihood'
         if method == 'ALM':
             if islik:
-                _, sigma2 = self.predict(x=x_cand, full_layer=True, m=m)
+                _, sigma2 = self.predict(x=x_cand, full_layer=True, m=m, sharded=sharded)
                 score = sigma2[-2]
             else:
-                _, score = self.predict(x=x_cand, m=m)
+                _, score = self.predict(x=x_cand, m=m, sharded=sharded)
         elif method == 'MICE':
-            score = self._mice(x_cand, islik, nugget_s, m)
+            score = self._mice(x_cand, islik, nugget_s, m, sharded)
         elif method == 'VIGF':
-            score = self._vigf(x_cand, islik, obj, m)
+            score = self._vigf(x_cand, islik, obj, m, sharded)
         else:
             raise ValueError(f"unknown method: {method}")
         if score_only:
@@ -347,16 +356,16 @@ class emulator:
 
     def pmetric(self, x_cand, method='ALM', obj=None, nugget_s=1., m=50,
                 score_only=False, chunk_num=None, core_num=None):
-        """`metric` (an alias, as in the JAX package; ``chunk_num`` and
-        ``core_num`` are ignored)."""
+        """`metric` with ``sharded=True`` (``chunk_num`` and ``core_num``
+        are ignored)."""
         return self.metric(x_cand, method=method, obj=obj, nugget_s=nugget_s, m=m,
-                           score_only=score_only)
+                           score_only=score_only, sharded=True)
 
     def _mice_var(self, nd, x, x_cand, nugget_s):
         return mice_var(x, x_cand, nd.input_dim, nd.connect, nd.name, nd.length,
                         nd.scale, nd.nugget[0], nugget_s, device=self.device).flatten()
 
-    def _mice(self, x_cand, islik, nugget_s, m):
+    def _mice(self, x_cand, islik, nugget_s, m, sharded=False):
         """MICE scores (M, D): a 2-layer likelihood model from the first
         layer's GP prediction on ``all_layer`` (emulation.py:393), other
         models from each imputation's moments of the last GP layer and of
@@ -374,7 +383,7 @@ class emulator:
                                         for nd in layer])
             return sigma2 / sigma2_s
         last = self.n_layer - 2 if islik else self.n_layer - 1
-        means, vars_ = self._propagate(x_cand, m)
+        means, vars_ = self._propagate(x_cand, m, sharded)
         mice = np.zeros((len(x_cand), len(self.all_layer[last])))
         for i, one_imputed in enumerate(self.all_layer_set):
             s_i = np.column_stack([self._mice_var(nd, means[last - 1][i], x_cand, nugget_s)
@@ -383,7 +392,7 @@ class emulator:
                 mice += np.log(vars_[last][i] / s_i)
         return mice / len(self.all_layer_set)
 
-    def _vigf(self, x_cand, islik, obj, m):
+    def _vigf(self, x_cand, islik, obj, m, sharded=False):
         """VIGF scores (M, D) from each imputation's moments of the last GP
         layer and that layer's outputs at each candidate's nearest training
         input (emulation.py:347)."""
@@ -394,7 +403,7 @@ class emulator:
         Dist = np.sum((x_cand[:, None, :] - obj.X[None, :, :]) ** 2, axis=-1)
         index = np.argmin(Dist, axis=1)
         last = self.n_layer - 2 if islik else self.n_layer - 1
-        means, vars_ = self._propagate(x_cand, m)
+        means, vars_ = self._propagate(x_cand, m, sharded)
         bias_set, var_set = [], []
         for i, one_imputed in enumerate(self.all_layer_set):
             out = means[last][i]

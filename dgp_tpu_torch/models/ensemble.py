@@ -22,11 +22,23 @@ A Vecchia node whose ``nn_method`` is 'approx' (at more than 4 * 256
 training points) searches its prediction neighbours through an IVF index
 built once per ensemble, as the JAX package's ensemble does: one index over
 layer 0's shared inputs, one per imputation deeper.
+
+The query chunks go in shares over a mesh (`parallel.mesh.Split`): one
+share on the ensemble's device, or with a mesh of several devices
+(`propagate(..., mesh=...)`, the emulator's p* methods) one per device.
+The first share runs its chunks on the ensemble's tensors, every other on
+a replica of them on its device (`_replica`, copied once per ensemble);
+all chunks are launched before anything is read back, and the outputs come
+to the host once.  Every query's result is its own, so any split returns
+the one-device results bit for bit.
 """
+import copy
+
 import numpy as np
 import torch
 
 from .. import config, gp_core
+from ..parallel import mesh as pmesh
 from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
 
@@ -121,6 +133,20 @@ class CompiledEnsemble:
                                if nd is not None)
         # only Vecchia nodes take the extra diagonal of the jitter retry
         self._any_vecch = any(self.vecch_sig)
+        #: copies of this ensemble for the shares after the first, by device
+        self._replicas = {}
+
+    def _replica(self, device):
+        """This ensemble with copies of its tensors on ``device`` (also
+        where that is its own device), made once and kept."""
+        key = str(device)
+        if key not in self._replicas:
+            rep = copy.copy(self)
+            rep.device, rep._replicas = device, {}
+            for attr in ('_X_global', 'y_stack', 'spec', 'F'):
+                setattr(rep, attr, _to(getattr(self, attr), device))
+            self._replicas[key] = rep
+        return self._replicas[key]
 
     def _build_ivf(self):
         """IVF indices (centroids, inverted lists) of the approximate-NN
@@ -257,34 +283,72 @@ class CompiledEnsemble:
                 per_q = max(per_q, (8 + 4 * D) * m1 * m1 * item)
         return int(min(_CHUNK, max(1, QUERY_BUDGET // per_q)))
 
-    def propagate(self, x, m_pred, loo=False):
+    def propagate(self, x, m_pred, loo=False, mesh=None):
         """Run the ensemble through all layers.  Returns (means, vars): per
         layer an (N, M, width) numpy array, or for a final layer that holds
-        likelihood nodes a {node index: (N, M)} dict of its GP nodes."""
+        likelihood nodes a {node index: (N, M)} dict of its GP nodes.  The
+        queries go in chunks of `query_batch`, split into shares of whole
+        chunks over ``mesh`` (by default this ensemble's device alone; the
+        first share is always this ensemble's):
+        every share's chunks are launched on its device, the outputs joined
+        on this ensemble's device and read back once.  A chunk with a
+        non-finite entry is computed again at the rungs of the jitter retry,
+        keeping its finite entries."""
         x = torch.as_tensor(np.asarray(x, config.np_dtype()), device=self.device)
-        M = x.shape[0]
-        means = [[] for _ in range(self.n_layer)]
-        vars_ = [[] for _ in range(self.n_layer)]
         chunk = self.query_batch(m_pred)
-        for s in range(0, M, chunk):
-            xc = x[s:s + chunk]
-            mc, vc = self._chunk(xc, m_pred, loo, 0.0)
-            # jitter escalation for chunks whose Vecchia blocks factorised
-            # non-finite; keep the healthy entries
-            for extra in vcore.PRED_JITTER_RUNGS if self._any_vecch else ():
-                if all(bool(torch.isfinite(a).all()) for a in mc + vc):
-                    break
-                m2, v2 = self._chunk(xc, m_pred, loo, extra)
-                mc = [torch.where(torch.isfinite(a), a, b) for a, b in zip(mc, m2)]
-                vc = [torch.where(torch.isfinite(a), a, b) for a, b in zip(vc, v2)]
-            for l in range(self.n_layer):
-                means[l].append(mc[l])
-                vars_[l].append(vc[l])
-        return tuple([self._layer_out(l, torch.cat(p[l], dim=1).cpu().numpy())
-                      for l in range(self.n_layer)] for p in (means, vars_))
+        split = pmesh.Split((self.device,) + tuple(mesh or ())[1:], x.shape[0], chunk)
+        bounds = [[(s, min(s + chunk, sl.stop - sl.start))
+                   for s in range(0, sl.stop - sl.start, chunk)] for _, sl in split.shares]
+
+        def run(extra, todo):
+            """Chunks todo[i] of share i at the extra diagonal: a list over
+            shares of lists over chunks of (means, vars) host arrays, read
+            back in one transfer."""
+            def share(dev, sl, i, x_i, todo_i):
+                ens = self if i == 0 else self._replica(dev)
+                outs = [ens._chunk(x_i[a:b], m_pred, loo, extra) for a, b in todo_i]
+                return outs if i == 0 else _to(outs, self.device)
+            outs = split.run(share, range(len(split)), split.cols(x, 0), todo)
+            flat = [t for o in outs for mv in o for part in mv for t in part]
+            if not flat:
+                return outs
+            host = torch.cat([t.reshape(-1) for t in flat]).cpu().numpy()
+            arrs = iter(np.split(host, np.cumsum([t.numel() for t in flat])[:-1]))
+            shapes = iter([t.shape for t in flat])
+            return [[[[next(arrs).reshape(next(shapes)) for _ in part] for part in mv]
+                     for mv in o] for o in outs]
+
+        res = run(0.0, bounds)
+        for extra in vcore.PRED_JITTER_RUNGS if self._any_vecch else ():
+            bad = [[c for c, mv in enumerate(r)
+                    if not all(np.isfinite(a).all() for part in mv for a in part)]
+                   for r in res]
+            if not any(bad):
+                break
+            again = run(extra, [[b[c] for c in cs_] for cs_, b in zip(bad, bounds)])
+            for r, cs_, new in zip(res, bad, again):
+                for c, mv2 in zip(cs_, new):
+                    r[c] = [[np.where(np.isfinite(a), a, a2) for a, a2 in zip(p1, p2)]
+                            for p1, p2 in zip(r[c], mv2)]
+        chunks = [mv for r in res for mv in r]
+        return tuple([self._layer_out(l, np.concatenate([mv[part][l] for mv in chunks],
+                                                        axis=1))
+                      for l in range(self.n_layer)] for part in range(2))
 
     def _layer_out(self, l, a):
         gp_cols = [k for k, nd in enumerate(self.spec[l]) if nd is not None]
         if len(gp_cols) == len(self.spec[l]):
             return a
         return {k: a[:, :, i] for i, k in enumerate(gp_cols)}
+
+
+def _to(obj, device):
+    """``obj`` with every tensor in it (through lists, tuples and dict
+    values) copied to ``device`` (`parallel.mesh.move`)."""
+    if isinstance(obj, torch.Tensor):
+        return pmesh.move(obj, device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    return obj

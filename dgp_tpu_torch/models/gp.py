@@ -5,9 +5,13 @@ collapsing, train / predict / loo / metric (ALM, MICE, VIGF), the switch
 to and from the Vecchia approximation, and export.  The node's compute
 runs on the gp's ``device`` (default: the card).  From n >= 50000 points
 the node's Vecchia neighbours come from the IVF approximate search, as in
-the JAX package.  ``ppredict`` and ``pmetric`` are aliases of `predict`
-and `metric`, and ``predict(sharded=True)`` is the plain call on the gp's
-device (`parallel/mesh.py`).
+the JAX package.  `predict` takes the test rows in chunks of
+`ensemble._CHUNK`, all launched before one read back
+(`kernel.gp_prediction`); ``ppredict`` and ``pmetric`` are `predict` and
+`metric` with ``sharded=True``, which splits the chunks over the devices
+of the gp's mesh (`parallel/mesh.py`): each share's chunks run through the
+same prediction on its own device and host thread, with the same results
+bit for bit.
 """
 import copy
 
@@ -15,6 +19,8 @@ import numpy as np
 
 from .. import config
 from ..design import mice_var
+from ..parallel import mesh as pmesh
+from . import ensemble
 
 #: the data size from which the gp and the dgp search neighbours with the
 #: IVF approximate search (the JAX package's switch)
@@ -184,14 +190,30 @@ class gp:
             return samples if self.indices is None else samples[self.indices, :]
 
     def predict(self, x, method='mean_var', sample_size=50, m=50, sharded=False):
-        """Predict at test inputs (gp.py:412).  ``sharded`` is accepted for
-        the JAX package's signature; the call computes on the gp's device."""
+        """Predict at test inputs (gp.py:412), in chunks of
+        `ensemble._CHUNK` rows.  ``sharded`` splits the chunks over the
+        devices of the gp's mesh (`parallel.mesh.model_mesh`); the results
+        are the same bit for bit."""
         if x.ndim == 1:
             raise Exception('The testing input has to be a numpy 2d-array')
         x = np.asarray(x, config.np_dtype())
         z_in = x[:, self.kernel.connect] if self.kernel.connect is not None else None
         self.kernel.pred_m = m
-        mu, sigma2 = self.kernel.gp_prediction(x=x[:, self.kernel.input_dim], z=z_in)
+        x_in = x[:, self.kernel.input_dim]
+        if not self.vecch and self.kernel.Rinv is None:
+            self.kernel.compute_stats()
+
+        def share(dev, sl):
+            node = copy.copy(self.kernel)
+            node.device = dev
+            return node.gp_prediction(x_in[sl], None if z_in is None else z_in[sl],
+                                      ensemble._CHUNK)
+        if sharded:
+            parts = pmesh.map_shares(pmesh.model_mesh(self.device), len(x), share,
+                                     ensemble._CHUNK)
+            mu, sigma2 = (np.concatenate(p) for p in zip(*parts))
+        else:
+            mu, sigma2 = self.kernel.gp_prediction(x_in, z_in, ensemble._CHUNK)
         if method == 'mean_var':
             return mu.reshape(-1, 1), sigma2.reshape(-1, 1)
         elif method == 'sampling':
@@ -199,20 +221,22 @@ class gp:
 
     def ppredict(self, x, method='mean_var', sample_size=50, m=50, chunk_num=None,
                  core_num=None):
-        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
-        reference's process pool, gp.py:373-410, are ignored)."""
-        return self.predict(x, method=method, sample_size=sample_size, m=m)
+        """`predict` with ``sharded=True`` (``chunk_num`` and ``core_num`` of
+        the reference's process pool, gp.py:373-410, are ignored)."""
+        return self.predict(x, method=method, sample_size=sample_size, m=m, sharded=True)
 
-    def metric(self, x_cand, method='MICE', nugget_s=1., m=50, score_only=False):
-        """ALM / MICE / VIGF sequential-design criteria (gp.py:271)."""
+    def metric(self, x_cand, method='MICE', nugget_s=1., m=50, score_only=False,
+               sharded=False):
+        """ALM / MICE / VIGF sequential-design criteria (gp.py:271);
+        ``sharded`` as in `predict`."""
         if method == 'ALM':
-            _, sigma2 = self.predict(x=x_cand, m=m)
+            _, sigma2 = self.predict(x=x_cand, m=m, sharded=sharded)
             if score_only:
                 return sigma2
             idx = np.argmax(sigma2, axis=0)
             return idx, sigma2[idx, 0]
         elif method == 'MICE':
-            _, sigma2 = self.predict(x=x_cand, m=m)
+            _, sigma2 = self.predict(x=x_cand, m=m, sharded=sharded)
             sigma2_s = mice_var(x_cand, x_cand, self.kernel.input_dim, self.kernel.connect,
                                 self.kernel.name, self.kernel.length, self.kernel.scale,
                                 self.kernel.nugget[0], nugget_s, device=self.device)
@@ -226,7 +250,7 @@ class gp:
                 raise Exception('VIGF is not applicable with replicated training data.')
             Dist = np.sum((x_cand[:, None, :] - self.X[None, :, :]) ** 2, axis=-1)
             index = np.argmin(Dist, axis=1)
-            mu, sigma2 = self.predict(x=x_cand, m=m)
+            mu, sigma2 = self.predict(x=x_cand, m=m, sharded=sharded)
             bias = (mu - self.Y[index, :]) ** 2
             vigf = 4 * sigma2 * bias + 2 * sigma2 ** 2
             if score_only:
@@ -237,9 +261,7 @@ class gp:
 
     def pmetric(self, x_cand, method='MICE', nugget_s=1., m=50, score_only=False,
                 chunk_num=None, core_num=None):
-        """`metric`, unchanged: an alias, as in the JAX package
-        (`dgp_tpu/models/gp.py:241-244`).  The criteria score every
-        candidate in one batched call on the gp's device, so there is
-        nothing to split; ``chunk_num`` and ``core_num`` are ignored."""
+        """`metric` with ``sharded=True``: its predictions split the
+        candidates (``chunk_num`` and ``core_num`` are ignored)."""
         return self.metric(x_cand, method=method, nugget_s=nugget_s, m=m,
-                           score_only=score_only)
+                           score_only=score_only, sharded=True)

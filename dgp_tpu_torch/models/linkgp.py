@@ -12,15 +12,24 @@ computes on lgp's device.  The JAX package also has a device pass over all
 imputations at once (`dgp_tpu/models/linked_ensemble.py`, one jitted
 program per query chunk); in eager PyTorch that pass measured no faster
 than this loop on the card, so it is not ported (PERF.md, PR 7).
-``predict(sharded=True)`` and `ppredict` are the plain call on lgp's
-device (`parallel/mesh.py`).
+A 'mean_var' prediction takes the test rows in chunks of
+`ensemble._CHUNK`, each GP node's training-side operands on the device
+once per call (`kernel.prediction_operands`); ``predict(sharded=True)``
+and `ppredict` split the chunks over the devices of lgp's mesh
+(`parallel/mesh.py`): each share's chunks go through the same loop on
+copies of the system whose nodes compute on the share's device, one host
+thread per share, with the same results bit for bit.  'sampling' draws from numpy's global generator node
+by node, so it is neither chunked nor split.
 """
+import contextlib
 import copy
 
 import numpy as np
 
 from .. import config
+from ..parallel import mesh as pmesh
 from ..utils import have_same_shape
+from . import ensemble
 from .imputation import imputer
 
 
@@ -29,6 +38,29 @@ def _gp_nodes(structure):
     if not isinstance(structure, list):
         return [structure]
     return [node for layer in structure for node in layer if node.type == 'gp']
+
+
+def _on_device(cont, device):
+    """A copy of container ``cont`` whose GP nodes (copies sharing their
+    arrays) compute on ``device``."""
+    def node_on(node):
+        node = copy.copy(node)
+        if node.type == 'gp':
+            node.device = device
+        return node
+    c = copy.copy(cont)
+    c.device = device
+    c.structure = (node_on(c.structure) if c.type == 'gp' else
+                   [[node_on(node) for node in layer] for layer in c.structure])
+    return c
+
+
+def _cat_rows(parts):
+    """The shares' nested lists or tuples of (rows, ...) arrays joined row
+    by row."""
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts, axis=0)
+    return type(parts[0])(_cat_rows([p[i] for p in parts]) for i in range(len(parts[0])))
 
 
 class container:
@@ -156,8 +188,9 @@ class lgp:
         of its containers' external inputs or None).  'mean_var' gives the
         mean and variance of the final layer's outputs (with ``full_layer``,
         of every layer's), mixed over the imputations; 'sampling' gives
-        ``sample_size`` draws per imputation.  ``sharded`` is accepted for
-        the JAX package's signature; the call computes on lgp's device."""
+        ``sample_size`` draws per imputation.  ``sharded`` splits the row
+        chunks of a 'mean_var' prediction over the devices of lgp's mesh
+        (`parallel.mesh.model_mesh`)."""
         if isinstance(x, list) and len(x) != self.L:
             raise Exception('When the test input is a list it must have global '
                             'inputs for all layers (use None for layers without).')
@@ -169,8 +202,12 @@ class lgp:
             sample_size = 1
         dt = config.np_dtype()
         mean_pred, variance_pred, sample_pred = [], [], []
-        for one_imputed in self.all_layer_set:
-            res = self._predict_one(one_imputed, x, method, full_layer, sample_size, m, dt)
+        if method == 'mean_var':
+            results = self._predict_rows(x, full_layer, m, dt, sharded)
+        else:
+            results = [self._predict_one(one_imputed, x, method, full_layer, sample_size,
+                                         m, dt) for one_imputed in self.all_layer_set]
+        for res in results:
             if method == 'mean_var':
                 mean_pred.append(res[0])
                 variance_pred.append(res[1])
@@ -192,6 +229,44 @@ class lgp:
             return [[np.concatenate(i, axis=2) for i in zip(*case_s)]
                     for case_s in zip(*sample_pred)]
         return [np.concatenate(i, axis=2) for i in zip(*sample_pred)]
+
+    def _predict_rows(self, x, full_layer, m, dt, sharded):
+        """The 'mean_var' results of `_predict_one` for every imputation,
+        chunk of rows by chunk; with ``sharded`` the chunks split over
+        lgp's mesh, each share on copies of the imputations whose GP nodes
+        compute on its device, on its own host thread.  Each GP node's
+        training-side operands go to the device once per call
+        (`kernel.prediction_operands`)."""
+        def gp_nodes(systems):
+            nodes = {id(node): node for one in systems for layer in one for cont in layer
+                     for node in _gp_nodes(cont.structure)}
+            return nodes.values()
+
+        for node in gp_nodes(self.all_layer_set):
+            if not node.vecch and node.Rinv is None:
+                node.compute_stats()
+
+        def rows(systems, sl):
+            parts = []
+            with contextlib.ExitStack() as stack:
+                for node in gp_nodes(systems):
+                    stack.enter_context(node.prediction_operands())
+                for c in pmesh.chunks(sl, ensemble._CHUNK):
+                    xs = [np.asarray(x[0])[c]] + [[None if e is None else np.asarray(e)[c]
+                                                   for e in layer] for layer in x[1:]]
+                    parts.append([self._predict_one(one, xs, 'mean_var', full_layer, 1, m,
+                                                    dt) for one in systems])
+            return [_cat_rows([p[i] for p in parts]) for i in range(len(systems))]
+
+        n = len(x[0])
+        if not sharded:
+            return rows(self.all_layer_set, slice(0, n))
+
+        def share(dev, sl):
+            return rows([[[_on_device(c, dev) for c in layer] for layer in one]
+                         for one in self.all_layer_set], sl)
+        parts = pmesh.map_shares(pmesh.model_mesh(self.device), n, share, ensemble._CHUNK)
+        return [_cat_rows([p[i] for p in parts]) for i in range(len(self.all_layer_set))]
 
     def _predict_one(self, one_imputed, x, method, full_layer, sample_size, m, dt):
         """One imputation's pass through the system, container by container."""
@@ -300,10 +375,10 @@ class lgp:
 
     def ppredict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
                  chunk_num=None, core_num=None):
-        """`predict` (an alias; ``chunk_num`` and ``core_num`` of the
-        reference's process pool are ignored)."""
+        """`predict` with ``sharded=True`` (``chunk_num`` and ``core_num``
+        of the reference's process pool are ignored)."""
         return self.predict(x, method=method, full_layer=full_layer,
-                            sample_size=sample_size, m=m)
+                            sample_size=sample_size, m=m, sharded=True)
 
     # ------------------------------------------------------------------
     @staticmethod

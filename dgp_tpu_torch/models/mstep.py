@@ -101,22 +101,34 @@ def _lanes(lt, op):
     return _exp_lanes(torch.einsum('gfp,gp->gf', op['A'], lt) + op['b'])
 
 
-def _vecch_fg(lt, op, *, name, d_max, n, has_ref, route=False):
+def _block_parts(blk, lt_full, start, *, name, d_max, route):
+    """Per-point (logdet, quad, dlogdet, dquad) of the points start.. whose
+    blocks ``blk`` holds (Xg_raw, yg, nug_g, valid), at the full lanes
+    lt_full: one K1 launch, or with ``route`` the large-block route."""
+    if route:
+        return vcore.nllik_grad_route(blk['Xg_raw'], blk['yg'], blk['nug_g'],
+                                      blk['valid'], lt_full, _exp_lanes, name)
+    length_full, nugget = _exp_lanes(lt_full)
+    Xg, diag, dnug = cv.scale_blocks_t(blk['Xg_raw'], blk['nug_g'], blk['valid'],
+                                       length_full, nugget,
+                                       vcore._f32_jitter(blk['Xg_raw'].dtype), start)
+    return cv.block_nllik_grad_parts_t(Xg, blk['yg'], diag, dnug, name=name,
+                                       n_length=d_max, nugget_est=True)
+
+
+def _vecch_fg(lt, op, parts, split, *, name, d_max, n, has_ref, route=False):
     """(nll (G,), grad (G, p_max), scale (G,)) of every node of the group
-    through one K1 launch, or with ``route`` through the large-block route.
-    Operands are in the kernels' transposed (G, m1, ..., n) layout;
+    through one K1 launch per share of ``split`` (`parallel.mesh.Split`),
+    or with ``route`` through the large-block route.  ``parts`` holds the
+    blocks of each share on its device (Xg_raw, yg, nug_g, valid) in the
+    kernels' transposed (G, m1, ..., n) layout, ``op`` the other operands;
     ``has_ref`` says whether a node of the group has the 'ref' prior."""
     lt_full = torch.einsum('gfp,gp->gf', op['A'], lt) + op['b']
     length_full, nugget = _exp_lanes(lt_full)
-    if route:
-        ld, q, dld, dq = vcore.nllik_grad_route(op['Xg_raw'], op['yg'], op['nug_g'],
-                                                op['valid'], lt_full, _exp_lanes, name)
-    else:
-        Xg, diag, dnug = cv.scale_blocks_t(op['Xg_raw'], op['nug_g'], op['valid'],
-                                           length_full, nugget,
-                                           vcore._f32_jitter(op['Xg_raw'].dtype))
-        ld, q, dld, dq = cv.block_nllik_grad_parts_t(
-            Xg, op['yg'], diag, dnug, name=name, n_length=d_max, nugget_est=True)
+    kw = dict(name=name, d_max=d_max, route=route)
+    ld, q, dld, dq = split.gathered(
+        lambda dev, sl, blk, lanes: _block_parts(blk, lanes, sl.start, **kw),
+        parts, split.copies(lt_full))
     logdet, quad = linalg.sum64(ld, dim=-1), linalg.sum64(q, dim=-1)
     dlogdet, dquad = linalg.sum64(dld, dim=-1), linalg.sum64(dq, dim=-1)
     nugget64 = nugget.to(torch.float64)
@@ -153,7 +165,8 @@ def _dense_fg(lt, op, *, name, n, has_ref):
     return nll.detach() - lp, g - dlp, scale.detach()
 
 
-def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref):
+def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref, parts=None,
+              split=None):
     """Batched bounded L-BFGS over one node group.
 
     Args:
@@ -164,6 +177,8 @@ def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref):
         maxfun: G per-node function-evaluation budgets (host ints).
         has_ref: whether a node of the group has the 'ref' prior (decided
             on the host, so that other groups skip its lanes).
+        parts, split: a Vecchia group's blocks, one dict per share of the
+            split (`parallel.mesh.Split`), each on its share's device.
     Returns:
         (lt (G, p_max), scale (G,), ok (G,)), ``ok`` marking a finite result.
     """
@@ -172,12 +187,12 @@ def run_group(ops, lt0, lb, ub, maxfun, *, name, mode, d_max, n, has_ref):
             return _dense_fg(lt, ops, name=name, n=n, has_ref=has_ref)
     else:
         # K1 or the large-block route, decided from the blocks' shape
-        m1 = ops['Xg_raw'].shape[-3]
-        route = not cv.use_kernel("K1", m1, d_max, ops['Xg_raw'].dtype)
+        m1 = parts[0]['Xg_raw'].shape[-3]
+        route = not cv.use_kernel("K1", m1, d_max, parts[0]['Xg_raw'].dtype)
 
         def fg(lt):
-            return _vecch_fg(lt, ops, name=name, d_max=d_max, n=n, has_ref=has_ref,
-                             route=route)
+            return _vecch_fg(lt, ops, parts, split, name=name, d_max=d_max, n=n,
+                             has_ref=has_ref, route=route)
 
     # history=4: the node problems have 1-3 parameters, so a short curvature
     # memory loses nothing.  The profiled scale rides along as aux.

@@ -10,14 +10,21 @@ node's device, ``node.device``, which the gp and dgp classes set (default:
 the card); the SEM engine and the ensemble keep their own copies of the
 state (models/compiled.py, models/ensemble.py).  The linked predictions
 (`linkgp_prediction`, `linkgp_prediction_full`) serve `lgp`'s host loop
-(models/linkgp.py).
+(models/linkgp.py).  `gp_prediction` takes its test rows in chunks of a
+given size, all launched before one read back; within
+`prediction_operands` the predictions upload their training-side operands
+(inputs, Rinv, the neighbour search's index) to the device once, not on
+every call, as `lgp.predict` calls them once per chunk of test rows.
 """
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
 from .. import config, gp_core
 from ..ops import kernels as kops
 from ..ops import lbfgs
+from ..parallel import mesh as pmesh
 
 
 class kernel:
@@ -105,6 +112,26 @@ class kernel:
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype or config.default_dtype(),
                                device=self._dev())
+
+    @contextmanager
+    def prediction_operands(self):
+        """Within: the prediction methods keep the device operands they
+        make (`_op`) instead of making them on every call."""
+        self._pred_ops = {}
+        try:
+            yield self
+        finally:
+            del self._pred_ops
+
+    def _op(self, key, make):
+        """The device operand ``key``: ``make()``, kept within
+        `prediction_operands`."""
+        ops = getattr(self, '_pred_ops', None)
+        if ops is None:
+            return make()
+        if key not in ops:
+            ops[key] = make()
+        return ops[key]
 
     def _nugget_diag(self):
         """Per-point nugget multipliers: the replicate weights, or ones."""
@@ -282,21 +309,32 @@ class kernel:
     # ------------------------------------------------------------------
     # predictions
     # ------------------------------------------------------------------
-    def gp_prediction(self, x, z):
+    def gp_prediction(self, x, z, chunk=None):
         """Dense or Vecchia GP prediction at x (M, d) with global input z:
-        (mean (M,), var (M,)) as numpy arrays."""
+        (mean (M,), var (M,)) as numpy arrays.  The rows go in chunks of
+        ``chunk`` (default: one chunk), all launched before one read back;
+        no row's result depends on the other rows of its chunk, but a
+        library's product may take another path at another chunk size."""
         if self.vecch:
             from ..vecchia import api as vecchia_api
-            return vecchia_api.gp_prediction_vecch(self, x, z)
+            return vecchia_api.gp_prediction_vecch(self, x, z, chunk)
         if z is not None:
             x = np.concatenate((x, z), axis=1)
         if self.Rinv is None:
             self.compute_stats()
-        m, v = gp_core.gp_predict(self._t(x), self._t(self._X()), self._t(self.Rinv),
-                                  self._t(self.Rinv_y), float(self.scale[0]),
-                                  self._t(self.length), float(self.nugget[0]),
-                                  name=self.name)
-        return m.cpu().numpy(), v.cpu().numpy()
+        xt, ops = self._t(x), self._dense_ops(self._X)
+        length = self._op('length', lambda: self._t(self.length))
+        parts = [gp_core.gp_predict(xt[c], *ops, float(self.scale[0]), length,
+                                    float(self.nugget[0]), name=self.name)
+                 for c in pmesh.row_chunks(len(x), chunk)]
+        return tuple(torch.stack([torch.cat(p) for p in zip(*parts)]).cpu().numpy())
+
+    def _dense_ops(self, train, key='X'):
+        """(training inputs ``train()``, Rinv, Rinv_y) on the device, kept
+        within `prediction_operands` (the inputs under ``key``)."""
+        return (self._op(key, lambda: self._t(train())),
+                self._op('Rinv', lambda: self._t(self.Rinv)),
+                self._op('Rinv_y', lambda: self._t(self.Rinv_y)))
 
     def linkgp_prediction(self, m, v, z):
         """Linked-GP prediction under Gaussian inputs (mean m, variance v,
@@ -308,10 +346,13 @@ class kernel:
             return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
         if self.Rinv is None:
             self.compute_stats()
+        W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input')
         mu, var = gp_core.linkgp_predict(
-            self._t(m), self._t(v), None if z is None else self._t(z), self._t(self.input),
-            None if z is None else self._t(self.global_input), self._t(self.Rinv),
-            self._t(self.Rinv_y), float(self.scale[0]), self._t(self.length),
+            self._t(m), self._t(v), None if z is None else self._t(z), W,
+            None if z is None else self._op('global_input',
+                                            lambda: self._t(self.global_input)),
+            Rinv, Rinv_y, float(self.scale[0]),
+            self._op('length', lambda: self._t(self.length)),
             float(self.nugget[0]), name=self.name)
         return mu.cpu().numpy(), var.cpu().numpy()
 
@@ -324,15 +365,18 @@ class kernel:
         m_full = np.concatenate((m, m_z), axis=1)
         v_full = np.concatenate((v, v_z), axis=1)
         n_mz = m_z.shape[1]
-        overall_input = np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1)
         if self.Rinv is None:
             self.compute_stats()
+        W, Rinv, Rinv_y = self._dense_ops(
+            lambda: np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1),
+            ('input', n_mz))
         mu, var = gp_core.linkgp_predict(
-            self._t(m_full), self._t(v_full), None if z is None else self._t(z),
-            self._t(overall_input),
-            None if z is None else self._t(self.global_input[:, n_mz:]),
-            self._t(self.Rinv), self._t(self.Rinv_y), float(self.scale[0]),
-            self._t(self.length), float(self.nugget[0]), name=self.name)
+            self._t(m_full), self._t(v_full), None if z is None else self._t(z), W,
+            None if z is None else self._op(('global_input', n_mz), lambda: self._t(
+                self.global_input[:, n_mz:])),
+            Rinv, Rinv_y, float(self.scale[0]),
+            self._op('length', lambda: self._t(self.length)),
+            float(self.nugget[0]), name=self.name)
         return mu.cpu().numpy(), var.cpu().numpy()
 
     def ord_nn(self, ord=None, NNarray=None, pointer=False, device=None):

@@ -283,7 +283,16 @@ def _check_cuda(name, tensors, dtype, device):
 
 
 def _stream(device):
+    """The current stream of ``device``, the card a launch goes to (the
+    wrappers make it the current device around the launch)."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launched(wrapper, device):
+    """Count one launch of ``wrapper``'s kernel on ``device``."""
+    wrapper.launches += 1
+    key = str(device)
+    wrapper.by_device[key] = wrapper.by_device.get(key, 0) + 1
 
 
 # ----------------------------------------------------------------------
@@ -368,8 +377,10 @@ def block_nllik_grad_parts_t_plain(Xg, yg, diag, dnug, *, name, n_length,
     wl = W[..., -1, :]                                        # (..., n, p)
     s = (Ly[..., None] * W).sum(-2)
     dquad = 2.0 * s * yl - wl * yl ** 2
+    # contiguous, as the kernel's outputs: a sum over the points then adds
+    # in the same order whether or not the points were split into shares
     return (2.0 * torch.log(L[..., -1, -1]), yl[..., 0] ** 2,
-            wl.movedim(-1, -2), dquad.movedim(-1, -2))
+            wl.movedim(-1, -2).contiguous(), dquad.movedim(-1, -2).contiguous())
 
 
 # ----------------------------------------------------------------------
@@ -392,17 +403,20 @@ def cond_weights_t(Xg, diag, *, name):
     if n == 0:
         return w, sigma
     lib = _library()
-    err = lib.dgp_cond_weights(_DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(),
-                               diag.data_ptr(), w.data_ptr(), sigma.data_ptr(),
-                               m1, d, n, _stream(Xg.device))
+    dev = Xg.device
+    with torch.cuda.device(dev):
+        err = lib.dgp_cond_weights(_DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(),
+                                   diag.data_ptr(), w.data_ptr(), sigma.data_ptr(),
+                                   m1, d, n, _stream(Xg.device))
     if err != 0:
         raise RuntimeError(f"cond_weights_t: kernel launch failed (cudaError {err})")
-    cond_weights_t.launches += 1
+    _launched(cond_weights_t, dev)
     return w, sigma
 
 
 cond_weights_t.launches = 0
 cond_weights_t.plain_calls = 0
+cond_weights_t.by_device = {}
 
 
 def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
@@ -436,19 +450,22 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
     if n == 0 or K == 0:
         return logdet, quad
     lib = _library()
-    err = lib.dgp_block_loglik_multi(
-        _DTYPE[A.dtype], _KNAME[name], A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        yg.data_ptr(), diag.data_ptr(), cosv.data_ptr(), sinv.data_ptr(),
-        logdet.data_ptr(), quad.data_ptr(), m1, d, int(dl), n, K,
-        _stream(A.device))
+    dev = A.device
+    with torch.cuda.device(dev):
+        err = lib.dgp_block_loglik_multi(
+            _DTYPE[A.dtype], _KNAME[name], A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            yg.data_ptr(), diag.data_ptr(), cosv.data_ptr(), sinv.data_ptr(),
+            logdet.data_ptr(), quad.data_ptr(), m1, d, int(dl), n, K,
+            _stream(A.device))
     if err != 0:
         raise RuntimeError(f"block_loglik_multi_t: kernel launch failed (cudaError {err})")
-    block_loglik_multi_t.launches += 1
+    _launched(block_loglik_multi_t, dev)
     return logdet, quad
 
 
 block_loglik_multi_t.launches = 0
 block_loglik_multi_t.plain_calls = 0
+block_loglik_multi_t.by_device = {}
 
 
 def block_loglik_parts_t(Xg, yg, diag, *, name):
@@ -474,18 +491,21 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
     if n == 0 or K == 0:
         return logdet, quad
     lib = _library()
-    err = lib.dgp_block_loglik_parts(
-        _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(), diag.data_ptr(),
-        logdet.data_ptr(), quad.data_ptr(), m1, d, n, K, int(yg.ndim == 2),
-        _stream(Xg.device))
+    dev = Xg.device
+    with torch.cuda.device(dev):
+        err = lib.dgp_block_loglik_parts(
+            _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(), diag.data_ptr(),
+            logdet.data_ptr(), quad.data_ptr(), m1, d, n, K, int(yg.ndim == 2),
+            _stream(Xg.device))
     if err != 0:
         raise RuntimeError(f"block_loglik_parts_t: kernel launch failed (cudaError {err})")
-    block_loglik_parts_t.launches += 1
+    _launched(block_loglik_parts_t, dev)
     return logdet, quad
 
 
 block_loglik_parts_t.launches = 0
 block_loglik_parts_t.plain_calls = 0
+block_loglik_parts_t.by_device = {}
 
 
 def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
@@ -525,21 +545,24 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
     dlogdet, dquad = torch.empty((G, npar, n), **kw), torch.empty((G, npar, n), **kw)
     if n > 0 and G > 0:
         lib = _library()
-        err = lib.dgp_block_nllik_grad(
-            _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(),
-            diag.data_ptr(), dnug.data_ptr(), logdet.data_ptr(), quad.data_ptr(),
-            dlogdet.data_ptr(), dquad.data_ptr(), m1, d, n, G, n_length,
-            int(bool(nugget_est)), _stream(Xg.device))
+        dev = Xg.device
+        with torch.cuda.device(dev):
+            err = lib.dgp_block_nllik_grad(
+                _DTYPE[Xg.dtype], _KNAME[name], Xg.data_ptr(), yg.data_ptr(),
+                diag.data_ptr(), dnug.data_ptr(), logdet.data_ptr(), quad.data_ptr(),
+                dlogdet.data_ptr(), dquad.data_ptr(), m1, d, n, G, n_length,
+                int(bool(nugget_est)), _stream(Xg.device))
         if err != 0:
             raise RuntimeError(f"block_nllik_grad_parts_t: kernel launch failed "
                                f"(cudaError {err})")
-        block_nllik_grad_parts_t.launches += 1
+        _launched(block_nllik_grad_parts_t, dev)
     out = (logdet, quad, dlogdet, dquad)
     return tuple(o[0] for o in out) if single else out
 
 
 block_nllik_grad_parts_t.launches = 0
 block_nllik_grad_parts_t.plain_calls = 0
+block_nllik_grad_parts_t.by_device = {}
 
 #: every kernel wrapper, by the name its launch count is reported under
 WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
@@ -555,6 +578,7 @@ def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
         w.plain_calls = 0
+        w.by_device = {}
 
 
 def launch_counts():
@@ -564,28 +588,36 @@ def launch_counts():
             for w in WRAPPERS}
 
 
+def launch_counts_by_device():
+    """Per wrapper, since the last reset: the kernel launches by card (they
+    sum to `launch_counts`' launches)."""
+    return {w.__name__: dict(w.by_device) for w in WRAPPERS}
+
+
 # ----------------------------------------------------------------------
 # block-layout helpers (transposed (m1, ..., n) layout)
 # ----------------------------------------------------------------------
-def sentinels(n, m1, dtype, device):
-    """(m1, n) sentinel coordinates for invalid neighbour lanes: far from
-    every real point and from each other."""
-    return (1e7 + torch.arange(n, dtype=dtype, device=device)[None, :] * 1e3
+def sentinels(n, m1, dtype, device, start=0):
+    """(m1, n) sentinel coordinates for invalid neighbour lanes of the
+    points start..start+n: far from every real point and from each
+    other."""
+    return (1e7 + torch.arange(start, start + n, dtype=dtype, device=device)[None, :] * 1e3
             + torch.arange(m1, dtype=dtype, device=device)[:, None] * 7e2)
 
 
-def gather_scale_t(X, y, NNarray, length, nugget, nugget_diag, extra_jitter):
+def gather_scale_t(X, y, NNarray, length, nugget, nugget_diag, extra_jitter, start=0):
     """Gather and sentinel-encode Vecchia blocks directly in the kernels'
-    (m1, d, n) layout.  X may carry leading candidate axes, (..., n, d),
-    and then so does Xg.  Returns (Xg (..., m1, d, n), yg (m1, n), diag
-    (m1, n))."""
+    (m1, d, n) layout, for the points whose neighbour rows NNarray holds
+    (the points start.., all of X's by default).  X may carry leading
+    candidate axes, (..., n, d), and then so does Xg.  Returns (Xg (...,
+    m1, d, n), yg (m1, n), diag (m1, n))."""
     rev = torch.flip(NNarray, dims=(1,))
     validT = (rev >= 0).T                                   # (m1, n)
     safeT = torch.where(validT, rev.T, 0)
-    n, m1 = X.shape[-2], NNarray.shape[1]
+    n, m1 = NNarray.shape
     Xl = (X / length).transpose(-1, -2)                     # (..., d, n)
     Xg = Xl[..., safeT].transpose(-3, -2)                   # (..., m1, d, n)
-    sent = sentinels(n, m1, Xg.dtype, Xg.device)
+    sent = sentinels(n, m1, Xg.dtype, Xg.device, start)
     Xg = torch.where(validT[:, None, :], Xg, sent[:, None, :])
     yg = torch.where(validT, y[safeT], 0.0)
     diag = torch.where(validT, 1.0 + nugget * nugget_diag[safeT] + extra_jitter, 1.0)
@@ -605,16 +637,17 @@ def gather_raw_t(X, y, NNarray, nugget_diag):
     return Xg_raw, yg, nug_g, validT
 
 
-def scale_blocks_t(Xg_raw, nug_g, valid, length, nugget, extra_jitter):
+def scale_blocks_t(Xg_raw, nug_g, valid, length, nugget, extra_jitter, start=0):
     """Per-evaluation transform in the transposed layout: scale by the
     lengthscales, sentinel-encode invalid lanes, build the diagonal.  A
     leading node axis is allowed: Xg_raw (..., m1, d, n), nug_g and valid
-    (..., m1, n), length (..., d) and nugget (...).  Returns (Xg (..., m1,
-    d, n), diag (..., m1, n), dnug (..., m1, n))."""
+    (..., m1, n), length (..., d) and nugget (...); the points are
+    start..start+n.  Returns (Xg (..., m1, d, n), diag (..., m1, n), dnug
+    (..., m1, n))."""
     m1, d, n = Xg_raw.shape[-3:]
     nugget = torch.as_tensor(nugget, dtype=Xg_raw.dtype, device=Xg_raw.device)
     Xg = Xg_raw / length[..., None, :, None]
-    sent = sentinels(n, m1, Xg.dtype, Xg.device)
+    sent = sentinels(n, m1, Xg.dtype, Xg.device, start)
     Xg = torch.where(valid[..., :, None, :], Xg, sent[:, None, :])
     nug = nugget[..., None, None]
     diag = torch.where(valid, 1.0 + nug * nug_g + extra_jitter, 1.0)

@@ -73,13 +73,21 @@ def i_matern(X, z_m, z_v, length):
     return torch.prod(_i_matern_1d(zX, z_v[..., None, :], length), dim=-1)
 
 
+def _pow4(x):
+    """x^4 as two squares: on the CPU a general power takes another formula
+    for the last elements of a tensor than for the rest, so that a value
+    would depend on the size of the batch it was computed in."""
+    return torch.square(torch.square(x))
+
+
 def _jd_matern_1d(X1, X2, z_m, z_v, length):
     """E_w[k_1d(w, X1) k_1d(w, X2)], w ~ N(z_m, z_v), separable Matern-2.5;
     the three-piece closed form of the JAX package, elementwise."""
     x1 = torch.minimum(X1, X2)
     x2 = torch.maximum(X1, X2)
     l, v = length, z_v
-    l2, l3, l4 = l**2, l**3, l**4
+    l2, l3 = l**2, l**3
+    l4 = _pow4(l)
     sqv = torch.sqrt(0.5 * v / math.pi)
     inv9l4 = 1.0 / (9.0 * l4)
 
@@ -106,7 +114,7 @@ def _jd_matern_1d(X1, X2, z_m, z_v, length):
         + muC * E31
         + (muC**2 + v) * E32
         + (muC**3 + 3.0 * v * muC) * E33
-        + (muC**4 + 6.0 * v * muC**2 + 3.0 * v**2) * E34
+        + (_pow4(muC) + 6.0 * v * muC**2 + 3.0 * v**2) * E34
     )
     E3A32 = (
         E31
@@ -138,7 +146,7 @@ def _jd_matern_1d(X1, X2, z_m, z_v, length):
         + z_m * E41
         + (z_m**2 + v) * E42
         + (z_m**3 + 3.0 * v * z_m) * E43
-        + (z_m**4 + 6.0 * v * z_m**2 + 3.0 * v**2) * E44
+        + (_pow4(z_m) + 6.0 * v * z_m**2 + 3.0 * v**2) * E44
     )
     E4A42 = (
         E41
@@ -182,7 +190,7 @@ def _jd_matern_1d(X1, X2, z_m, z_v, length):
         - muD * E51
         + (muD**2 + v) * E52
         - (muD**3 + 3.0 * v * muD) * E53
-        + (muD**4 + 6.0 * v * muD**2 + 3.0 * v**2) * E54
+        + (_pow4(muD) + 6.0 * v * muD**2 + 3.0 * v**2) * E54
     )
     E5A52 = (
         E51

@@ -13,7 +13,8 @@ Categorical likelihood and the nested-list shape check of
 `lgp.set_vecchia`; the exact kernel PCA and the encoder stand in for
 scikit-learn's `KernelPCA(kernel='sigmoid')` and `LabelEncoder`, which the
 JAX package imports.  `multistart` maximises an objective from many starts
-as one batched bounded L-BFGS on the card.
+as one batched bounded L-BFGS on the card.  ``nb_seed`` (rng.py) is
+importable from here too, as from the JAX package's utils.
 """
 import pickle
 import warnings
@@ -24,6 +25,7 @@ from torch.overrides import TorchFunctionMode
 
 from . import config
 from .ops import lbfgs
+from .rng import nb_seed  # noqa: F401  (dgp_tpu/utils.py:66 defines it here)
 
 #: attributes that hold an engine or tensors built from the rest of the
 #: object, rebuilt on demand

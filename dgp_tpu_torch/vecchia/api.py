@@ -16,6 +16,7 @@ import torch
 
 from .. import config, gp_core
 from ..ops import cuda_vecchia as cv
+from ..parallel import mesh as pmesh
 from . import core, nn as nnmod
 
 
@@ -108,22 +109,52 @@ def objective(node):
     return fg
 
 
-def gp_prediction_vecch(node, x, z):
+def _pred_nn(node, key, query, train, rows):
+    """`nn.get_pred_nn` for each slice ``rows`` of the query rows: the
+    ``pred_m`` (default 50) training points ``train()`` nearest each query
+    row, both length-scaled, with the node's search, as a device int
+    tensor (without the first, the query itself, in the LOO state).  The
+    scaled training points and the IVF index of the approximate search are
+    made once a call, or kept under ``key`` within
+    `kernel.prediction_operands`."""
+    def make():
+        xt = torch.as_tensor(train() / node.length, device=node._dev())
+        return xt, (nnmod._ivf_build(xt) if nnmod.is_approx(node.nn_method, xt.shape[0])
+                    else None)
+    xt, index = node._op(('nn', key), make)
+    qt = torch.as_tensor(np.asarray(query / node.length), device=node._dev())
+    m = int(min(node.pred_m or 50, xt.shape[0]))
+    out = [nnmod.pred_nn_t(qt[c], xt, m, index) for c in rows]
+    return [nn[:, 1:] for nn in out] if node.loo_state else out
+
+
+def _pred_common(node):
+    """The node's targets, length-scales and nugget multipliers on the
+    device, kept within `kernel.prediction_operands`."""
+    return (node._op('y', lambda: node._t(node.output[:, 0])),
+            node._op('length', lambda: node._t(node.length)),
+            node._op('nd', node._nugget_diag))
+
+
+def gp_prediction_vecch(node, x, z, chunk=None):
     """Vecchia GP prediction at x (M, d) with global input z: the m
     nearest training points of each query (``node.pred_m``, default 50;
-    one fewer, the query itself, in the LOO state)."""
+    one fewer, the query itself, in the LOO state); the rows in chunks of
+    ``chunk`` (default: one), all launched before the jitter retry's
+    check."""
     if z is not None:
         x = np.concatenate((x, z), axis=1)
-    w = node._X()
-    NNarray = nnmod.get_pred_nn(x / node.length, w / node.length,
-                                node.pred_m or 50, method=node.nn_method,
-                                device=node._dev())
-    if node.loo_state:
-        NNarray = NNarray[:, 1:]
-    return _with_jitter_retry(
-        core.gp_vecch, node._t(x), node._t(w), node._t(NNarray, torch.int64),
-        node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),
-        float(node.nugget[0]), node._nugget_diag(), node.name)
+    rows = pmesh.row_chunks(len(x), chunk)
+    nns = _pred_nn(node, 'X', x, node._X, rows)
+    xt, w = node._t(x), node._op('X', lambda: node._t(node._X()))
+    y, length, nd = _pred_common(node)
+
+    def pred(extra):
+        parts = [core.gp_vecch(xt[c], w, nn, y, float(node.scale[0]), length,
+                               float(node.nugget[0]), nd, node.name, extra)
+                 for c, nn in zip(rows, nns)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return _with_jitter_retry(pred)
 
 
 def linkgp_prediction_vecch(node, m, v, z):
@@ -131,22 +162,19 @@ def linkgp_prediction_vecch(node, m, v, z):
     with the deterministic global input z (M, Dz) or None: the ``pred_m``
     (default 50) training points nearest each query's mean, with z appended
     (one fewer in the LOO state), and the I/J moments over them."""
-    if z is not None:
-        xq = np.concatenate((m, z), axis=1)
-        w = node._X()
+    rows = [slice(0, len(m))]
+    if z is not None or node.global_input is not None:
+        NNarray, = _pred_nn(node, 'X', m if z is None else np.concatenate((m, z), axis=1),
+                            node._X, rows)
     else:
-        xq = m
-        w = node._X() if node.global_input is not None else node.input
-    NNarray = nnmod.get_pred_nn(xq / node.length, w / node.length,
-                                node.pred_m or 50, method=node.nn_method,
-                                device=node._dev())
-    if node.loo_state:
-        NNarray = NNarray[:, 1:]
+        NNarray, = _pred_nn(node, 'input', m, lambda: node.input, rows)
+    y, length, nd = _pred_common(node)
     return _with_jitter_retry(
         core.link_gp_vecch, node._t(m), node._t(v), None if z is None else node._t(z),
-        node._t(node.input), None if z is None else node._t(node.global_input),
-        node._t(NNarray, torch.int64), node._t(node.output[:, 0]), float(node.scale[0]),
-        node._t(node.length), float(node.nugget[0]), node._nugget_diag(), node.name)
+        node._op('input', lambda: node._t(node.input)),
+        None if z is None else node._op('global_input', lambda: node._t(node.global_input)),
+        NNarray, y, float(node.scale[0]), length,
+        float(node.nugget[0]), nd, node.name)
 
 
 def loo_gp(gp_model, m):

@@ -25,6 +25,11 @@ every device, before anything runs; the route returns the per-point
 arrays the kernel would, so no result depends on the chunk, and
 `route_counts` counts its calls per kernel id.
 
+`llik_parts` and `cond_parts` give K4's and K3's per-point outputs (or
+the route's) for a range of the points, so that a split over several
+devices (`models/compiled.py`) can compute each share on its own device;
+`llik_total` and `join_weights` reduce and join them as one call would.
+
 Prediction (`gp_vecch`, `link_gp_vecch`) is batched torch.linalg, and so
 are the closed-form LOO (`loo_gp_vecch`) and the exact draw of the Hetero
 mean (`post_het_vecch`).
@@ -172,8 +177,11 @@ def nllik_grad_route(Xg_raw, yg, nug_g, valid, lanes, params, name):
     p = lanes.shape[-1]
     parts = []
     for sl in _chunks(n, _route_step(int(np.prod(lead)), m1, d, Xg_raw.dtype)):
-        Xi = Xg_raw[..., sl].movedim(-1, -3)                  # (..., c, m1, d)
-        vi, yi, ni = (t[..., sl].transpose(-1, -2) for t in (valid, yg, nug_g))
+        # contiguous, so that the backward pass reduces in the same order
+        # whatever the chunk and the share around it
+        Xi = Xg_raw[..., sl].movedim(-1, -3).contiguous()     # (..., c, m1, d)
+        vi, yi, ni = (t[..., sl].transpose(-1, -2).contiguous()
+                      for t in (valid, yg, nug_g))
         with torch.enable_grad():
             lp = (lanes.detach()[..., None, :].expand(*lead, Xi.shape[-3], p)
                   .clone().requires_grad_(True))              # (..., c, p)
@@ -191,6 +199,17 @@ def nllik_grad_route(Xg_raw, yg, nug_g, valid, lanes, params, name):
     return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
 
 
+def llik_parts(X, y, NNarray, length, nugget, nugget_diag, name, start=0):
+    """Per-point (logdet (..., n), quad (..., n)) of `vecchia_llik` for the
+    points whose neighbour rows NNarray holds (start.., all of X's by
+    default): one K4 launch, or the large-block route outside K4's bound."""
+    if cv.use_kernel("K4", NNarray.shape[1], X.shape[-1], X.dtype):
+        Xg, yg, diag = cv.gather_scale_t(X, y, NNarray, length, nugget, nugget_diag,
+                                         _f32_jitter(X.dtype), start)
+        return cv.block_loglik_parts_t(Xg, yg, diag, name=name)
+    return _llik_route(X, y, NNarray, length, nugget, nugget_diag, name)
+
+
 def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
     """Vecchia log-likelihood at fixed parameters (reference vecchia_llik):
     the scale enters only through quad/scale; the parameter-constant
@@ -200,12 +219,12 @@ def vecchia_llik(X, y, NNarray, scale, length, nugget, nugget_diag, name):
     share y, the NN structure and the parameters (the candidates of one
     node-wise ESS round); the result is then (K,).  One K4 launch either
     way, or the large-block route outside K4's bound."""
-    if cv.use_kernel("K4", NNarray.shape[1], X.shape[-1], X.dtype):
-        Xg, yg, diag = cv.gather_scale_t(X, y, NNarray, length, nugget, nugget_diag,
-                                         _f32_jitter(X.dtype))
-        logdet_i, quad_i = cv.block_loglik_parts_t(Xg, yg, diag, name=name)
-    else:
-        logdet_i, quad_i = _llik_route(X, y, NNarray, length, nugget, nugget_diag, name)
+    return llik_total(*llik_parts(X, y, NNarray, length, nugget, nugget_diag, name),
+                      scale)
+
+
+def llik_total(logdet_i, quad_i, scale):
+    """`vecchia_llik` from its per-point parts."""
     quad = linalg.sum64(quad_i, dim=-1)
     logdet = linalg.sum64(logdet_i, dim=-1)
     scale64 = torch.as_tensor(scale, dtype=torch.float64, device=quad.device)
@@ -324,7 +343,42 @@ def vecchia_nllik_fg(log_theta, X, y, NNarray, nugget_diag, *, name, n_length,
     return nll, g.to(log_theta.dtype), scale
 
 
-def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None):
+def cond_parts(X, NNarray, length, nugget, name, nugget_diag=None, pre=None, start=0):
+    """The per-point (w (n, m), sigma (n,)) of `cond_weights`, unmasked,
+    for the points whose neighbour rows NNarray holds (start.., all of X's
+    by default): one K3 launch, whose w is the transpose of its (m, n)
+    output, or the large-block route outside K3's bound, which gathers its
+    own blocks.  ``pre`` carries the gathered blocks of those points
+    (`cond_weights`)."""
+    nd = (torch.ones(X.shape[0], dtype=X.dtype, device=X.device) if nugget_diag is None
+          else nugget_diag)
+    if not cv.use_kernel("K3", NNarray.shape[1], X.shape[1], X.dtype):
+        return _cond_weights_route(X, NNarray, length, nugget, name, nd)
+    jit = _f32_jitter(X.dtype)
+    if pre is not None:
+        Xg_raw, nug_g, validT = pre
+        Xg, diag, _ = cv.scale_blocks_t(Xg_raw, nug_g, validT, length, nugget, jit, start)
+    else:
+        Xg, _, diag = cv.gather_scale_t(X, torch.zeros_like(X[:, 0]), NNarray,
+                                        length, nugget, nd, jit, start)
+    w_t, sigma = cv.cond_weights_t(Xg, diag, name=name)
+    return w_t.T, sigma
+
+
+def join_weights(gather, parts, NNarray, X):
+    """The shares' `cond_parts` joined by ``gather`` (list, dim) -> tensor
+    in the layout of one call over all points: K3's w as the transpose of
+    its joined (m, n) outputs, the route's joined by rows."""
+    ws, sigmas = zip(*parts)
+    if cv.use_kernel("K3", NNarray.shape[1], X.shape[1], X.dtype):
+        w = gather([w.T for w in ws], -1).T
+    else:
+        w = gather(list(ws), 0)
+    return w, gather(list(sigmas), 0)
+
+
+def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None,
+                 parts=None):
     """Per-point conditional weights for ancestral Vecchia sampling.
 
     For each ordered point i with ascending neighbour set N(i):
@@ -334,24 +388,12 @@ def cond_weights(X, NNarray, length, nugget, name, nugget_diag=None, pre=None):
     ``pre`` optionally carries the parameter-independent gathered blocks
     (Xg_raw (m1, d, n), nug_g (m1, n), validT (m1, n)) from
     `CompiledDGP._chunk_static`; the large-block route, outside K3's bound,
-    gathers its own."""
-    n = X.shape[0]
-    nd = (torch.ones(n, dtype=X.dtype, device=X.device) if nugget_diag is None
-          else nugget_diag)
+    gathers its own.  ``parts`` brings (w, sigma) of `cond_parts`, computed
+    elsewhere (a split over several devices)."""
     rev = torch.flip(NNarray, dims=(1,))
     valid = rev >= 0
-    jit = _f32_jitter(X.dtype)
-    if not cv.use_kernel("K3", NNarray.shape[1], X.shape[1], X.dtype):
-        w, sigma = _cond_weights_route(X, NNarray, length, nugget, name, nd)
-    else:
-        if pre is not None:
-            Xg_raw, nug_g, validT = pre
-            Xg, diag, _ = cv.scale_blocks_t(Xg_raw, nug_g, validT, length, nugget, jit)
-        else:
-            Xg, _, diag = cv.gather_scale_t(X, torch.zeros_like(X[:, 0]), NNarray,
-                                            length, nugget, nd, jit)
-        w_t, sigma = cv.cond_weights_t(Xg, diag, name=name)
-        w = w_t.T
+    w, sigma = parts if parts is not None else cond_parts(
+        X, NNarray, length, nugget, name, nugget_diag, pre)
     w = torch.where(valid[:, :-1], w, 0.0)
     idx_asc = torch.where(valid, rev, 0)[:, :-1]
     return w, sigma, idx_asc, valid
@@ -422,14 +464,14 @@ def ancestral_sample(eps, w, idx_asc, block=512):
     return x[:, :n]
 
 
-def fmvn_sp(gen, X, NNarray, scale, length, nugget, name, S=None):
+def fmvn_sp(gen, X, NNarray, scale, length, nugget, name, S=None, parts=None):
     """Draw S samples (default: one, shape (n,)) from the Vecchia-
     approximated N(0, scale*K) by blocked ancestral sampling; ``gen`` is a
-    torch.Generator on X's device."""
+    torch.Generator on X's device.  ``parts`` as in `cond_weights`."""
     n = X.shape[0]
     squeeze = S is None
     S_ = 1 if squeeze else S
-    w, sigma, idx_asc, _ = cond_weights(X, NNarray, length, nugget, name)
+    w, sigma, idx_asc, _ = cond_weights(X, NNarray, length, nugget, name, parts=parts)
     eps = (torch.randn((S_, n), generator=gen, dtype=X.dtype, device=X.device)
            * torch.sqrt(torch.as_tensor(scale, dtype=X.dtype, device=X.device))
            * sigma[None, :])

@@ -385,8 +385,16 @@ def _ivf_query(q, x, cent, buckets, m):
 
 
 def _pred_nn_approx(query, x, m):
-    """get_pred_nn through a fresh IVF index over x, with any -1 (too few
+    """get_pred_nn through a fresh IVF index over x."""
+    return pred_nn_t(query, x, m, _ivf_build(x))
+
+
+def pred_nn_t(query, x, m, index=None):
+    """The m nearest rows of x to each query row, nearest first (m at most
+    x's rows), on the tensors' device: the exact search, or with the IVF
+    ``index`` of x (`_ivf_build`) the approximate one, any -1 (too few
     candidates) set to 0."""
-    cent, buckets = _ivf_build(x)
-    out = _ivf_query(query, x, cent, buckets, m)
+    if index is None:
+        return _pred_nn_impl(query, x, m)
+    out = _ivf_query(query, x, index[0], index[1], m)
     return torch.where(out >= 0, out, 0)

@@ -30,7 +30,7 @@ import dgp_tpu_torch
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
 from dgp_tpu_torch.models import ensemble as tens
 from dgp_tpu_torch.models import mstep as tmstep
-from dgp_tpu_torch.models.compiled import CompiledDGP
+from dgp_tpu_torch.models.compiled import CompiledDGP, _Shares
 from dgp_tpu_torch.ops import cuda_vecchia as cv
 
 torch.set_num_threads(1)
@@ -101,12 +101,14 @@ def test_interop_carries_priors_and_bounds(models, mode):
             if a is not None:
                 np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     (lat_j, par_j), nn_j, (lat_t, par_t), nn_t = _states(eng_j, eng_t)
-    cs_j, cs_t = eng_j._chunk_static(nn_j), eng_t._chunk_static(nn_t)
+    cs_j = eng_j._chunk_static(nn_j)
     es = [(l, k) for l, layer in enumerate(eng_t.spec) for k in range(len(layer))]
     d_max = max(eng_t.spec[l][k].D for l, k in es)
     p_max = max(eng_t.spec[l][k].n_length + eng_t.spec[l][k].nugget_est for l, k in es)
-    built = [eng_t._node_operands(l, k, eng_t.spec[l][k], lat_t, par_t, d_max, p_max,
-                                  cs_t) for l, k in es]
+    built = [eng_t._node_operands(l, k, eng_t.spec[l][k], lat_t, par_t, d_max, p_max)
+             for l, k in es]
+    shares = _Shares(eng_t, nn_t)
+    shares.sync(lat_t, par_t)
     ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
     lt0 = torch.stack([b[1] for b in built])
     for shift in (0.0, 0.2):
@@ -114,8 +116,10 @@ def test_interop_carries_priors_and_bounds(models, mode):
         if mode == "dense":
             nll_t = tmstep._dense_fg(lt, ops, name='sexp', n=eng_t.n, has_ref=True)[0]
         else:
-            nll_t = tmstep._vecch_fg(lt, ops, name='sexp', d_max=d_max, n=eng_t.n,
-                                          has_ref=True)[0]
+            parts = eng_t._group_blocks([(l, k, eng_t.spec[l][k]) for l, k in es],
+                                        d_max, shares)
+            nll_t = tmstep._vecch_fg(lt, ops, parts, shares.split, name='sexp',
+                                     d_max=d_max, n=eng_t.n, has_ref=True)[0]
         for i, (l, k) in enumerate(es):
             op_j, _, lb_j, ub_j, _ = eng_j._node_operands(
                 l, k, eng_j.spec[l][k], lat_j, par_j, nn_j, d_max, p_max, mode, cs_j)
@@ -138,7 +142,7 @@ def test_m_step_and_loglik_match_jax(models, mode):
     (lat_j, par_j), nn_j, (lat_t, par_t), nn_t = _states(eng_j, eng_t)
     new_j = jax.jit(lambda lat, par, nn: eng_j._m_step(
         lat, par, nn, eng_j._chunk_static(nn)))(lat_j, par_j, nn_j)
-    new_t = eng_t._m_step(lat_t, par_t, nn_t, eng_t._chunk_static(nn_t))
+    new_t = eng_t._m_step(lat_t, par_t, nn_t)
     for pj, pt in zip(jax.tree_util.tree_leaves(new_j),
                       [v for layer in new_t for p in layer
                        for v in (p['length'], p['nugget'], p['scale'])]):
@@ -172,10 +176,11 @@ def test_ref_layer_block_ess_goes_through_k4(models, monkeypatch):
 
     monkeypatch.setattr(cv, "block_loglik_parts_t", parts)
     monkeypatch.setattr(cv, "block_loglik_multi_t", multi)
-    assert eng_t._build_angle_plan(0, lat, par, nn, None, 1) is None
+    shares = _Shares(eng_t, nn)
+    assert eng_t._build_angle_plan(0, lat, par, shares.items[0], None, 1) is None
     dgp_tpu_torch.nb_seed(2)
     gens = (torch.Generator().manual_seed(2), torch.Generator().manual_seed(3))
-    new, _ = eng_t._ess_block_layer(0, lat, None, par, nn, gens)
+    new, _ = eng_t._ess_block_layer(0, lat, None, par, nn, gens, shares)
     assert calls and all(len(s) == 4 and s[0] > 1 for s in calls), calls
     assert torch.isfinite(new[0]).all() and not torch.equal(new[0], lat[0])
 

@@ -23,7 +23,7 @@ from dgp_tpu.models import mstep as jmstep
 from dgp_tpu.vecchia import core as jcore
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
 from dgp_tpu_torch.models import mstep as tmstep
-from dgp_tpu_torch.models.compiled import CompiledDGP
+from dgp_tpu_torch.models.compiled import CompiledDGP, _Shares
 from dgp_tpu_torch.ops import cuda_vecchia as cv
 from dgp_tpu_torch.vecchia import core as vcore
 from dgp_tpu_torch.vecchia import nn as vnn
@@ -286,12 +286,15 @@ def test_route_m_step_group_matches_jax(m):
     eng_t = CompiledDGP(layers_from_numpy(layers_to_numpy(mj.all_layer)), device='cpu')
     (lat_j, par_j), nn_j = eng_j.get_state(), eng_j.get_nn_state()
     (lat_t, par_t), nn_t = eng_t.get_state(), eng_t.get_nn_state()
-    cs_j, cs_t = eng_j._chunk_static(nn_j), eng_t._chunk_static(nn_t)
+    cs_j = eng_j._chunk_static(nn_j)
     es = [(0, 0), (1, 0)]
     d_max = max(eng_t.spec[l][k].D for l, k in es)
     p_max = max(eng_t.spec[l][k].n_length + eng_t.spec[l][k].nugget_est for l, k in es)
-    built = [eng_t._node_operands(l, k, eng_t.spec[l][k], lat_t, par_t, d_max, p_max,
-                                  cs_t) for l, k in es]
+    built = [eng_t._node_operands(l, k, eng_t.spec[l][k], lat_t, par_t, d_max, p_max)
+             for l, k in es]
+    shares = _Shares(eng_t, nn_t)
+    shares.sync(lat_t, par_t)
+    parts = eng_t._group_blocks([(l, k, eng_t.spec[l][k]) for l, k in es], d_max, shares)
     ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
     lt0 = torch.stack([b[1] for b in built])
     ops_j = [eng_j._node_operands(l, k, eng_j.spec[l][k], lat_j, par_j, nn_j, d_max,
@@ -301,8 +304,8 @@ def test_route_m_step_group_matches_jax(m):
     for shift in (0.0, 0.3):
         lt = lt0 + shift * (torch.stack([b[2] for b in built]) != 0)
         vcore.reset_route_counts()
-        nll, g, _ = tmstep._vecch_fg(lt, ops, name='sexp', d_max=d_max, n=eng_t.n,
-                                     has_ref=False, route=True)
+        nll, g, _ = tmstep._vecch_fg(lt, ops, parts, shares.split, name='sexp',
+                                     d_max=d_max, n=eng_t.n, has_ref=False, route=True)
         assert vcore.route_counts()["K1"] == 1
         for i in range(len(es)):
             (ref, _), gj = fg_j(jnp.asarray(lt[i].numpy()), ops_j[i])
@@ -311,7 +314,8 @@ def test_route_m_step_group_matches_jax(m):
     vcore.reset_route_counts()
     tmstep.run_group(ops, lt0, torch.stack([b[2] for b in built]),
                      torch.stack([b[3] for b in built]), [2, 2], name='sexp',
-                     mode='vecch', d_max=d_max, n=eng_t.n, has_ref=False)
+                     mode='vecch', d_max=d_max, n=eng_t.n, has_ref=False, parts=parts,
+                     split=shares.split)
     assert vcore.route_counts()["K1"] == 2
 
 

@@ -28,7 +28,7 @@ from dgp_tpu.vecchia import core as jcore
 import dgp_tpu_torch
 from dgp_tpu_torch import likelihoods as tlik
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
-from dgp_tpu_torch.models.compiled import CompiledDGP
+from dgp_tpu_torch.models.compiled import CompiledDGP, _Shares
 from dgp_tpu_torch.ops import kernels as tkops
 from dgp_tpu_torch.ops.special import owens_t
 from dgp_tpu_torch.vecchia import core as tcore
@@ -550,17 +550,18 @@ def test_angle_plan_with_likelihood_matches_jax(family):
     nn_j = eng_j.get_nn_state()
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
-    cs = eng_t._chunk_static(nn_t)
+    shares = _Shares(eng_t, nn_t)
+    shares.sync(lat_t, par_t)
     ang = np.concatenate([[0.0], np.random.RandomState(2).uniform(0, 2 * np.pi, 8)])
     for l in (0, 1):
         assert eng_t._angle_applicable(l)
         nu = 0.5 * np.random.RandomState(1).normal(size=tuple(lat_t[l].shape))
-        plan = eng_t._build_angle_plan(l, lat_t, par_t, nn_t, None, 1, cs)
+        plan = eng_t._build_angle_plan(l, lat_t, par_t, shares.items[0], None, 1)
         assert len(plan['nodes']) == (lat_t[1].shape[1] if l == 0 else 0)
         assert plan['lik'] == ([] if l == 0 else [0])
         A = [nd['A0'] for nd in plan['nodes']]
         B = [eng_t._gather_latent_view(nd, _t(nu)) for nd in plan['nodes']]
-        ll = eng_t._plan_ll(plan, l, lat_t, _t(nu), A, B)
+        ll = eng_t._plan_ll([plan], l, lat_t, _t(nu), [A], [B], shares)
         f = np.asarray(lat_j[l])
         up_j = jax.jit(lambda lat, l=l: eng_j._upper_loglik(
             l, lat_j[:l] + (lat,) + lat_j[l + 1:], par_j, nn_j))
@@ -577,8 +578,9 @@ def test_exact_layer_is_nodewise_and_draws_exactly():
         _, eng_t = _engines("Hetero", vecchia, rep=True)
         assert eng_t.block and eng_t._layer_is_exact(1) and not eng_t._layer_is_exact(0)
         lat, par = eng_t.get_state()
-        assert eng_t._build_angle_plan(1, lat, par, eng_t.get_nn_state(), None, 1,
-                                       eng_t._chunk_static(eng_t.get_nn_state())) is None
+        assert eng_t._build_angle_plan(1, lat, par,
+                                       _Shares(eng_t, eng_t.get_nn_state()).items[0],
+                                       None, 1) is None
         gen = torch.Generator().manual_seed(0)
         new, _ = eng_t.sample((lat, par), gen, torch.Generator().manual_seed(1), burnin=2)
         assert eng_t.exact_draws[path] == 3 and sum(eng_t.exact_draws.values()) == 3
@@ -601,7 +603,7 @@ def test_m_step_under_likelihood_matches_jax(family, vecchia, monkeypatch):
         lat, par, nn, eng_j._chunk_static(nn)))(lat_j, par_j, nn_j)
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
-    new_t = eng_t._m_step(lat_t, par_t, nn_t, eng_t._chunk_static(nn_t))
+    new_t = eng_t._m_step(lat_t, par_t, nn_t)
     assert new_t[-1] == (None,) and new_j[-1] == (None,)
     flat_t = [v for layer in new_t for p in layer if p is not None
               for v in (p['length'], p['nugget'], p['scale'])]
@@ -705,15 +707,14 @@ def test_sem_iteration_hetero_vecchia_matches_jax_on_shared_draws(monkeypatch):
                         uniform=_jax_ess_uniforms(next(ess_keys), K), **kw)
     monkeypatch.setattr(torch, "randn", randn)
     monkeypatch.setattr(tcompiled, "ess_update", ess_update)
-    cs = eng_t._chunk_static(nn_t)
-    new_lat_t = eng_t._i_step(lat_t, par_t, nn_t, (None, None), burnin, cs)
+    new_lat_t = eng_t._i_step(lat_t, par_t, nn_t, (None, None), burnin)
     monkeypatch.undo()
     assert next(normals, None) is None and next(ess_keys, None) is None
     assert eng_t.exact_draws == {'dense': 0, 'vecchia': S}
     for a, b, old in zip(new_lat_t, new_lat_j, lat_t):
         assert not torch.equal(a, old)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-7, atol=1e-11)
-    new_par_t = eng_t._m_step(new_lat_t, par_t, nn_t, cs)
+    new_par_t = eng_t._m_step(new_lat_t, par_t, nn_t)
     flat_t = [v for layer in new_par_t for p in layer if p is not None
               for v in (p['length'], p['nugget'], p['scale'])]
     for pj, pt in zip(jax.tree_util.tree_leaves(new_par_j), flat_t):

@@ -1,7 +1,8 @@
 """O7 of dgp_tpu_torch on the CPU: the device-mesh helpers
 (`parallel.mesh`), the p* methods (`ppredict`, `ploo`, `pmetric`) of a gp,
 a Vecchia DGP emulator and an lgp, equal bit for bit to the plain calls,
-`dgp.ptrain` and its refusal of a mesh of several devices, and
+`dgp.ptrain` on one device and on a mesh of two (tests/test_torch_split.py
+holds the split to train on more models and meshes), and
 `utils.multistart` against dgp_tpu's.
 """
 import warnings
@@ -39,8 +40,9 @@ def test_mesh_helpers_one_device_is_identity():
     assert mesh == (CPU,)
     state = ((torch.zeros(4, 2),), ())
     assert pmesh.shard_latent_state(state, mesh) is state
-    with pytest.raises(NotImplementedError, match="multi-GPU SEM"):
-        pmesh.shard_latent_state(state, TWO)
+    # on two entries: the state itself, then a copy of it on the second
+    first, second = pmesh.shard_latent_state(state, TWO)
+    assert first is state and torch.equal(second[0][0], state[0][0])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pmesh.device_mesh()
@@ -125,11 +127,18 @@ def test_ptrain_is_train():
             np.testing.assert_array_equal(na.output, nb.output)
 
 
-def test_sharded_train_on_two_devices_raises(two_devices):
+def test_sharded_train_on_two_devices_equals_train(two_devices):
+    """On a mesh of two entries `ptrain` splits SEM into two shares and
+    trains as `train` does, bit for bit."""
+    a = _vecchia_dgp(5)
+    a.train(N=3, disable=True)
     m = _vecchia_dgp(5)
-    with pytest.raises(NotImplementedError, match="multi-GPU SEM"):
-        m.ptrain(N=1, disable=True)
-    assert m.N == 0
+    m.ptrain(N=3, disable=True)
+    assert m.N == 3
+    for la, lb in zip(a.all_layer, m.all_layer):
+        for na, nb in zip(la, lb):
+            np.testing.assert_array_equal(na.para_path, nb.para_path)
+            np.testing.assert_array_equal(na.output, nb.output)
 
 
 @pytest.fixture(scope="module")

@@ -24,7 +24,7 @@ import torch
 import dgp_tpu
 import dgp_tpu_torch
 from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
-from dgp_tpu_torch.models.compiled import CompiledDGP
+from dgp_tpu_torch.models.compiled import CompiledDGP, _Shares
 
 torch.set_num_threads(1)
 
@@ -74,7 +74,8 @@ def test_plan_ll_equals_upper_loglik(jax_model):
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
     np.testing.assert_array_equal(lat_t[0].numpy(), np.asarray(lat_j[0]))
-    cs = eng_t._chunk_static(nn_t)
+    shares = _Shares(eng_t, nn_t)
+    shares.sync(lat_t, par_t)
     nu = np.random.RandomState(1).normal(size=(N, 1)) * 0.5
     nu_t = torch.as_tensor(nu)
     ang = np.concatenate([[0.0], np.random.RandomState(2).uniform(0, 2 * np.pi, 8)])
@@ -83,11 +84,11 @@ def test_plan_ll_equals_upper_loglik(jax_model):
     ref = [float(upper(jnp.asarray(np.cos(a) * f + np.sin(a) * nu))) for a in ang]
     # nu views gathered per sweep, and batched ahead through pre_nu
     for pre_nu in (None, {(0, 0): nu_t[None, :, 0]}):
-        plan = eng_t._build_angle_plan(0, lat_t, par_t, nn_t, pre_nu, 1, cs)
+        plan = eng_t._build_angle_plan(0, lat_t, par_t, shares.items[0], pre_nu, 1)
         A = [nd['A0'] for nd in plan['nodes']]
         B = [nd['B_all'][0] if nd['B_all'] is not None
              else eng_t._gather_latent_view(nd, nu_t) for nd in plan['nodes']]
-        ll = eng_t._plan_ll(plan, 0, lat_t, nu_t, A, B)
+        ll = eng_t._plan_ll([plan], 0, lat_t, nu_t, [A], [B], shares)
         np.testing.assert_allclose(ll(np.cos(ang).tolist(), np.sin(ang).tolist()).numpy(),
                                    ref, rtol=1e-9)
 

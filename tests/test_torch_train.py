@@ -138,7 +138,7 @@ def test_m_step_matches_jax(engines, monkeypatch):
         lat, par, nn, eng_j._chunk_static(nn)))(lat_j, par_j, nn_j)
     lat_t, par_t = eng_t.get_state()
     nn_t = eng_t.get_nn_state()
-    new_t = eng_t._m_step(lat_t, par_t, nn_t, eng_t._chunk_static(nn_t))
+    new_t = eng_t._m_step(lat_t, par_t, nn_t)
     for pj, pt in zip(jax.tree_util.tree_leaves(new_j),
                       [v for layer in new_t for p in layer
                        for v in (p['length'], p['nugget'], p['scale'])]):

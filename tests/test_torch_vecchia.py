@@ -81,8 +81,9 @@ def test_cond_weights_match_xla_and_pallas(name, monkeypatch):
 
 
 def test_cond_weights_pre_gathered_path():
-    """The I-step's pre-gathered layer-0 blocks (CompiledDGP._chunk_static)
-    give the same prior draws as gathering the blocks in cond_weights."""
+    """The I-step's pre-gathered layer-0 blocks (CompiledDGP._chunk_static,
+    through the engine's one share) give the same prior draws as gathering
+    the blocks in cond_weights."""
     X, y, _ = _setup(n=60, d=1, seed=8)
     tp.nb_seed(0)
     layers = tp.combine([tp.kernel(length=np.array([0.5]), nugget=1e-3)],
@@ -91,10 +92,16 @@ def test_cond_weights_pre_gathered_path():
                  device='cpu').imp._engine()
     lat, par = eng.get_state()
     nn_state = eng.get_nn_state()
-    draws = [eng._draw_prior_node_batch(0, 0, lat, par, nn_state,
-                                        torch.Generator().manual_seed(1), 3, cs=cs)
-             for cs in (eng._chunk_static(nn_state), None)]
-    np.testing.assert_array_equal(draws[0].numpy(), draws[1].numpy())
+    draws = eng._draw_prior_node_batch(0, 0, lat, par, nn_state,
+                                       torch.Generator().manual_seed(1), 3)
+    ns, p = nn_state[0][0], par[0][0]
+    w, sigma, idx_asc, _ = tcore.cond_weights(eng._node_input(0, 0, lat)[ns['ord']],
+                                              ns['NN'], p['length'], p['nugget'],
+                                              eng.spec[0][0].name)
+    eps = (torch.randn((3, len(X)), generator=torch.Generator().manual_seed(1),
+                       dtype=w.dtype) * torch.sqrt(p['scale']) * sigma[None, :])
+    gathered = tcore.ancestral_sample(eps, w, idx_asc)[:, ns['rev']]
+    np.testing.assert_array_equal(draws.numpy(), gathered.numpy())
 
 
 def test_ancestral_sample_same_eps():

@@ -1,0 +1,148 @@
+"""One-card cost of dgp_tpu_torch's SEM training and predictions, for
+comparing two trees of the repository on the same card.
+
+    python tools/split_cost.py [--root DIR] [--lgp-points N] [--sem-only --reps K]
+
+imports `dgp_tpu_torch` from ``DIR`` (default: this checkout) and times, on
+cuda:0, the paths that the split over a mesh runs through:
+
+- ``sem_n2000``: `dgp.train(N=16)` of the main path's model (n = 2000,
+  m = 25, `chip_smoke.py`'s data and structure) after 2 iterations of
+  warm-up, and, where the tree splits SEM, `ptrain(N=16)` on a mesh of two
+  shares of the one card, each timed ``--reps`` times (with
+  ``--sem-only``, nothing else);
+- ``emulator``: the main path's emulator (N = 5) predicting 20000 points
+  at m = 50;
+- ``gp_dense`` / ``gp_vecchia``: the `gp` phase's gp predicting 20000
+  points, dense and then Vecchia at its pred_m;
+- ``gp_1e5``: `large_n`'s Vecchia gp at n = 1e5 (the IVF search)
+  predicting 20000 points;
+- ``lgp``: the `linked` phase's system (its first seed) predicting
+  ``--lgp-points`` points.
+
+Every prediction is timed on its second call, the card synchronised on
+both sides.  Prints one JSON object with the card's name and power limit.
+The data and protocols are this checkout's (`chip_smoke.py`,
+`dgp_tpu_torch/data`), whatever ``--root`` is.
+"""
+import argparse
+import importlib.util
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--lgp-points", type=int, default=2500)
+    ap.add_argument("--sem-only", action="store_true")
+    ap.add_argument("--reps", type=int, default=1)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    import dgp_tpu_torch
+    assert Path(dgp_tpu_torch.__file__).resolve().is_relative_to(root)
+    from dgp_tpu_torch import (container, dgp, emulator, gp, kernel, layers_from_numpy,
+                               lgp, nb_seed)
+    from dgp_tpu_torch.parallel import mesh as pmesh
+    cs = _load_smoke()
+    dev = torch.device("cuda", 0)
+    out = {"root": str(root), "nvidia_smi": cs.nvidia_smi()}
+    t_all = time.perf_counter()
+
+    def timed(fn):
+        fn()
+        return cs._timed(fn)[1]
+
+    # SEM at n = 2000
+    X, Y = cs.bench_data()
+    layers = cs._params_json()["layers"]
+
+    def build():
+        nb_seed(123)
+        return dgp(X, Y, layers_from_numpy(layers), vecchia=True, m=cs.M_TRAIN, device=dev)
+    sem = {}
+    hows = ["train"] + (["ptrain"] if hasattr(pmesh, "Split") else [])
+    real_mesh = pmesh.model_mesh
+    pmesh.model_mesh = lambda device: (dev, dev)
+    try:
+        for how in hows:
+            m = build()
+            getattr(m, how)(N=2, disable=True)
+            ts = [cs._timed(lambda: getattr(m, how)(N=16, disable=True))[1]
+                  for _ in range(args.reps)]
+            sem[how] = {"seconds_16": ts, "sem_it_per_s": [16 / t for t in ts]}
+    finally:
+        pmesh.model_mesh = real_mesh
+    out["sem_n2000"] = sem
+    if args.sem_only:
+        print(json.dumps(out), flush=True)
+        return
+    zp = np.linspace(-1, 1, cs.N_PRED).reshape(-1, 1)
+    emu = emulator(m.estimate(), N=5, device=dev)
+    out["emulator"] = {"predict_20000_s": timed(lambda: emu.predict(zp, m=50))}
+
+    # the gp phase's gp, dense then Vecchia
+    p = cs._data_json("gp_n2000.json")["protocol"]
+    nb_seed(123)
+    g = gp(X, Y, kernel(length=np.array([p["length"]]), name=p["kernel"], nugget=p["nugget"],
+                        scale_est=p["scale_est"], nugget_est=p["nugget_est"]), device=dev)
+    g.train()
+    out["gp_dense"] = {"predict_20000_s": timed(lambda: g.predict(zp))}
+    np.random.seed(p["vecchia_ord_seed"])
+    g.to_vecchia(m=p["vecchia_m"])
+    g.train()
+    out["gp_vecchia"] = {"predict_20000_s": timed(lambda: g.predict(zp, m=p["pred_m"]))}
+
+    # large_n's gp at n = 1e5
+    lp = cs._data_json("large_n1e5.json")["protocol"]
+    XL, YL = cs.large_data(lp)
+    np.random.seed(lp["vecchia_ord_seed"])
+    gl = gp(XL, YL, kernel(length=np.array([lp["length"]]), name=lp["kernel"],
+                           nugget=lp["nugget"], scale_est=lp["scale_est"],
+                           nugget_est=lp["nugget_est"]),
+            vecchia=True, m=lp["vecchia_m"], device=dev)
+    gl.train()
+    out["gp_1e5"] = {"nn_method": gl.kernel.nn_method,
+                     "predict_20000_s": timed(lambda: gl.predict(zp, m=lp["pred_m"]))}
+    del gl, XL, YL
+
+    # the linked phase's system, its first seed
+    lref = cs._data_json("linked_n2000.json")
+    q = lref["protocol"]
+    X1, Y1, X2, Y2 = cs.linked_data(q)
+    np.random.seed(q["gp_ord_seed"])
+    g1 = gp(X1, Y1, kernel(length=np.array([q["gp_length"]]), name=q["gp_kernel"],
+                           scale_est=True, nugget_est=True), vecchia=True, m=q["m"],
+            device=dev)
+    g1.train()
+    seed = q["lgp_seeds"][0]
+    nb_seed(seed)
+    np.random.seed(seed)
+    m2 = dgp(X2, Y2, cs.linked_layers(lref), vecchia=True, m=q["m"], device=dev)
+    system = lgp([[container(g1.export(), local_input_idx=np.array([0]), device=dev)],
+                  [container(m2.estimate(), local_input_idx=np.array([0]), device=dev)]],
+                 N=q["lgp_N"], device=dev)
+    zl = np.linspace(-1, 1, args.lgp_points).reshape(-1, 1)
+    out["lgp"] = {"points": args.lgp_points,
+                  "predict_s": timed(lambda: system.predict(zl, m=q["pred_m"]))}
+    out["seconds"] = time.perf_counter() - t_all
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
