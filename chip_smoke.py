@@ -10,7 +10,9 @@ Phases, each printing its results (and its seconds) as one JSON line:
             for sm_90a (one nvcc per source, in parallel); print the build
             seconds, ptxas's registers, stack and spill counts, and the
             launch plan of all four kernels at m1 = 26, d = 2 (points per
-            thread block, its shared bytes, blocks and warps per SM).
+            thread block, its shared bytes, blocks and warps per SM), and
+            at two rows per lane (m1 = 41 and 64, d = 2) with the registers
+            and spills of those instantiations.
   kernels   run each kernel and its plain PyTorch version on the card at the
             shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
             with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
@@ -35,19 +37,22 @@ Phases, each printing its results (and its seconds) as one JSON line:
             K3 and K4 without sentinel lanes), G = 1 (K1), K = 1 and dl = 0
             (K2), K2 at d = 3 with dl = 1 and sentinel lanes, K4 with 9
             candidates sharing one target and diagonal or each with its own;
-            the instantiation with two rows per lane at m1 = 33, 41 and 64
+            the instantiation with two rows per lane at the edges of its
+            two panels, m1 = 33 (panel 2 of one row), 41, 48, 63 and 64
             (all four kernels, K2 also at d = 3, K4 also with 3 candidates
             of their own), K1 with 12 length lanes (d = 12, two passes; also
             isotropic at d = 12 and m1 = 41) and at m1 = 64 with 9; and
-            blocks with a non-positive pivot at m1 = 26 and 64, which must
-            come out NaN where the plain version's do.  The linked phase's
+            blocks with a non-positive pivot at m1 = 26, 33 (panel 1) and 64
+            (rows 0 and 32: both panels), which must come out NaN where the
+            plain version's do.  The linked phase's
             calls too, on its data: K1 for its gp, K3 and K2 for its DGP;
             and the large_n phase's, at n = 1e5 on its data with the IVF
             neighbours: K1 for its DGP's M-step group (2, 26, 2, n), K2 with
             9 candidates, K3 and K4 for its layer-2 node (26, 2, n).
-            278 comparisons in all.  Each kernel at m1 = 41 and 64, K1
-            with 12 length lanes and the four n = 1e5 cases are also timed
-            (kernel, plain version, library call, bound).
+            326 comparisons in all (the phase prints the count).  Each
+            kernel at m1 = 41, 48, 63 and 64, K1 with 12 length lanes and
+            the four n = 1e5 cases are also timed (kernel, plain version,
+            library call, bound).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -121,8 +126,8 @@ Phases, each printing its results (and its seconds) as one JSON line:
             raise NotImplementedError on the card; the route's log-likelihood,
             conditional weights and M-step objective are timed at n=2000 for
             m = 64 and 100.  Then the same model at m=40 (m1 = 41, two rows
-            per lane): construction, 4 SEM iterations, emulator(N=2) and
-            predict.  Fails unless K1, K2 and K3 were launched, no plain
+            per lane): construction, 4 SEM iterations (their seconds per
+            iteration printed), emulator(N=2) and predict.  Fails unless K1, K2 and K3 were launched, no plain
             version ran, the route was not taken, the angle evaluator
             applies and the upper log-likelihood of the trained state
             agrees with the same call on a CPU engine to rtol 1e-9.  Last a
@@ -439,6 +444,29 @@ def phase_device():
           "capability": list(torch.cuda.get_device_capability(0))})
 
 
+# the kernel's symbol, by wrapper, as it stands in the profiler's events and
+# (mangled) in ptxas's entries: the sexp instantiation at R rows per lane is
+# f"{name}I{d|f}Li0E" plus "Li{R}E" for the kernels templated on R (K2 has
+# an entry point of its own for R = 2)
+KERNEL_SYMBOLS = {"block_nllik_grad_parts_t": "block_nllik_grad_kernel",
+                  "block_loglik_multi_t": "block_loglik_multi_kernel",
+                  "cond_weights_t": "cond_weights_kernel",
+                  "block_loglik_parts_t": "block_loglik_parts_kernel"}
+
+
+def _ptxas_entry(ptxas, kname, dtype_name, rows):
+    """ptxas's registers and spills of the sexp kernel of ``kname`` at
+    ``rows`` rows per lane."""
+    t = "d" if dtype_name == "float64" else "f"
+    name = KERNEL_SYMBOLS[kname]
+    if kname == "block_loglik_multi_t":
+        pat = f"{name}{'_r2' if rows == 2 else ''}I{t}Li0EE"
+    else:
+        pat = f"{name}I{t}Li0ELi{rows}EE"
+    hits = [e for e in ptxas if pat in e["function"]]
+    return {k: v for k, v in hits[0].items() if k != "function"} if hits else None
+
+
 def phase_build():
     import torch
     from dgp_tpu_torch.ops import cuda_vecchia as cv
@@ -446,9 +474,13 @@ def phase_build():
     cv.build()
     plans = {f"{dt}/{k}": cv.launch_plan(k, getattr(torch, dt), M_TRAIN + 1, 2)
              for dt in ("float64", "float32") for k in SOURCES}
+    two_rows = {f"{dt}/{k}/m1={m1}": {**cv.launch_plan(k, getattr(torch, dt), m1, 2),
+                                      **(_ptxas_entry(cv.build_info["ptxas"], k, dt, 2) or {})}
+                for dt in ("float64", "float32") for k in SOURCES for m1 in (41, 64)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cv.build_info["seconds"],
-          "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans})
+          "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans,
+          "launch_plans_two_rows_d2": two_rows})
 
 
 def _angle_views(f, nu, x, y, ordv, NN, length, dtype, device, nugget, cosv, sinv):
@@ -742,37 +774,38 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
 # targets) with K = 0 for no candidate axis and the targets and diagonals
 # "shared" by all candidates ((m1, n)) or each candidate's "own" ((K, m1, n)).
 # Then the two-rows-per-lane instantiation (33 <= m1 <= 64: the first
-# block that needs it, the gate phase's m = 40, and the largest), K1 with
-# 12 length lanes (two passes of 8) and at m1 = 64 with 9, and blocks with
-# a non-positive pivot at m1 = 26 and at m1 = 64.
+# block that needs it, whose panel 2 has one row; the gate phase's m = 40;
+# panel 2 of 16 rows; the last two), K1 with 12 length lanes (two passes of
+# 8) and at m1 = 64 with 9, and blocks with a non-positive pivot at m1 = 26,
+# at m1 = 33 (in panel 1) and at m1 = 64 (rows 0 and 32: in each panel).
 EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True),
            (33, 2001, 2, 2, 2, True), (41, 2001, 2, 2, 1, True), (64, 2001, 2, 2, 2, False),
            (26, 2001, 2, 12, 12, True), (26, 2001, 1, 12, 12, False), (64, 501, 1, 9, 9, True),
-           (41, 301, 2, 12, 1, True))
+           (41, 301, 2, 12, 1, True), (48, 2001, 2, 2, 2, True), (63, 2001, 1, 3, 3, False))
 EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3),
-           (33, 2001, 2, 1, 9), (41, 2001, 2, 1, 9), (64, 2001, 2, 1, 9), (64, 301, 3, 1, 2))
+           (33, 2001, 2, 1, 9), (41, 2001, 2, 1, 9), (64, 2001, 2, 1, 9), (64, 301, 3, 1, 2),
+           (48, 2001, 2, 1, 9), (63, 2001, 2, 0, 3))
 EDGE_K3 = ((32, 2001, 2), (2, 3, 2), (26, 2001, 5), (33, 2001, 2), (41, 2001, 1),
-           (64, 2001, 2))
+           (64, 2001, 2), (48, 2001, 2), (63, 2001, 1))
 EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, "shared"),
            (26, 2001, 2, 9, "shared"), (26, 2001, 2, 9, "own"), (33, 2001, 2, 0, "shared"),
-           (41, 2001, 2, 9, "shared"), (64, 2001, 2, 0, "shared"), (64, 2001, 2, 3, "own"))
-NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True))
-NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3))
-NAN_K3 = ((26, 300, 2), (64, 300, 2))
-NAN_K4 = ((26, 300, 2, 3, "own"), (64, 300, 2, 3, "own"))
+           (41, 2001, 2, 9, "shared"), (64, 2001, 2, 0, "shared"), (64, 2001, 2, 3, "own"),
+           (48, 2001, 2, 0, "shared"), (63, 2001, 2, 3, "own"))
+NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True), (33, 300, 2, 2, 2, True))
+NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3), (33, 300, 2, 1, 3))
+NAN_K3 = ((26, 300, 2), (64, 300, 2), (33, 300, 2))
+NAN_K4 = ((26, 300, 2, 3, "own"), (64, 300, 2, 3, "own"), (33, 300, 2, 3, "own"))
 EDGES = (("block_nllik_grad_parts_t", EDGE_K1, NAN_K1), ("block_loglik_multi_t", EDGE_K2, NAN_K2),
          ("cond_weights_t", EDGE_K3, NAN_K3), ("block_loglik_parts_t", EDGE_K4, NAN_K4))
-# timed beside the main path's cases: each kernel at m1 = 41 and 64 (d = 2,
-# n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 with 12
-# length lanes, on the edge cases' random blocks
-VARIANT_TIMES = (("block_nllik_grad_parts_t", (41, 2000, 2, 2, 2, True)),
-                 ("block_nllik_grad_parts_t", (64, 2000, 2, 2, 2, True)),
+# timed beside the main path's cases: each kernel at m1 = 41, 48, 63 and 64
+# (d = 2, n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 with
+# 12 length lanes, on the edge cases' random blocks
+TWO_ROW_M1 = (41, 48, 63, 64)
+VARIANT_TIMES = (*(("block_nllik_grad_parts_t", (m1, 2000, 2, 2, 2, True)) for m1 in TWO_ROW_M1),
                  ("block_nllik_grad_parts_t", (26, 2000, 2, 12, 12, True)),
-                 ("block_loglik_multi_t", (41, 2000, 2, 1, 9)),
-                 ("block_loglik_multi_t", (64, 2000, 2, 1, 9)),
-                 ("cond_weights_t", (41, 2000, 2)), ("cond_weights_t", (64, 2000, 2)),
-                 ("block_loglik_parts_t", (41, 2000, 2, 0, "shared")),
-                 ("block_loglik_parts_t", (64, 2000, 2, 0, "shared")))
+                 *(("block_loglik_multi_t", (m1, 2000, 2, 1, 9)) for m1 in TWO_ROW_M1),
+                 *(("cond_weights_t", (m1, 2000, 2)) for m1 in TWO_ROW_M1),
+                 *(("block_loglik_parts_t", (m1, 2000, 2, 0, "shared")) for m1 in TWO_ROW_M1))
 
 
 def _edge_inputs(kname, shape, seed, bad=False):
@@ -977,12 +1010,14 @@ def phase_kernels(dev):
              ("block_loglik_multi_t", "block_loglik_multi_t/n1e5", {"dl": 1}),
              ("block_loglik_parts_t", "block_loglik_parts_t/n1e5", {}),
              ("block_nllik_grad_parts_t", "block_nllik_grad_parts_t/n1e5", grad_kw))
+    compared = []
     for name in ("sexp", "matern2.5"):
         for kname, case, kw in cases:
             kern = getattr(cv, kname)
             plain = getattr(cv, kname + "_plain")
             rows = _compare(kname, kern, plain, well64[case], in64[case], in32[case],
                             dict(kw, name=name))
+            compared.append(rows)
             results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"],
                                                 rows[0]["max_abs_err"],
                                                 rows[1]["max_abs_err"])
@@ -990,7 +1025,9 @@ def phase_kernels(dev):
                 emit({"phase": "kernels", "name": name, "case": case, **r})
                 if not r["ok"]:
                     failures.append(r)
-    for r in _compare_edges(dev):
+    edges = _compare_edges(dev)
+    comparisons = sum(len(v) for v in (edges, *compared))
+    for r in edges:
         emit({"phase": "kernels", **r})
         if r["dtype"] == "float64" and r["max_abs_err"] is not None:
             results[r["kernel"]]["max_abs_err"] = max(results[r["kernel"]]["max_abs_err"],
@@ -1041,7 +1078,8 @@ def phase_kernels(dev):
                 "bound_ms": bound, "bound_by": by, "shape": list(args[0].shape)}
     for kname in results:
         results[kname].update(timing["float64/" + kname])
-    emit({"phase": "kernels", "timing_ms": timing, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernels", "comparisons": comparisons, "failed": len(failures),
+          "timing_ms": timing, "seconds": time.perf_counter() - t0})
     if failures:
         raise SystemExit(f"kernel comparisons failed: {len(failures)}")
     return results
@@ -1679,7 +1717,11 @@ def phase_gate(dev):
     vcore.reset_route_counts()
     t0 = time.perf_counter()
     m = dgp(X, Y, _bench_layers(), vecchia=True, m=GATE_M, device=dev)
+    torch.cuda.synchronize()
+    t_sem = time.perf_counter()
     m.train(N=GATE_ITERS, disable=True, chunk_size=16)
+    torch.cuda.synchronize()
+    sem_s = (time.perf_counter() - t_sem) / GATE_ITERS
     mu, var = emulator(m.estimate(), N=2, device=dev).predict(z, m=50)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1687,7 +1729,8 @@ def phase_gate(dev):
     launches = {k: c["launches"] for k, c in counts.items()}
     routes_in = vcore.route_counts()
     lls = _upper_loglik(m, dev)
-    inside = {"launches": launches, "seconds": seconds, "route_calls": routes_in,
+    inside = {"launches": launches, "seconds": seconds, "sem_seconds_per_iteration": sem_s,
+              "route_calls": routes_in,
               "plain_calls": {k: c["plain_calls"] for k, c in counts.items()},
               "angle_applicable": m.imp._engine()._angle_applicable(0),
               "upper_loglik_card": lls[0], "upper_loglik_cpu": lls[1],

@@ -20,7 +20,9 @@
 // bytes nor operations bound it: the factorisation is a chain of m1
 // dependent column steps (a shuffle, a reciprocal square root, a publish
 // and the update), and how many such chains an SM keeps in flight (16
-// warps at 97 registers in float64) sets the time.
+// warps at 97 registers in float64) sets the time.  Blocks of 33 to 64 rows
+// are chains of 2 m1 - 32 steps (vecchia_warp.cuh's two panels), at 226
+// registers in float64: 8 warps an SM.
 //
 // What the design does about it (vecchia_warp.cuh): one warp per point,
 // factoring the blocks of its K candidates in turn.  A block's
@@ -31,8 +33,14 @@
 // (coalesced), and the warp forms each candidate's coordinates from the
 // staged tile in its own shared buffer.  PERF.md has the measurements
 // against the candidate axis on the grid (one candidate per thread block).
-// Blocks of 33 to 64 rows run the instantiation with two rows per lane
-// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
+// Blocks of 33 to 64 rows run the two-panel factorisation (R = 2 in
+// vecchia_warp.cuh): every update a multiply-add on a row held in
+// registers, one __syncwarp a step, and a point keeps panel 2's (32, 33)
+// array, panel 1's (m1 - 32, 33) and two column buffers, no copy of the
+// block.  Its entry point asks for one resident block, which lets ptxas
+// take the registers the two register rows need; a cap of 168 registers
+// (10 warps an SM at m1 = 64 in float64 instead of 8) measured slower.
+// Two candidates interleaved in one warp were not tried.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
@@ -41,7 +49,7 @@ namespace dgp {
 // candidate coordinates and its block
 template <int R>
 __host__ __device__ inline int multi_per_point(int m1, int d) {
-  return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1);
+  return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1, KEEP_NONE);
 }
 
 // The kernel's body at R rows per lane; the entry points of R = 1 and R = 2
@@ -66,8 +74,8 @@ __device__ __forceinline__ void multi_body(const T* __restrict__ A, const T* __r
   T* Cs = Bs + tile;
   T* ys = Cs + tile;
   T* ds = ys + m1 * P;
-  T* xw = ds + m1 * P + warp * (d * m1 + block_scratch<R>(m1));   // (m1, d)
-  T* ls = xw + d * m1;                                            // (m1, LDS<R>)
+  T* xw = ds + m1 * P + warp * (d * m1 + block_scratch<R>(m1, KEEP_NONE));   // (m1, d)
+  T* ls = xw + d * m1;                                                       // the block
   stage(A, As, m1, d, n, p0, P);
   stage(B, Bs, m1, d, n, p0, P);
   stage(C, Cs, m1, d, n, p0, P);
@@ -100,8 +108,8 @@ __device__ __forceinline__ void multi_body(const T* __restrict__ A, const T* __r
       dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
       b[r] = row < m1 ? ys[warp * m1 + row] : T(0);
     }
-    warp_build<T, KN, R>(x, dg, ls, m1, d, dlc, lane);
-    warp_cholesky<T, R>(ls, static_cast<T*>(nullptr), b, lii, m1, lane);
+    warp_factor<T, KN, R, KEEP_NONE>(x, dg, ls, static_cast<T*>(nullptr), b, lii, m1, d, dlc,
+                                     lane);
     if (lane == last % WARP) {
       const long long o = (long long)k * n + p;
       const T sl = pick(b, last / WARP);
@@ -123,8 +131,7 @@ block_loglik_multi_kernel(const T* __restrict__ A, const T* __restrict__ B,
 }
 
 // R = 2: the minimum of one resident block lets ptxas take the registers the
-// two-row body needs; without it ptxas chose 48 and spilled 48 bytes
-// (Matern-2.5, float64).
+// two register rows of the panel code need (226 in float64, no spills).
 template <typename T, int KN>
 __global__ void __launch_bounds__(WARP * WARPS_MAX, 1)
 block_loglik_multi_kernel_r2(const T* __restrict__ A, const T* __restrict__ B,

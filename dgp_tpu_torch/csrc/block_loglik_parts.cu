@@ -30,8 +30,8 @@
 // and diag tiles of its P points (coalesced).  Each candidate has its own
 // coordinates, so there is no tile for the candidates of a point to share:
 // they are the grid's y axis, as K1's nodes are.
-// Blocks of 33 to 64 rows run the instantiation with two rows per lane
-// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
+// Blocks of 33 to 64 rows run the two-panel factorisation (R = 2 in
+// vecchia_warp.cuh), each panel's rows in registers.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
@@ -39,7 +39,7 @@ namespace dgp {
 // shared values of one point: its X tile, y, diag and the warp's block
 template <int R>
 __host__ __device__ inline int parts_per_point(int m1, int d) {
-  return m1 * d + 2 * m1 + block_scratch<R>(m1);
+  return m1 * d + 2 * m1 + block_scratch<R>(m1, KEEP_NONE);
 }
 
 // The minimum of one resident block lets ptxas take the registers the
@@ -60,7 +60,7 @@ block_loglik_parts_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   T* Xs = sm;
   T* ys = Xs + m1 * d * P;
   T* ds = ys + m1 * P;
-  T* ls = ds + m1 * P + warp * block_scratch<R>(m1);   // (m1, LDS<R>)
+  T* ls = ds + m1 * P + warp * block_scratch<R>(m1, KEEP_NONE);   // the block
   stage(Xg + (long long)c * m1 * d * n, Xs, m1, d, n, p0, P);
   stage(yg + c * y_stride, ys, m1, 1, n, p0, P);
   stage(diag + c * y_stride, ds, m1, 1, n, p0, P);
@@ -76,8 +76,7 @@ block_loglik_parts_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
     dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
     b[r] = row < m1 ? ys[warp * m1 + row] : T(0);
   }
-  warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
-  warp_cholesky<T, R>(ls, static_cast<T*>(nullptr), b, lii, m1, lane);
+  warp_factor<T, KN, R, KEEP_NONE>(x, dg, ls, static_cast<T*>(nullptr), b, lii, m1, d, d, lane);
   const int last = m1 - 1;
   if (lane == last % WARP) {
     const long long o = (long long)c * n + p;

@@ -31,7 +31,10 @@
 // exponentials.  Neither bytes nor operations bound it: the factorisation
 // and the substitutions are chains of m1 dependent steps across the lanes,
 // and how many such chains an SM keeps in flight (20 warps at 96 registers
-// in float64) sets the time.
+// in float64) sets the time.  Blocks of 33 to 64 rows factor in 2 m1 - 32
+// steps (vecchia_warp.cuh's two panels) and substitute in m1 each; at m1 =
+// 64 a point keeps 4.6k shared values in float64 (L and a copy of K), so an
+// SM holds 6 such chains.
 //
 // What the design does about it (vecchia_warp.cuh): one warp per (node,
 // point), 4000 warps at the M-step's shapes, lane i owning row i.  K's
@@ -47,9 +50,16 @@
 // X, y, diag and dnug tiles of its points (coalesced); the G nodes of the
 // group are the grid's y axis, so one launch serves one L-BFGS evaluation
 // of every node.
-// Blocks of 33 to 64 rows run the instantiation with two rows per lane
-// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.  The
-// length lanes go in passes of NLEN_CHUNK = 8, each pass with its own
+// Blocks of 33 to 64 rows run the two-panel factorisation (R = 2 in
+// vecchia_warp.cuh): every update a multiply-add on a row in registers, one
+// __syncwarp a step.  L stays in the panels, whose diagonals hold 1 /
+// L[j][j]; z goes to the column buffers the factorisation leaves free.  For
+// dK z the correlations come from the copies the factorisation leaves: the
+// upper triangles of the panels' arrays and a copy of A21 it writes beside
+// L21, (m1 - 32) x 33 more shared values a point.  Computing them again
+// from the staged coordinates (one exponential a pair, no copy) measured
+// slower on the H100 at m1 = 41, 48 and 64 (PERF.md), so the copy is kept.
+// The length lanes go in passes of NLEN_CHUNK = 8, each pass with its own
 // register accumulators and forward substitutions over the factor and z
 // kept in shared memory, so any number of lanes up to d is taken; up to 8
 // lanes (and the nugget lane) are one pass.
@@ -57,10 +67,12 @@
 
 namespace dgp {
 
-// the warp's shared values: its block, 1 / L[j][j] and z
+// the warp's shared values: its block (at R = 2 with a copy of A21) and, at
+// R = 1, 1 / L[j][j] and z (at R = 2 the panels' diagonals hold 1 / L[j][j]
+// and z goes to the spare column buffers)
 template <int R>
 __host__ __device__ inline int grad_warp_scratch(int m1) {
-  return block_scratch<R>(m1) + 2 * R * WARP;
+  return block_scratch<R>(m1, KEEP_LK) + (R == 1 ? 2 * WARP : 0);
 }
 
 // shared values of one point: its X tile, y, diag, dnug and the warp's scratch
@@ -78,7 +90,7 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
                         int n_length, int nugget_est) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  constexpr int S = LDS<R>;
+  constexpr int S = LDS;
   const int P = blockDim.x / WARP;
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
@@ -89,9 +101,9 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
   T* ys = Xs + m1 * d * P;
   T* dgs = ys + m1 * P;
   T* dns = dgs + m1 * P;
-  T* ls = dns + m1 * P + warp * grad_warp_scratch<R>(m1);   // (m1, LDS<R>)
-  T* invd = ls + block_scratch<R>(m1);
-  T* zs = invd + R * WARP;
+  T* ls = dns + m1 * P + warp * grad_warp_scratch<R>(m1);   // the block
+  T* invd = ls + block_scratch<R>(m1, KEEP_LK);               // R = 1
+  T* zs = R == 1 ? invd + R * WARP : panel_spare(ls, m1);
   stage(Xg + blk * d, Xs, m1, d, n, p0, P);
   stage(yg + blk, ys, m1, 1, n, p0, P);
   stage(diag + blk, dgs, m1, 1, n, p0, P);
@@ -110,9 +122,8 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
     ly[r] = row < m1 ? ys[warp * m1 + row] : T(0);
     e[r] = row == last ? T(1) : T(0);
   }
-  warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
-  warp_cholesky<T, R>(ls, invd, ly, lii, m1, lane);
-  warp_backward<T, R>(ls, invd, e, z, m1, lane);           // z = L^-T e_last
+  warp_factor<T, KN, R, KEEP_LK>(x, dg, ls, invd, ly, lii, m1, d, d, lane);
+  warp_backward<T, R>(ls, invd, e, z, m1, m1, lane);       // z = L^-T e_last
   const T yl = __shfl_sync(FULL_MASK, pick(ly, last / WARP), last);
   if (lane == last % WARP) {
     logdet[(long long)g * n + p] = T(2) * d_log(pick(lii, last / WARP));
@@ -142,8 +153,12 @@ block_nllik_grad_kernel(const T* __restrict__ Xg, const T* __restrict__ yg,
       if (row >= m1) continue;
       for (int j = 0; j < m1; ++j) {
         if (j == row) continue;         // dK_k has a zero diagonal
-        // K[row][j], from the copy above the diagonal
-        const T kij = j < row ? ls[row * S + j] : ls[j * S + row];
+        // K[row][j], from the copy above the diagonal (and at R = 2 A21's)
+        T kij;
+        if constexpr (R == 1)
+          kij = j < row ? ls[row * S + j] : ls[j * S + row];
+        else
+          kij = panel_k(ls, m1 - WARP, row, j);
         T dd[NLEN_CHUNK];               // dims c0 .. c0 + NLEN_CHUNK - 1
         T iso = T(0);                   // all dims (read when n_length == 1, c0 == 0)
         if (KN == SEXP) {

@@ -25,16 +25,17 @@
 // it directly.  A thread block stages the X and diag tiles of its P points
 // (coalesced), collects its points' weights in shared memory and writes
 // them back with consecutive threads on consecutive points.
-// Blocks of 33 to 64 rows run the instantiation with two rows per lane
-// (R = 2 in vecchia_warp.cuh), the unfactored rows in shared memory.
+// Blocks of 33 to 64 rows run the two-panel factorisation (R = 2 in
+// vecchia_warp.cuh), each panel's rows in registers.
 #include "vecchia_warp.cuh"
 
 namespace dgp {
 
-// the warp's shared values: its block and 1 / L[j][j]
+// the warp's shared values: its block and, at R = 1, 1 / L[j][j] (at R = 2
+// the panels' diagonals hold it)
 template <int R>
 __host__ __device__ inline int condw_warp_scratch(int m1) {
-  return block_scratch<R>(m1) + R * WARP;
+  return block_scratch<R>(m1, KEEP_L) + (R == 1 ? WARP : 0);
 }
 
 // shared values of one point: its X tile, diag, weights and the warp's scratch
@@ -57,15 +58,14 @@ cond_weights_kernel(const T* __restrict__ Xg, const T* __restrict__ diag, T* __r
   T* Xs = sm;
   T* ds = Xs + m1 * d * P;
   T* ws = ds + m1 * P;                                        // (P, m)
-  T* ls = ws + m * P + warp * condw_warp_scratch<R>(m1);      // (m1, LDS<R>)
-  T* invd = ls + block_scratch<R>(m1);
+  T* ls = ws + m * P + warp * condw_warp_scratch<R>(m1);      // the block
+  T* invd = R == 1 ? ls + block_scratch<R>(m1, KEEP_L) : nullptr;
   stage(Xg, Xs, m1, d, n, p0, P);
   stage(diag, ds, m1, 1, n, p0, P);
   __syncthreads();
 
   const int p = p0 + warp;
   if (p < n) {
-    constexpr int S = LDS<R>;
     const TileCoords<T> x{Xs + warp * m1 * d, d};
     T dg[R], b[R], lii[R], acc[R], wi[R];
 #pragma unroll
@@ -74,15 +74,15 @@ cond_weights_kernel(const T* __restrict__ Xg, const T* __restrict__ diag, T* __r
       dg[r] = row < m1 ? ds[warp * m1 + row] : T(0);
       b[r] = T(0);                       // no right-hand side rides along
     }
-    warp_build<T, KN, R>(x, dg, ls, m1, d, d, lane);
-    warp_cholesky<T, R>(ls, invd, b, lii, m1, lane);
-    // L[m1-1][i] sits at (m1-1, i)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = lane + r * WARP;
-      acc[r] = row < m ? ls[row * S + m] : T(0);
+    warp_factor<T, KN, R, KEEP_L>(x, dg, ls, invd, b, lii, m1, d, d, lane);
+    if constexpr (R == 1) {
+      // L[m1-1][i] sits at (m1-1, i)
+      acc[0] = lane < m ? ls[lane * LDS + m] : T(0);
+    } else {
+      acc[0] = panel_l(ls, m1 - WARP, m, lane);
+      acc[1] = WARP + lane < m ? panel_l(ls, m1 - WARP, m, WARP + lane) : T(0);
     }
-    warp_backward<T, R>(ls, invd, acc, wi, m, lane);
+    warp_backward<T, R>(ls, invd, acc, wi, m, m1, lane);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int row = lane + r * WARP;

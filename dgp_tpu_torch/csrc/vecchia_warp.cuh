@@ -15,35 +15,56 @@
 // output with one value per row (K3's weights) goes back the same way
 // (`unstage`).
 //
-// The block.  `warp_build` writes it into the warp's shared (m1, LDS<R>)
-// array, element (r, c) at c * LDS<R> + r: the m1 (m1 - 1) / 2 correlations
-// below the diagonal are spread evenly over the 32 lanes (about m1^2 / 64
-// pairs each), the diagonals come from diag, and a copy of the correlations
-// goes above the diagonal, which the factorisation leaves alone.  LDS<R> =
-// 32 R + 1 keeps both a row (the lanes read (r, c) for r = lane + 32 s) and
-// a column (the lanes read (r, c) for c = lane + 32 s) free of bank
-// conflicts.
+// One row per lane (R = 1).  `warp_build` writes the block into the warp's
+// shared (m1, LDS) array, element (r, c) at c * LDS + r: the m1 (m1 - 1) / 2
+// correlations below the diagonal are spread evenly over the 32 lanes (about
+// m1^2 / 64 pairs each), the diagonals come from diag, and a copy of the
+// correlations goes above the diagonal, which the factorisation leaves
+// alone.  LDS = 33 keeps both a row and a column free of bank conflicts.
+// `warp_cholesky` is a right-looking Cholesky by columns across the lanes:
+// each lane's unfactored row lives in registers, an array of 32 values
+// shifted one place per step so that entry t always holds column j + t (the
+// loop over a row's entries is unrolled over 32 and cut at m1, so the array
+// is never indexed at run time; the loop over the steps stays a loop).  At
+// step j the pivot and L[i][j] travel by shuffle and a double-buffered
+// column in shared memory (one __syncwarp a step), the owners of rows i > j
+// subtract L[i][j] L[k][j] from their entries, and a forward substitution
+// rides along: row j's owner finishes x_j and rows i > j fold in L[i][j]
+// x_j.  Column j of L is written over the block as it is finished, so L
+// ends in the shared array for the later substitutions.
 //
-// The factor.  Right-looking Cholesky by columns across the lanes
-// (`warp_cholesky`): at step j the pivot is broadcast, the owners of rows
-// i > j scale their entry to L[i][j] and publish it, and every row i > j
-// subtracts L[i][j] L[k][j] from its entries j < k <= i.  A forward
-// substitution rides along: row j's owner finishes x_j and rows i > j fold
-// in L[i][j] x_j.  Column j of L is written over column j of the block as
-// it is finished, so L ends in the shared array for the later
-// substitutions.
-//  * R = 1: each lane's unfactored row lives in registers, an array of 32
-//    values shifted one place per step so that entry t always holds column
-//    j + t; the loop over a row's entries is unrolled over 32 and cut at
-//    m1, so the array is never indexed at run time, and the loop over the
-//    steps stays a loop (small code).  The pivot and L[k][j] travel by
-//    shuffle and a double-buffered column in shared memory.
-//  * R = 2: two rows of 64 values in registers would take 256 registers in
-//    float64 and spill, so the unfactored rows stay in the shared array
-//    and are updated there in place; L[k][j] is read from the published
-//    column, the pivot from the diagonal.  Two __syncwarp a step order the
-//    publish before the update and the update before the next pivot.
-// PERF.md has the measurements of both against the alternatives.
+// Two rows per lane (R = 2): a right-looking Cholesky over two panels of
+// rows, 0 .. p1-1 and p1 .. m1-1 with p1 = m1 - 32, so that panel 2 is a
+// full warp and panel 1 as short as the block allows (`panel_cholesky`).
+// Two rows of 64 values would take 256 registers a lane in float64, so no
+// lane holds more than 32 values of a row at a time:
+//  1. Panel 1: A11 is built as above into a (p1, LDS) array and factored by
+//     the one-row code, the forward substitution of the right-hand side
+//     fused in; L11 stays there, its diagonal holding 1 / L[j][j].
+//  2. Panel 2's A22 is built the same way into a (32, LDS) array and lane q
+//     reads its row (row p1 + q of the block) into registers; lane q
+//     computes its p1 correlations of A21 and reads them back as a second
+//     register row.
+//  3. The panel solve and the Schur update, in one loop over panel 1's p1
+//     columns: at step j lane q finishes L21[q][j] (its A21 entry times 1 /
+//     L11[j][j]), publishes it in a double-buffered column (one __syncwarp
+//     a step), updates its later A21 entries from L11's column j (broadcast
+//     reads) and its 32 A22 entries from the published column, and folds
+//     L21[q][j] x_j into its right-hand side.  Every update is an
+//     independent multiply-add in registers, the same count on every lane.
+//  4. Panel 2: A22 - L21 L21^T, in registers already, is factored by the
+//     one-row code again, continuing the substitution.
+// Lane q works on row p1 + q in panel 2 while the callers keep rows lane
+// and lane + 32, so the right-hand side and the diagonal go round the warp
+// by one shuffle before and after.  A pivot that is not positive gives NaN
+// in either panel, and NaN spreads to every later row, as a failed library
+// factorisation does.  A warp keeps the two arrays and the column buffers;
+// a caller that reads L after the factorisation (K1, K3) also keeps L21,
+// and substitutes through the panels with `warp_forward`/`warp_backward`;
+// K1, which also reads K's correlations, keeps a copy of A21 (`KEEP_LK`).
+// Every kernel calls `warp_factor`, which picks the code for its R.
+// PERF.md has the measurements of both instantiations against the
+// alternatives.
 #pragma once
 
 #include "vecchia_common.cuh"
@@ -55,9 +76,10 @@ constexpr int WARP = 32;
 static_assert(M1_MAX <= 2 * WARP, "at most two rows per lane");
 // block rows each lane owns
 __host__ __device__ constexpr int rows_per_lane(int m1) { return m1 <= WARP ? 1 : 2; }
-// stride of a warp's shared (m1, LDS) array at R rows per lane
-template <int R>
-constexpr int LDS = R * WARP + 1;
+// stride of a warp's shared arrays: (m1, LDS) at R = 1, the panels' at R = 2
+constexpr int LDS = WARP + 1;
+// values of one (32, LDS) panel
+constexpr int PANEL = WARP * LDS;
 // most points (warps) a thread block serves
 constexpr int WARPS_MAX = 8;
 // dynamic shared memory a launch gets without opting in
@@ -85,11 +107,18 @@ struct TileCoords {
   __device__ __forceinline__ T operator()(int i, int t) const { return x[i * d + t]; }
 };
 
-// Shared values of a warp's block: the (m1, LDS<R>) array and, at R = 1,
-// two 32-value column buffers after it.
+// What a caller reads of the factorisation besides lii and b: nothing (K2,
+// K4), L (K3), or L and K's correlations (K1).
+constexpr int KEEP_NONE = 0, KEEP_L = 1, KEEP_LK = 2;
+
+// Shared values of a warp's block.  R = 1: the (m1, LDS) array and two
+// 32-value column buffers after it (L and K's correlations stay there).
+// R = 2: panel 2's (32, LDS) array, panel 1's (m1 - 32, LDS), the two column
+// buffers and, from KEEP_L on, L21's (m1 - 32, LDS) and at KEEP_LK a copy
+// of A21 in the same layout.
 template <int R>
-__host__ __device__ inline int block_scratch(int m1) {
-  return m1 * LDS<R> + (R == 1 ? 2 * WARP : 0);
+__host__ __device__ inline int block_scratch(int m1, int keep) {
+  return R == 1 ? m1 * LDS + 2 * WARP : PANEL + (1 + keep) * (m1 - WARP) * LDS + 2 * WARP;
 }
 
 // v[s] for the lane's slot s (its row lane + 32 s) without indexing the
@@ -131,17 +160,26 @@ __device__ __forceinline__ void unstage(const T* src, T* __restrict__ dst, int n
     dst[(long long)r * n + p] = src[w * nrows + r];
 }
 
-// Writes the warp's block into its shared (m1, LDS<R>) array `ls`:
-// corr(i, k) of rows i > k at (i, k) and at (k, i), pair p = i (i - 1) / 2
-// + k on lane p % 32, and the lane's diagonals dg at (i, i) of its rows.
-// The correlation is the product of two factors, over dims [0, split) and
-// [split, d) (one factor if split == d), each of which underflows to 0 on
-// its own at a sentinel distance, as in the plain versions.  Ends with
+// Correlation of block rows i and k: the product of two factors, over dims
+// [0, split) and [split, d) (one factor if split == d), each of which
+// underflows to 0 on its own at a sentinel distance, as in the plain
+// versions.
+template <typename T, int KN, typename Coords>
+__device__ __forceinline__ T pair_corr(const Coords& x, int i, int k, int d, int split) {
+  T v = corr<T, KN>(x, i, k, 0, split);
+  if (split < d) v *= corr<T, KN>(x, i, k, split, d);
+  return v;
+}
+
+// Writes the warp's block of m1 <= 32 rows (R = 1) into its shared (m1,
+// LDS) array `ls`: corr(i, k) of rows i > k at (i, k) and at (k, i), pair
+// p = i (i - 1) / 2 + k on lane p % 32, and the lane's diagonal dg at its
+// row's (i, i).  The correlation is pair_corr's, written out.  Ends with
 // __syncwarp.
 template <typename T, int KN, int R, typename Coords>
 __device__ __forceinline__ void warp_build(const Coords& x, const T (&dg)[R], T* ls, int m1,
                                            int d, int split, int lane) {
-  constexpr int S = LDS<R>;
+  constexpr int S = LDS;
   const int npairs = m1 * (m1 - 1) / 2;
   int i = 1, k = lane;                 // pair p = lane, then p + 32, ...
   for (int p = lane; p < npairs; p += WARP) {
@@ -163,134 +201,311 @@ __device__ __forceinline__ void warp_build(const Coords& x, const T (&dg)[R], T*
   __syncwarp();
 }
 
-// Cholesky of the warp's block in its shared (m1, LDS<R>) array `ls`
-// (entries below the diagonal and the diagonal are read; entries above it
-// are neither used nor changed), with the forward substitution of one
-// right-hand side: the lane's b[s] becomes (L^-1 b) at its row lane + 32 s.
-// L is written over the block's lower triangle (its diagonal, which no
-// caller reads from `ls`, only at R = 1), and lii[s] receives L[i][i] of
-// the lane's rows.  A pivot that is not positive gives NaN, which spreads
-// to every later row, as a failed library factorisation does.  `invd`, if
-// not null, receives 1 / L[j][j].  Ends with __syncwarp.
-template <typename T, int R>
-__device__ __forceinline__ void warp_cholesky(T* ls, T* invd, T (&b)[R], T (&lii)[R], int m1,
+// Cholesky of the warp's block of m1 <= 32 rows in its shared (m1, LDS)
+// array `ls` (entries below the diagonal and the diagonal are read; entries
+// above it are neither used nor changed), with the forward substitution of
+// one right-hand side: the lane's b[0] becomes (L^-1 b) at its row.  L is
+// written over the block's lower triangle and diagonal, and lii[0]
+// receives L[lane][lane].  A pivot that is not positive gives NaN, which
+// spreads to every later row, as a failed library factorisation does.
+// `invd`, if not null, receives 1 / L[j][j].  Ends with __syncwarp.
+template <typename T>
+__device__ __forceinline__ void warp_cholesky(T* ls, T* invd, T (&b)[1], T (&lii)[1], int m1,
                                               int lane) {
-  constexpr int S = LDS<R>;
-  if constexpr (R == 1) {
-    T* col = ls + m1 * S;              // two 32-value column buffers
-    lii[0] = T(0);
-    T a[WARP];                         // a[t]: column j + t of lane's row
+  constexpr int S = LDS;
+  T* col = ls + m1 * S;                // two 32-value column buffers
+  lii[0] = T(0);
+  T a[WARP];                           // a[t]: column j + t of lane's row
 #pragma unroll
-    for (int t = 0; t < WARP; ++t) a[t] = t < m1 ? ls[t * S + lane] : T(0);
-    for (int j = 0; j < m1; ++j) {
-      const T aj = a[0];
-      const T djj = __shfl_sync(FULL_MASK, aj, j);
-      const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
-      const T piv = djj * inv;
-      const T xj = __shfl_sync(FULL_MASK, b[0], j) * inv;
-      const T lij = lane == j ? piv : aj * inv;
-      if (lane >= j) ls[j * S + lane] = lij;
-      if (lane == j) {
-        lii[0] = piv;
-        b[0] = xj;
-      } else if (lane > j) {
-        b[0] -= lij * xj;
-      }
-      if (invd != nullptr && lane == 0) invd[j] = inv;
-      T* c = col + (j & 1) * WARP;     // double-buffered: one __syncwarp a step
-      c[lane] = lij;
-      __syncwarp();
-#pragma unroll
-      for (int t = 1; t < WARP; ++t) {
-        if (j + t >= m1) break;
-        a[t - 1] = a[t] - lij * c[j + t];
-      }
+  for (int t = 0; t < WARP; ++t) a[t] = t < m1 ? ls[t * S + lane] : T(0);
+  for (int j = 0; j < m1; ++j) {
+    const T aj = a[0];
+    const T djj = __shfl_sync(FULL_MASK, aj, j);
+    const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+    const T piv = djj * inv;
+    const T xj = __shfl_sync(FULL_MASK, b[0], j) * inv;
+    const T lij = lane == j ? piv : aj * inv;
+    if (lane >= j) ls[j * S + lane] = lij;
+    if (lane == j) {
+      lii[0] = piv;
+      b[0] = xj;
+    } else if (lane > j) {
+      b[0] -= lij * xj;
     }
+    if (invd != nullptr && lane == 0) invd[j] = inv;
+    T* c = col + (j & 1) * WARP;       // double-buffered: one __syncwarp a step
+    c[lane] = lij;
     __syncwarp();
-  } else {
 #pragma unroll
-    for (int r = 0; r < R; ++r) lii[r] = T(0);
-    for (int j = 0; j < m1; ++j) {
-      const T djj = ls[j * S + j];
-      const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
-      const T piv = djj * inv;
-      // lane j % 32 holds row j in its slot j / 32 (the shuffle reads the
-      // source lane modulo 32)
-      const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0] : b[R - 1], j) * inv;
-      T lij[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = lane + r * WARP;
-        lij[r] = row > j && row < m1 ? ls[j * S + row] * inv : T(0);
-        if (row > j && row < m1) ls[j * S + row] = lij[r];
-        if (row == j) {
-          lii[r] = piv;
-          b[r] = xj;
-        } else if (row > j) {
-          b[r] -= lij[r] * xj;
-        }
-      }
-      if (invd != nullptr && lane == 0) invd[j] = inv;
-      __syncwarp();                    // column j of L is published
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = lane + r * WARP;
-        if (row > j && row < m1)
-          for (int k = j + 1; k <= row; ++k) ls[k * S + row] -= lij[r] * ls[j * S + k];
-      }
-      __syncwarp();                    // the next pivot is updated
+    for (int t = 1; t < WARP; ++t) {
+      if (j + t >= m1) break;
+      a[t - 1] = a[t] - lij * c[j + t];
     }
+  }
+  __syncwarp();
+}
+
+// One panel of `rows` <= 32 rows at R = 2, lane i's row in registers (a[t]
+// = column t of the panel, shifted one place a step as in warp_cholesky),
+// with the forward substitution of b.  Column j of L goes to lp[j * LDS +
+// i] if lp is not null, its diagonal as 1 / L[j][j]; lii receives
+// L[i][i], invd (if not null) 1 / L[j][j].  Ends with __syncwarp.
+template <typename T>
+__device__ __forceinline__ void panel_factor(T (&a)[WARP], T* lp, T* col, T* invd, T& b,
+                                             T& lii, int rows, int lane) {
+  lii = T(0);
+  for (int j = 0; j < rows; ++j) {
+    const T aj = a[0];
+    const T djj = __shfl_sync(FULL_MASK, aj, j);
+    const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+    const T xj = __shfl_sync(FULL_MASK, b, j) * inv;
+    const T lij = aj * inv;
+    if (lp != nullptr && lane >= j) lp[j * LDS + lane] = lane == j ? inv : lij;
+    if (lane == j) {
+      lii = djj * inv;
+      b = xj;
+    } else if (lane > j) {
+      b -= lij * xj;
+    }
+    if (invd != nullptr && lane == 0) invd[j] = inv;
+    T* c = col + (j & 1) * WARP;
+    c[lane] = lij;
+    __syncwarp();
+#pragma unroll
+    for (int t = 1; t < WARP; ++t) {
+      if (j + t >= rows) break;
+      a[t - 1] = a[t] - lij * c[j + t];
+    }
+  }
+  __syncwarp();
+}
+
+// Coordinates of block rows off, off + 1, ... as rows 0, 1, ...
+template <typename Coords>
+struct RowShift {
+  Coords x;
+  int off;
+  __device__ __forceinline__ auto operator()(int i, int t) const { return x(i + off, t); }
+};
+
+// Builds and factors the warp's block of 32 < m1 <= 64 rows (R = 2) in two
+// panels, rows 0 .. p1-1 and p1 .. m1-1 with p1 = m1 - 32 (see the top of
+// this file), with the forward substitution of one right-hand side: the
+// lane's b[s] becomes (L^-1 b) at its row lane + 32 s and lii[s] receives
+// L[i][i] there.  dg[s] is the diagonal of the lane's row lane + 32 s; the
+// correlations are pair_corr's over (d, split).  Lane q factors panel 2's
+// row p1 + q, so b and the diagonal go round the warp by one shuffle
+// before and after.  ls holds block_scratch<2>(m1, KEEP) values: a (32,
+// LDS) array, L11's (p1, LDS) array, the column buffers and, from KEEP_L
+// on, L21's (p1, LDS) array and at KEEP_LK A21's; all column-major,
+// element (r, c) of a panel at c * LDS + r.  The first array holds A22 and,
+// from KEEP_L on, ends as L22.  L11's and L22's diagonals hold 1 /
+// L[j][j], their upper triangles the block's correlations (`panel_l`,
+// `panel_k`).  Ends with __syncwarp; the column buffers (`panel_spare`)
+// are then free.
+template <typename T, int KN, int KEEP, typename Coords>
+__device__ __forceinline__ void panel_cholesky(const Coords& x, const T (&dg)[2], T* ls,
+                                               T (&b)[2], T (&lii)[2], int m1, int d,
+                                               int split, int lane) {
+  const int p1 = m1 - WARP;            // rows of panel 1
+  T* a22 = ls;
+  T* l11 = a22 + PANEL;
+  T* col = l11 + p1 * LDS;
+  T* a21 = KEEP != KEEP_NONE ? col + 2 * WARP : a22;
+  T* k21 = a21 + p1 * LDS;             // KEEP_LK
+  // panel 2's lane q takes row p1 + q: lane i holds it in slot 0 if i >= p1
+  // (row i), in slot 1 if not (row i + 32)
+  const int src = (p1 + lane) % WARP;
+  const T dg2 = __shfl_sync(FULL_MASK, lane >= p1 ? dg[0] : dg[1], src);
+  T b2 = __shfl_sync(FULL_MASK, lane >= p1 ? b[0] : b[1], src);
+  // panel 1: A11 spread over the lanes, factored with the lane's row in a
+  const T dg1[1] = {dg[0]}, dg2a[1] = {dg2};
+  warp_build<T, KN, 1>(x, dg1, l11, p1, d, split, lane);
+  T a[WARP];
+#pragma unroll
+  for (int t = 0; t < WARP; ++t) a[t] = t < p1 && lane < p1 ? l11[t * LDS + lane] : T(0);
+  T b1 = b[0], lii1;
+  panel_factor(a, l11, col, static_cast<T*>(nullptr), b1, lii1, p1, lane);
+  // A22 spread over the lanes, lane q's row of it in s
+  warp_build<T, KN, 1>(RowShift<Coords>{x, p1}, dg2a, a22, WARP, d, split, lane);
+  T s[WARP];
+#pragma unroll
+  for (int t = 0; t < WARP; ++t) s[t] = a22[t * LDS + lane];
+  // lane q's row of A21 (p1 values), through shared memory into a
+  if (KEEP == KEEP_NONE) __syncwarp(); // every lane has read A22
+  for (int t = 0; t < p1; ++t) {
+    const T v = pair_corr<T, KN>(x, p1 + lane, t, d, split);
+    a21[t * LDS + lane] = v;
+    if (KEEP == KEEP_LK) k21[t * LDS + lane] = v;
+  }
+#pragma unroll
+  for (int t = 0; t < WARP; ++t) a[t] = t < p1 ? a21[t * LDS + lane] : T(0);
+  // the panel solve L21 = A21 L11^-T and the Schur update of A22, by columns
+  for (int j = 0; j < p1; ++j) {
+    const T l = a[0] * l11[j * (LDS + 1)];        // L21[q][j]; 1 / L11[j][j]
+    b2 -= l * __shfl_sync(FULL_MASK, b1, j);
+    if (KEEP != KEEP_NONE) a21[j * LDS + lane] = l;
+    T* c = col + (j & 1) * WARP;
+    c[lane] = l;
+    __syncwarp();
+#pragma unroll
+    for (int t = 1; t < WARP; ++t) {
+      if (j + t >= p1) break;
+      a[t - 1] = a[t] - l * l11[j * LDS + j + t];  // L11[j + t][j]
+    }
+#pragma unroll
+    for (int t = 0; t < WARP; ++t) s[t] -= l * c[t];   // L21[t][j]
+  }
+  // panel 2; its first step writes column buffer 0, which the loop's last
+  // step read if p1 is odd
+  __syncwarp();
+  T lii2;
+  panel_factor(s, KEEP != KEEP_NONE ? a22 : static_cast<T*>(nullptr), col,
+               static_cast<T*>(nullptr), b2, lii2, WARP, lane);
+  // back to the lanes' slots: row i (i >= p1) and row i + 32 (i < p1) are
+  // panel 2's rows i - p1 and i + 32 - p1
+  const int back = (lane + WARP - p1) % WARP;
+  const T bb = __shfl_sync(FULL_MASK, b2, back);
+  const T lb = __shfl_sync(FULL_MASK, lii2, back);
+  b[0] = lane < p1 ? b1 : bb;
+  lii[0] = lane < p1 ? lii1 : lb;
+  b[1] = lane < p1 ? bb : T(0);
+  lii[1] = lane < p1 ? lb : T(0);
+}
+
+// L[r][c] (c < r < m1) as panel_cholesky<KEEP_L or KEEP_LK> leaves it in ls,
+// p1 = m1 - 32; at c == r, 1 / L[r][r].
+template <typename T>
+__device__ __forceinline__ T panel_l(const T* ls, int p1, int r, int c) {
+  const T* l11 = ls + PANEL;
+  const T* l21 = l11 + p1 * LDS + 2 * WARP;
+  if (r < p1) return l11[c * LDS + r];
+  if (c < p1) return l21[c * LDS + r - p1];
+  return ls[(c - p1) * LDS + r - p1];
+}
+
+// The block's correlation K[r][c] (r != c) from the copies
+// panel_cholesky<KEEP_LK> leaves: the upper triangles of L11's and L22's
+// arrays, and A21's.
+template <typename T>
+__device__ __forceinline__ T panel_k(const T* ls, int p1, int r, int c) {
+  const int hi = r > c ? r : c, lo = r > c ? c : r;
+  if (hi < p1) return ls[PANEL + hi * LDS + lo];
+  if (lo >= p1) return ls[(hi - p1) * LDS + lo - p1];
+  const T* k21 = ls + PANEL + 2 * p1 * LDS + 2 * WARP;
+  return k21[lo * LDS + hi - p1];
+}
+
+// The column buffers of panel_cholesky's scratch, free after it: 2 * WARP
+// values.
+template <typename T>
+__device__ __forceinline__ T* panel_spare(T* ls, int m1) {
+  return ls + PANEL + (m1 - WARP) * LDS;
+}
+
+// Builds and factors the warp's block in its block_scratch<R>(m1, KEEP)
+// values at ls, with the forward substitution of b: R = 1 warp_build and
+// warp_cholesky (invd as there), R = 2 panel_cholesky (invd is not
+// written; the panels' diagonals hold 1 / L[j][j]).  Ends with __syncwarp.
+template <typename T, int KN, int R, int KEEP, typename Coords>
+__device__ __forceinline__ void warp_factor(const Coords& x, const T (&dg)[R], T* ls, T* invd,
+                                            T (&b)[R], T (&lii)[R], int m1, int d, int split,
+                                            int lane) {
+  if constexpr (R == 1) {
+    warp_build<T, KN, R>(x, dg, ls, m1, d, split, lane);
+    warp_cholesky<T>(ls, invd, b, lii, m1, lane);
+  } else {
+    panel_cholesky<T, KN, KEEP>(x, dg, ls, b, lii, m1, d, split, lane);
   }
 }
 
 // Forward substitution L x = b for up to NR right-hand sides at once (the
 // first nr), the lane holding entry i of each in b[s] for its rows i = lane
-// + 32 s; L is in the warp's shared (m1, LDS<R>) array, 1 / L[j][j] in
-// invd.
+// + 32 s; L is in the warp's shared scratch, R = 1: the (m1, LDS) array
+// with 1 / L[j][j] in invd; R = 2: the panels kept by panel_cholesky, with
+// 1 / L[j][j] on their diagonals (invd is not read).
 template <typename T, int NR, int R>
 __device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[R][NR], int nr,
                                              int m1, int lane) {
-  constexpr int S = LDS<R>;
-  for (int j = 0; j < m1; ++j) {
-    const T inv = invd[j];
-    T lij[R];
+  if constexpr (R == 1) {
+    constexpr int S = LDS;
+    for (int j = 0; j < m1; ++j) {
+      const T inv = invd[j];
+      T lij[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) lij[r] = ls[j * S + lane + r * WARP];
+      for (int r = 0; r < R; ++r) lij[r] = ls[j * S + lane + r * WARP];
 #pragma unroll
-    for (int q = 0; q < NR; ++q) {
-      if (q >= nr) break;
-      const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[R - 1][q], j) * inv;
+      for (int q = 0; q < NR; ++q) {
+        if (q >= nr) break;
+        const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[R - 1][q], j) * inv;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = lane + r * WARP;
-        if (row == j)
-          b[r][q] = xj;
-        else if (row > j)
-          b[r][q] -= lij[r] * xj;
+        for (int r = 0; r < R; ++r) {
+          const int row = lane + r * WARP;
+          if (row == j)
+            b[r][q] = xj;
+          else if (row > j)
+            b[r][q] -= lij[r] * xj;
+        }
+      }
+    }
+  } else {
+    const int p1 = m1 - WARP;
+    for (int j = 0; j < m1; ++j) {
+      const T inv = panel_l(ls, p1, j, j);
+      // L[lane][j] and L[32 + lane][j]
+      const T l0 = lane > j ? panel_l(ls, p1, lane, j) : T(0);
+      const T l1 = WARP + lane > j && WARP + lane < m1 ? panel_l(ls, p1, WARP + lane, j) : T(0);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        if (q >= nr) break;
+        const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[1][q], j) * inv;
+        if (lane == j)
+          b[0][q] = xj;
+        else if (lane > j)
+          b[0][q] -= l0 * xj;
+        if (WARP + lane == j)
+          b[1][q] = xj;
+        else if (WARP + lane > j)
+          b[1][q] -= l1 * xj;
       }
     }
   }
 }
 
-// Backward substitution L_m^T z = r with L_m the leading (m, m) block of the
-// warp's shared (m1, LDS<R>) array, read transposed (row i reads L[k][i]),
-// and 1 / L[j][j] in invd: the lane brings r_i of its rows i = lane + 32 s
-// < m in acc[s] and receives z_i in z[s].
+// Backward substitution L_m^T z = r with L_m the leading (m, m) block of L
+// in the warp's shared scratch, read transposed (row i reads L[k][i]), and
+// 1 / L[j][j] as for warp_forward: the lane brings r_i of its rows i = lane
+// + 32 s < m in acc[s] and receives z_i in z[s].
 template <typename T, int R>
 __device__ __forceinline__ void warp_backward(const T* ls, const T* invd, T (&acc)[R],
-                                              T (&z)[R], int m, int lane) {
-  constexpr int S = LDS<R>;
+                                              T (&z)[R], int m, int m1, int lane) {
 #pragma unroll
   for (int r = 0; r < R; ++r) z[r] = T(0);
-  for (int k = m - 1; k >= 0; --k) {
-    const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[R - 1], k) * invd[k];
+  if constexpr (R == 1) {
+    constexpr int S = LDS;
+    for (int k = m - 1; k >= 0; --k) {
+      const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[R - 1], k) * invd[k];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = lane + r * WARP;
-      if (row == k)
-        z[r] = zk;
-      else if (row < k)
-        acc[r] -= ls[row * S + k] * zk;
+      for (int r = 0; r < R; ++r) {
+        const int row = lane + r * WARP;
+        if (row == k)
+          z[r] = zk;
+        else if (row < k)
+          acc[r] -= ls[row * S + k] * zk;
+      }
+    }
+  } else {
+    const int p1 = m1 - WARP;
+    for (int k = m - 1; k >= 0; --k) {
+      const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[1], k) * panel_l(ls, p1, k, k);
+      if (lane == k)
+        z[0] = zk;
+      else if (lane < k)
+        acc[0] -= panel_l(ls, p1, k, lane) * zk;
+      if (WARP + lane == k)
+        z[1] = zk;
+      else if (WARP + lane < k)
+        acc[1] -= panel_l(ls, p1, k, WARP + lane) * zk;
     }
   }
 }

@@ -196,20 +196,30 @@ def _library():
     return _lib if _lib is not None else build()
 
 
+def _block_scratch(m1, keep):
+    """`block_scratch` of csrc/vecchia_warp.cuh: one row per lane, the
+    (m1, LDS) block and two column buffers; two, a (32, LDS) array, L11's
+    (m1 - 32, LDS), the column buffers and ``keep`` more (m1 - 32, LDS)
+    arrays: L21's from 1 (`KEEP_L`) on, A21's at 2 (`KEEP_LK`)."""
+    lds = _WARP + 1
+    if m1 <= _WARP:                                         # rows_per_lane
+        return m1 * lds + 2 * _WARP
+    return _WARP * lds + (1 + keep) * (m1 - _WARP) * lds + 2 * _WARP
+
+
 def _per_point(kid, m1, d):
     """Values one point keeps in shared memory: `grad_per_point`,
     `multi_per_point`, `condw_per_point` and `parts_per_point` of the
     sources, at the rows per lane (R) the launchers pick for m1."""
-    R = 1 if m1 <= _WARP else 2                             # rows_per_lane
-    scratch = m1 * (R * _WARP + 1) + (2 * _WARP if R == 1 else 0)   # block_scratch
+    one = m1 <= _WARP                                       # rows_per_lane(m1) == 1
     if kid == "K1":
-        return m1 * d + 3 * m1 + scratch + 2 * R * _WARP
+        return m1 * d + 3 * m1 + _block_scratch(m1, 2) + (2 * _WARP if one else 0)
     if kid == "K2":
-        return 3 * m1 * d + 2 * m1 + d * m1 + scratch
+        return 3 * m1 * d + 2 * m1 + d * m1 + _block_scratch(m1, 0)
     if kid == "K3":
-        return m1 * d + m1 + (m1 - 1) + scratch + R * _WARP
+        return m1 * d + m1 + (m1 - 1) + _block_scratch(m1, 1) + (_WARP if one else 0)
     if kid == "K4":
-        return m1 * d + 2 * m1 + scratch
+        return m1 * d + 2 * m1 + _block_scratch(m1, 0)
     raise ValueError(f"unknown kernel id: {kid}")
 
 

@@ -82,29 +82,36 @@ def test_gate_shared_memory_bound(kid, dtype, d_last):
 def test_shared_bytes_formula_is_the_sources():
     """The gate's byte count repeats the CUDA sources' per-point formulas
     and constants; the card's run holds it to `launch_plan`'s figure."""
-    src = {p.name: p.read_text() for p in cv._CSRC.glob("*.cu*")}
+    src = {p.name: " ".join(p.read_text().split()) for p in cv._CSRC.glob("*.cu*")}
     warp = src["vecchia_warp.cuh"]
     assert f"constexpr int WARPS_MAX = {cv._WARPS_MAX};" in warp
     assert f"constexpr int WARP = {cv._WARP};" in warp
-    assert "constexpr int LDS = R * WARP + 1;" in warp
+    assert "constexpr int LDS = WARP + 1;" in warp
+    assert "constexpr int PANEL = WARP * LDS;" in warp
     assert "return m1 <= WARP ? 1 : 2;" in warp
     assert "constexpr size_t SMEM_DEFAULT = 48 * 1024;" in warp
-    assert "return m1 * LDS<R> + (R == 1 ? 2 * WARP : 0);" in warp
+    assert "constexpr int KEEP_NONE = 0, KEEP_L = 1, KEEP_LK = 2;" in warp
+    assert ("return R == 1 ? m1 * LDS + 2 * WARP : PANEL + (1 + keep) * (m1 - WARP) * LDS"
+            " + 2 * WARP;") in warp
     assert f"#define DGP_M1_MAX {cv.M1_MAX}" in src["vecchia_common.cuh"]
     assert "return m1 * d + 3 * m1 + grad_warp_scratch<R>(m1);" in src["block_nllik_grad.cu"]
-    assert "return block_scratch<R>(m1) + 2 * R * WARP;" in src["block_nllik_grad.cu"]
-    assert "return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1);" \
+    assert ("return block_scratch<R>(m1, KEEP_LK) + (R == 1 ? 2 * WARP : 0);"
+            in src["block_nllik_grad.cu"])
+    assert "return 3 * m1 * d + 2 * m1 + d * m1 + block_scratch<R>(m1, KEEP_NONE);" \
         in src["block_loglik_multi.cu"]
     assert "return m1 * d + m1 + (m1 - 1) + condw_warp_scratch<R>(m1);" \
         in src["cond_weights.cu"]
-    assert "return block_scratch<R>(m1) + R * WARP;" in src["cond_weights.cu"]
-    assert "return m1 * d + 2 * m1 + block_scratch<R>(m1);" in src["block_loglik_parts.cu"]
+    assert "return block_scratch<R>(m1, KEEP_L) + (R == 1 ? WARP : 0);" in src["cond_weights.cu"]
+    assert "return m1 * d + 2 * m1 + block_scratch<R>(m1, KEEP_NONE);" \
+        in src["block_loglik_parts.cu"]
     # the main path's blocks in float64: 4 points of a thread block, below
     # the default of 48 KB
     assert cv.shared_bytes("K4", 26, 2, torch.float64) == 4 * 8 * (26 * 2 + 52 + 26 * 33 + 64)
     assert cv.shared_bytes("K2", 26, 2, torch.float64) == 37824
-    # m = 40: two points of a thread block, 65-value rows, no column buffers
-    assert cv.shared_bytes("K4", 41, 2, torch.float64) == 2 * 8 * (41 * 2 + 82 + 41 * 65)
+    # m = 40: two points of a thread block, each with a (32, 33) array,
+    # L11's (9, 33) and two column buffers (K4 keeps no L21)
+    assert cv.shared_bytes("K4", 41, 2, torch.float64) == \
+        2 * 8 * (41 * 2 + 82 + 32 * 33 + 9 * 33 + 64)
 
 
 def _blocks(m1, d, n=12, seed=0):
@@ -115,14 +122,32 @@ def _blocks(m1, d, n=12, seed=0):
     return X, y, diag
 
 
-@pytest.mark.parametrize("m1,kid,dtype,d_last", [
-    (64, "K2", torch.float64, 96), (64, "K2", torch.float32, 210),
-    (33, "K2", torch.float64, 203), (64, "K1", torch.float64, 384),
-    (64, "K3", torch.float64, 386), (64, "K4", torch.float64, 387)])
-def test_gate_shared_memory_bound_two_rows_per_lane(m1, kid, dtype, d_last):
-    """With two rows per lane a one-point thread block holds a 65-value row
-    per block row: at m1 = 64 in float64 K2's tiles fit the SM's 227 KB up
-    to d = 96 (at m1 = 32: 217), K1's, K3's and K4's up to 384-387."""
+# the last d inside the gate with two rows per lane, beside the last d of
+# the design before the two-panel factorisation (blocks of (m1, 65) values):
+# (m1, kid) -> (float64, float32) of each
+TWO_ROW_D_LAST = {
+    (33, "K1"): ((840, 808), (1721, 1689)), (48, "K1"): ((546, 534), (1151, 1140)),
+    (64, "K1"): ((384, 384), (838, 838)),
+    (33, "K2"): ((210, 203), (431, 423)), (48, "K2"): ((142, 134), (293, 285)),
+    (64, "K2"): ((104, 96), (218, 210)),
+    (33, "K3"): ((842, 811), (1723, 1692)), (48, "K3"): ((558, 537), (1163, 1142)),
+    (64, "K3"): ((401, 386), (855, 840)),
+    (33, "K4"): ((843, 813), (1724, 1693)), (48, "K4"): ((569, 538), (1174, 1143)),
+    (64, "K4"): ((418, 387), (872, 841)),
+}
+
+
+@pytest.mark.parametrize("m1,kid,dtype,d_last,d_before", [
+    (m1, kid, dtype, *dims) for (m1, kid), per_dtype in TWO_ROW_D_LAST.items()
+    for dtype, dims in zip((torch.float64, torch.float32), per_dtype)])
+def test_gate_shared_memory_bound_two_rows_per_lane(m1, kid, dtype, d_last, d_before):
+    """With two rows per lane a warp keeps a (32, 33) array, L11's (m1 -
+    32, 33) and two column buffers, K1 and K3 also L21's (m1 - 32, 33) and
+    K1 a copy of A21 of that size: a one-point thread block fits the SM's
+    227 KB up to d_last dims, no fewer than the design that kept an (m1,
+    65) array (d_before: at m1 = 64 in float64 K2 96, K1 384, K3 386, K4
+    387)."""
+    assert d_last >= d_before
     assert cv.use_kernel(kid, m1, d_last, dtype)
     assert not cv.use_kernel(kid, m1, d_last + 1, dtype)
 

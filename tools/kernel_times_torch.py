@@ -25,7 +25,9 @@ CHECKOUT (default: this repository) is the root of a checkout whose
 dgp_tpu_torch is timed; it must take chip_smoke.py's inputs.  With
 ``--large`` it times, instead, the four kernels at chip_smoke.py's n = 1e5
 cases (its `_large_inputs`: the large_n phase's data and IVF neighbours),
-in float64.
+in float64.  Every case also reports the kernel's launch plan (points per
+thread block, shared bytes, blocks and warps per SM), and the line holds
+ptxas's register and spill figures of every kernel built.
 """
 import functools
 import importlib.util
@@ -39,11 +41,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent.parent
-#: the kernel's symbol in the profiler's events, by wrapper name
-SYMBOLS = {"block_nllik_grad_parts_t": "block_nllik_grad_kernel",
-           "block_loglik_multi_t": "block_loglik_multi_kernel",
-           "cond_weights_t": "cond_weights_kernel",
-           "block_loglik_parts_t": "block_loglik_parts_kernel"}
 CASES = (("block_nllik_grad_parts_t", "block_nllik_grad_parts_t",
           {"n_length": 2, "nugget_est": True}),
          ("block_loglik_multi_t", "block_loglik_multi_t", {"dl": 1}),
@@ -93,7 +90,7 @@ def main():
         print("kernel_times_torch: CUDA is not available", file=sys.stderr)
         return 1
     large = "--large" in sys.argv
-    args = [a for a in sys.argv[1:] if a != "--large"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     checkout = Path(args[0]).resolve() if args else ROOT
     label = args[1] if len(args) > 1 else str(checkout)
     sys.path.insert(0, str(checkout))
@@ -140,9 +137,11 @@ def main():
                 functools.partial(torch.linalg.cholesky_ex, cs._blocks_of(kname, args)),
                 cs._bound_ms(kname, args, dname, kw), list(args[0].shape),
                 [a.is_contiguous() for a in args])
+    plans = {key: cv.launch_plan(kname, getattr(torch, key.split("/")[0]), *shape[-3:-1])
+             for key, (kname, _, _, _, _, shape, _) in calls.items()}
     times = {}
     for key, (kname, call, dense, library, (bound, by), shape, flat) in calls.items():
-        times[key] = {
+        times[key] = {"plan": plans[key],
             "ms": cs.cuda_ms(call), "ms_one_call": cs.cuda_ms(call, inner=1),
             "host_ms": host_ms(call), "ms_contiguous": cs.cuda_ms(dense),
             "host_ms_contiguous": host_ms(dense), "library_ms": cs.cuda_ms(library),
@@ -152,7 +151,7 @@ def main():
     # profiled last: after a profiler session the calls timed in the same
     # process took about twice as long on the host
     for key, (kname, call, _, library, _, _, _) in calls.items():
-        times[key].update(device_ms=device_ms(call, SYMBOLS[kname]),
+        times[key].update(device_ms=device_ms(call, cs.KERNEL_SYMBOLS[kname]),
                           library_device_ms=device_ms(library))
     print(json.dumps({"checkout": label, "nvidia_smi": smi,
                       "ptxas": cv.build_info["ptxas"], "times": times}), flush=True)

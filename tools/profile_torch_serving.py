@@ -12,7 +12,8 @@ chip_smoke.py's dense DGP (the parity row `2d`): 20 warm-up iterations and
 `to_vecchia(m=25)`, the Vecchia `train()`.  For each window it prints one
 JSON line: wall seconds, the summed device time of all kernels, their share
 of the wall time, the kernel launches (all, and of each hand-written
-kernel), and the top operators by device time and by host time.  With a
+kernel), each hand-written kernel's device milliseconds, and the top
+operators by device time and by host time.  With a
 directory argument it also writes each window's Chrome trace there.
 
 With ``--linked`` it profiles chip_smoke.py's `linked` cell instead (the
@@ -61,9 +62,12 @@ def window(name, fn, out_dir):
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     launches = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
+    kernel_ms = {k: sum(e.time_range.elapsed_us() for e in kernels if sym in e.name) / 1e3
+                 for k, sym in chip_smoke.KERNEL_SYMBOLS.items()}
     all_launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
     out = {"window": name, "wall_s": wall, "device_kernel_s": busy,
            "device_busy_share": busy / wall, "launches": launches,
+           "kernel_device_ms": kernel_ms,
            "cuda_launch_kernel_calls": all_launches,
            "top_device": _top(ev, "self_device_time_total"),
            "top_host": _top(ev, "self_cpu_time_total")}

@@ -2,6 +2,7 @@
 comparing two trees of the repository on the same card.
 
     python tools/split_cost.py [--root DIR] [--lgp-points N] [--sem-only --reps K]
+                               [--model gate|large] [--profile]
 
 imports `dgp_tpu_torch` from ``DIR`` (default: this checkout) and times, on
 cuda:0, the paths that the split over a mesh runs through:
@@ -10,7 +11,15 @@ cuda:0, the paths that the split over a mesh runs through:
   m = 25, `chip_smoke.py`'s data and structure) after 2 iterations of
   warm-up, and, where the tree splits SEM, `ptrain(N=16)` on a mesh of two
   shares of the one card, each timed ``--reps`` times (with
-  ``--sem-only``, nothing else);
+  ``--sem-only``, nothing else).  With ``--model gate`` the model is
+  instead `chip_smoke.py`'s `gate` phase's at m = 40 (blocks of 41 rows,
+  bench.py's starting hyper-parameters, `train(N=16, chunk_size=16)` after
+  16 of warm-up, no ptrain); with ``--model large`` it is `large_n`'s
+  DGP (bench.py's n = 1e5 draw, its seed, warm-up and chunk) at m = 40;
+  either model times SEM alone.  With ``--profile``, 4 more iterations of
+  `train` then run in one window of `tools/profile_torch_serving.py`
+  (wall seconds, the device's busy share, launches and device
+  milliseconds of each hand-written kernel), reported also per iteration;
 - ``emulator``: the main path's emulator (N = 5) predicting 20000 points
   at m = 50;
 - ``gp_dense`` / ``gp_vecchia``: the `gp` phase's gp predicting 20000
@@ -37,11 +46,24 @@ import numpy as np
 HERE = Path(__file__).resolve().parent.parent
 
 
-def _load_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+def _load(name, path):
+    """Imports the module at ``path`` as ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def _profile(m, iters, kw):
+    """``iters`` more SEM iterations of ``m`` in one window of
+    `profile_torch_serving.window`, with each hand-written kernel's device
+    ms and launches an iteration."""
+    pts = _load("profile_torch_serving", HERE / "tools" / "profile_torch_serving.py")
+    w = pts.window(f"sem{iters}", lambda: m.train(N=iters, disable=True, **kw), None)
+    w["per_iteration"] = {k: {"device_ms": w["kernel_device_ms"][k] / iters,
+                              "launches": w["launches"][k] / iters} for k in w["launches"]}
+    return w
 
 
 def main():
@@ -50,6 +72,8 @@ def main():
     ap.add_argument("--lgp-points", type=int, default=2500)
     ap.add_argument("--sem-only", action="store_true")
     ap.add_argument("--reps", type=int, default=1)
+    ap.add_argument("--model", choices=("main", "gate", "large"), default="main")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -59,7 +83,7 @@ def main():
     from dgp_tpu_torch import (container, dgp, emulator, gp, kernel, layers_from_numpy,
                                lgp, nb_seed)
     from dgp_tpu_torch.parallel import mesh as pmesh
-    cs = _load_smoke()
+    cs = _load("chip_smoke", HERE / "chip_smoke.py")
     dev = torch.device("cuda", 0)
     out = {"root": str(root), "nvidia_smi": cs.nvidia_smi()}
     t_all = time.perf_counter()
@@ -68,28 +92,44 @@ def main():
         fn()
         return cs._timed(fn)[1]
 
-    # SEM at n = 2000
+    # SEM at n = 2000 (n = 1e5 for the large model)
     X, Y = cs.bench_data()
     layers = cs._params_json()["layers"]
+    lp = cs._data_json("large_n1e5.json")["protocol"]
+    if args.model == "large":
+        X, Y = cs.large_data(lp)
 
     def build():
+        if args.model == "large":
+            nb_seed(lp["dgp_seed"])
+            return dgp(X, Y, cs._bench_layers(), vecchia=True, m=cs.GATE_M, check_rep=False,
+                       device=dev)
         nb_seed(123)
+        if args.model == "gate":
+            return dgp(X, Y, cs._bench_layers(), vecchia=True, m=cs.GATE_M, device=dev)
         return dgp(X, Y, layers_from_numpy(layers), vecchia=True, m=cs.M_TRAIN, device=dev)
-    sem = {}
-    hows = ["train"] + (["ptrain"] if hasattr(pmesh, "Split") else [])
+    kw = {"main": {}, "gate": {"chunk_size": 16},
+          "large": {"chunk_size": lp["dgp_chunk"]}}[args.model]
+    warmup = {"main": 2, "gate": 16, "large": lp["dgp_warm"]}[args.model]
+    sem = {"model": args.model, "n": len(X),
+           "m": cs.M_TRAIN if args.model == "main" else cs.GATE_M, "warmup": warmup}
+    hows = ["train"] + (["ptrain"] if hasattr(pmesh, "Split") and args.model == "main"
+                        else [])
     real_mesh = pmesh.model_mesh
     pmesh.model_mesh = lambda device: (dev, dev)
     try:
         for how in hows:
             m = build()
-            getattr(m, how)(N=2, disable=True)
-            ts = [cs._timed(lambda: getattr(m, how)(N=16, disable=True))[1]
+            getattr(m, how)(N=warmup, disable=True, **kw)
+            ts = [cs._timed(lambda: getattr(m, how)(N=16, disable=True, **kw))[1]
                   for _ in range(args.reps)]
             sem[how] = {"seconds_16": ts, "sem_it_per_s": [16 / t for t in ts]}
+            if how == "train" and args.profile:
+                sem["profile"] = _profile(m, 4, kw)
     finally:
         pmesh.model_mesh = real_mesh
-    out["sem_n2000"] = sem
-    if args.sem_only:
+    out["sem_n1e5" if args.model == "large" else "sem_n2000"] = sem
+    if args.sem_only or args.model != "main":
         print(json.dumps(out), flush=True)
         return
     zp = np.linspace(-1, 1, cs.N_PRED).reshape(-1, 1)
