@@ -40,19 +40,22 @@ Phases, each printing its results (and its seconds) as one JSON line:
             the instantiation with two rows per lane at the edges of its
             two panels, m1 = 33 (panel 2 of one row), 41, 48, 63 and 64
             (all four kernels, K2 also at d = 3, K4 also with 3 candidates
-            of their own), K1 with 12 length lanes (d = 12, two passes; also
-            isotropic at d = 12 and m1 = 41) and at m1 = 64 with 9; and
-            blocks with a non-positive pivot at m1 = 26, 33 (panel 1) and 64
-            (rows 0 and 32: both panels), which must come out NaN where the
-            plain version's do.  The linked phase's
+            of their own), K1 with 12 length lanes (d = 12, two passes of
+            the gradient stage; also isotropic at d = 12 and m1 = 41, and
+            12 lanes over 13 dims at m1 = 33), with 16 and 17 (passes ending
+            with the nugget lane alone and with a length lane), at m1 = 64
+            with 9 and 12 and at m1 = 41 with 24; and blocks with a
+            non-positive pivot at m1 = 26 (also with 12 length lanes), 33
+            (panel 1) and 64 (rows 0 and 32: both panels), which must come
+            out NaN where the plain version's do.  The linked phase's
             calls too, on its data: K1 for its gp, K3 and K2 for its DGP;
             and the large_n phase's, at n = 1e5 on its data with the IVF
             neighbours: K1 for its DGP's M-step group (2, 26, 2, n), K2 with
             9 candidates, K3 and K4 for its layer-2 node (26, 2, n).
-            326 comparisons in all (the phase prints the count).  Each
-            kernel at m1 = 41, 48, 63 and 64, K1 with 12 length lanes and
-            the four n = 1e5 cases are also timed (kernel, plain version,
-            library call, bound).
+            350 comparisons in all (the phase prints the count).  Each
+            kernel at m1 = 41, 48, 63 and 64, K1 with 12 and 16 length
+            lanes and the four n = 1e5 cases are also timed (kernel, plain
+            version, library call, bound).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -776,12 +779,17 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
 # Then the two-rows-per-lane instantiation (33 <= m1 <= 64: the first
 # block that needs it, whose panel 2 has one row; the gate phase's m = 40;
 # panel 2 of 16 rows; the last two), K1 with 12 length lanes (two passes of
-# 8) and at m1 = 64 with 9, and blocks with a non-positive pivot at m1 = 26,
-# at m1 = 33 (in panel 1) and at m1 = 64 (rows 0 and 32: in each panel).
+# 8 over the pairs; 12 lanes over 13 dims at m1 = 33), 16 (the nugget lane
+# alone in the third pass) and 17 (a length lane in it), at m1 = 64 with 9
+# and 12 and at m1 = 41 with 24, and blocks with a non-positive pivot at m1
+# = 26 (also with 12 lanes), at m1 = 33 (in panel 1) and at m1 = 64 (rows 0
+# and 32: in each panel).  Every case runs under sexp and Matern-2.5.
 EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5, True),
            (33, 2001, 2, 2, 2, True), (41, 2001, 2, 2, 1, True), (64, 2001, 2, 2, 2, False),
            (26, 2001, 2, 12, 12, True), (26, 2001, 1, 12, 12, False), (64, 501, 1, 9, 9, True),
-           (41, 301, 2, 12, 1, True), (48, 2001, 2, 2, 2, True), (63, 2001, 1, 3, 3, False))
+           (41, 301, 2, 12, 1, True), (48, 2001, 2, 2, 2, True), (63, 2001, 1, 3, 3, False),
+           (26, 2001, 2, 16, 16, True), (26, 2001, 1, 17, 17, False), (64, 501, 1, 12, 12, True),
+           (41, 301, 2, 24, 24, True), (33, 2001, 2, 13, 12, True))
 EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3),
            (33, 2001, 2, 1, 9), (41, 2001, 2, 1, 9), (64, 2001, 2, 1, 9), (64, 301, 3, 1, 2),
            (48, 2001, 2, 1, 9), (63, 2001, 2, 0, 3))
@@ -791,18 +799,20 @@ EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, 
            (26, 2001, 2, 9, "shared"), (26, 2001, 2, 9, "own"), (33, 2001, 2, 0, "shared"),
            (41, 2001, 2, 9, "shared"), (64, 2001, 2, 0, "shared"), (64, 2001, 2, 3, "own"),
            (48, 2001, 2, 0, "shared"), (63, 2001, 2, 3, "own"))
-NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True), (33, 300, 2, 2, 2, True))
+NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True), (33, 300, 2, 2, 2, True),
+          (26, 300, 2, 12, 12, True))
 NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3), (33, 300, 2, 1, 3))
 NAN_K3 = ((26, 300, 2), (64, 300, 2), (33, 300, 2))
 NAN_K4 = ((26, 300, 2, 3, "own"), (64, 300, 2, 3, "own"), (33, 300, 2, 3, "own"))
 EDGES = (("block_nllik_grad_parts_t", EDGE_K1, NAN_K1), ("block_loglik_multi_t", EDGE_K2, NAN_K2),
          ("cond_weights_t", EDGE_K3, NAN_K3), ("block_loglik_parts_t", EDGE_K4, NAN_K4))
 # timed beside the main path's cases: each kernel at m1 = 41, 48, 63 and 64
-# (d = 2, n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 with
-# 12 length lanes, on the edge cases' random blocks
+# (d = 2, n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 and
+# 16 with as many length lanes, on the edge cases' random blocks
 TWO_ROW_M1 = (41, 48, 63, 64)
 VARIANT_TIMES = (*(("block_nllik_grad_parts_t", (m1, 2000, 2, 2, 2, True)) for m1 in TWO_ROW_M1),
                  ("block_nllik_grad_parts_t", (26, 2000, 2, 12, 12, True)),
+                 ("block_nllik_grad_parts_t", (26, 2000, 2, 16, 16, True)),
                  *(("block_loglik_multi_t", (m1, 2000, 2, 1, 9)) for m1 in TWO_ROW_M1),
                  *(("cond_weights_t", (m1, 2000, 2)) for m1 in TWO_ROW_M1),
                  *(("block_loglik_parts_t", (m1, 2000, 2, 0, "shared")) for m1 in TWO_ROW_M1))
@@ -942,8 +952,13 @@ def _bound_ms(kname, ins, dtype_name, kw):
     and which of bytes or operations bounds it.  Operations count the sexp
     pipeline's floating-point work per block (an exponential or a square
     root counts as one): the correlation pairs, the column Cholesky, the
-    substitutions and, for K1, the derivative blocks and their solves
-    (``kw``: the call's n_length and nugget_est)."""
+    substitutions and, for K1, the gradient (``kw``: the call's n_length
+    and nugget_est).  K1's gradient has two algorithms, whichever needs
+    fewer operations on these shapes counting: p forward substitutions of
+    dK_k z, or one more backward substitution and the quadratic forms z^T
+    dK_k z and a^T dK_k z summed over the pairs i < j.  The count does not
+    depend on the kernel's design, so rows stay comparable across
+    designs."""
     m1 = ins[0].shape[-3]
     d = ins[0].shape[-2]
     n = ins[0].shape[-1]
@@ -966,10 +981,12 @@ def _bound_ms(kname, ins, dtype_name, kw):
     else:                                            # K1
         G = ins[0].shape[0] if ins[0].ndim == 4 else 1
         nlen = kw["n_length"]
-        p = nlen + int(kw["nugget_est"])
+        nug = int(kw["nugget_est"])
+        p = nlen + nug
         blocks = G * n
-        per = (corr + chol + 2 * solve + pairs * nlen * 6 + m1
-               + p * (solve + 2 * m1 + 4))
+        forward = pairs * nlen * 6 + m1 + p * (solve + 2 * m1 + 4)
+        pair_forms = solve + pairs * (6 * nlen + 6) + 2 * m1 + 4 * m1 * nug + 4 * p
+        per = corr + chol + 2 * solve + min(forward, pair_forms)
         out_elems = 2 * G * n + 2 * G * p * n
     nbytes = (in_elems + out_elems) * ins[0].element_size()
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -1060,7 +1077,7 @@ def phase_kernels(dev):
                 "bound_ms": bound, "bound_by": by,
                 "shape": list(args[0].shape)}
             del blocks
-    # the two-rows-per-lane instantiation and K1's passes over length lanes
+    # the two-rows-per-lane instantiation and K1 with 12 and 16 length lanes
     for dt in ("float64", "float32"):
         for kname, shape in VARIANT_TIMES:
             kern = getattr(cv, kname)
@@ -1611,13 +1628,13 @@ def _gate_formula_rows(torch, cv):
     return rows, ok
 
 
-def gate_gp_data():
-    """The gate phase's gp on 12 inputs: n = 300 points of [0, 1]^12, a sum
+def gate_gp_data(n=GATE_GP_N):
+    """The gate phase's gp on 12 inputs: n (300) points of [0, 1]^12, a sum
     of one smooth term per input plus noise (sd 0.05)."""
     rs = np.random.RandomState(GATE_GP_SEED)
-    X = rs.rand(GATE_GP_N, GATE_GP_D)
+    X = rs.rand(n, GATE_GP_D)
     w = np.linspace(0.5, 3.0, GATE_GP_D)
-    Y = np.sin(X * w).sum(axis=1, keepdims=True) + 0.05 * rs.randn(GATE_GP_N, 1)
+    Y = np.sin(X * w).sum(axis=1, keepdims=True) + 0.05 * rs.randn(n, 1)
     return X, Y
 
 
@@ -1739,7 +1756,7 @@ def phase_gate(dev):
                              and all(np.isfinite(nd.para_path).all()
                                      for layer in m.all_layer for nd in layer))}
     # a Vecchia gp with one lengthscale per input on 12 inputs: K1 takes its
-    # 12 length lanes (two passes); trained on the card and on the CPU
+    # 12 length lanes; trained on the card and on the CPU
     Xg, Yg = gate_gp_data()
     gps = {}
     for device in (dev, "cpu"):

@@ -22,9 +22,6 @@ namespace dgp {
 // most block rows the kernels take: one row per lane of a warp up to 32,
 // two rows per lane up to 64 (vecchia_warp.cuh)
 constexpr int M1_MAX = DGP_M1_MAX;
-// log-lengthscale lanes the gradient kernel (K1) accumulates in registers
-// in one pass; more lanes take more passes
-constexpr int NLEN_CHUNK = 8;
 
 enum KernelName : int { SEXP = 0, MATERN25 = 1 };
 

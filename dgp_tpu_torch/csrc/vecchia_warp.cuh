@@ -60,8 +60,8 @@
 // in either panel, and NaN spreads to every later row, as a failed library
 // factorisation does.  A warp keeps the two arrays and the column buffers;
 // a caller that reads L after the factorisation (K1, K3) also keeps L21,
-// and substitutes through the panels with `warp_forward`/`warp_backward`;
-// K1, which also reads K's correlations, keeps a copy of A21 (`KEEP_LK`).
+// and substitutes through the panels with `warp_backward`; K1, which also
+// reads K's correlations, keeps a copy of A21 (`KEEP_LK`).
 // Every kernel calls `warp_factor`, which picks the code for its R.
 // PERF.md has the measurements of both instantiations against the
 // alternatives.
@@ -107,6 +107,16 @@ struct TileCoords {
   __device__ __forceinline__ T operator()(int i, int t) const { return x[i * d + t]; }
 };
 
+// The same from a tile staged transposed, (d, m1) (`stage_transposed`):
+// lanes that read one dim of consecutive rows read consecutive addresses,
+// free of bank conflicts whatever d is.
+template <typename T>
+struct TileCoordsT {
+  const T* x;
+  int m1;
+  __device__ __forceinline__ T operator()(int i, int t) const { return x[t * m1 + i]; }
+};
+
 // What a caller reads of the factorisation besides lii and b: nothing (K2,
 // K4), L (K3), or L and K's correlations (K1).
 constexpr int KEEP_NONE = 0, KEEP_L = 1, KEEP_LK = 2;
@@ -144,6 +154,19 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, T* dst, int nro
   const int total = nrows * d;
   for (int rt = threadIdx.x / P; rt < total; rt += WARP)
     dst[w * total + rt] = p < n ? src[(long long)rt * n + p] : T(0);
+}
+
+// `stage` with each point's tile transposed: dst laid out (P, d, nrows).
+template <typename T>
+__device__ __forceinline__ void stage_transposed(const T* __restrict__ src, T* dst, int nrows,
+                                                 int d, int n, int p0, int P) {
+  const int w = threadIdx.x % P;
+  const int p = p0 + w;
+  const int total = nrows * d;
+  for (int rt = threadIdx.x / P; rt < total; rt += WARP) {
+    const int r = rt / d;
+    dst[w * total + (rt - r * d) * nrows + r] = p < n ? src[(long long)rt * n + p] : T(0);
+  }
 }
 
 // The reverse of `stage` for one value per row: copies src laid out
@@ -386,14 +409,14 @@ __device__ __forceinline__ T panel_l(const T* ls, int p1, int r, int c) {
 
 // The block's correlation K[r][c] (r != c) from the copies
 // panel_cholesky<KEEP_LK> leaves: the upper triangles of L11's and L22's
-// arrays, and A21's.
+// arrays, and A21's (one shared load at a computed offset).
 template <typename T>
 __device__ __forceinline__ T panel_k(const T* ls, int p1, int r, int c) {
   const int hi = r > c ? r : c, lo = r > c ? c : r;
-  if (hi < p1) return ls[PANEL + hi * LDS + lo];
-  if (lo >= p1) return ls[(hi - p1) * LDS + lo - p1];
-  const T* k21 = ls + PANEL + 2 * p1 * LDS + 2 * WARP;
-  return k21[lo * LDS + hi - p1];
+  const int at = hi < p1    ? PANEL + hi * LDS + lo
+                 : lo >= p1 ? (hi - p1) * LDS + lo - p1
+                            : PANEL + 2 * p1 * LDS + 2 * WARP + lo * LDS + hi - p1;
+  return ls[at];
 }
 
 // The column buffers of panel_cholesky's scratch, free after it: 2 * WARP
@@ -419,102 +442,75 @@ __device__ __forceinline__ void warp_factor(const Coords& x, const T (&dg)[R], T
   }
 }
 
-// Forward substitution L x = b for up to NR right-hand sides at once (the
-// first nr), the lane holding entry i of each in b[s] for its rows i = lane
-// + 32 s; L is in the warp's shared scratch, R = 1: the (m1, LDS) array
-// with 1 / L[j][j] in invd; R = 2: the panels kept by panel_cholesky, with
-// 1 / L[j][j] on their diagonals (invd is not read).
+// Backward substitution L_m^T z = r for NR right-hand sides at once, with
+// L_m the leading (m, m) block of L in the warp's shared scratch, read
+// transposed (row i reads L[k][i]): R = 1 the (m1, LDS) array with 1 /
+// L[j][j] in invd, R = 2 the panels kept by panel_cholesky, with 1 /
+// L[j][j] on their diagonals (invd is not read).  The lane brings r_i of
+// its rows i = lane + 32 s < m in acc[s][q] and receives z_i in z[s][q];
+// the right-hand sides share one chain of m steps and its reads of L.
 template <typename T, int NR, int R>
-__device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&b)[R][NR], int nr,
-                                             int m1, int lane) {
+__device__ __forceinline__ void warp_backward(const T* ls, const T* invd, T (&acc)[R][NR],
+                                              T (&z)[R][NR], int m, int m1, int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < NR; ++q) z[r][q] = T(0);
   if constexpr (R == 1) {
     constexpr int S = LDS;
-    for (int j = 0; j < m1; ++j) {
-      const T inv = invd[j];
-      T lij[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) lij[r] = ls[j * S + lane + r * WARP];
+    for (int k = m - 1; k >= 0; --k) {
 #pragma unroll
       for (int q = 0; q < NR; ++q) {
-        if (q >= nr) break;
-        const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[R - 1][q], j) * inv;
+        const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0][q] : acc[R - 1][q], k) * invd[k];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int row = lane + r * WARP;
-          if (row == j)
-            b[r][q] = xj;
-          else if (row > j)
-            b[r][q] -= lij[r] * xj;
+          if (row == k)
+            z[r][q] = zk;
+          else if (row < k)
+            acc[r][q] -= ls[row * S + k] * zk;
         }
       }
     }
   } else {
     const int p1 = m1 - WARP;
-    for (int j = 0; j < m1; ++j) {
-      const T inv = panel_l(ls, p1, j, j);
-      // L[lane][j] and L[32 + lane][j]
-      const T l0 = lane > j ? panel_l(ls, p1, lane, j) : T(0);
-      const T l1 = WARP + lane > j && WARP + lane < m1 ? panel_l(ls, p1, WARP + lane, j) : T(0);
+    for (int k = m - 1; k >= 0; --k) {
 #pragma unroll
       for (int q = 0; q < NR; ++q) {
-        if (q >= nr) break;
-        const T xj = __shfl_sync(FULL_MASK, j < WARP ? b[0][q] : b[1][q], j) * inv;
-        if (lane == j)
-          b[0][q] = xj;
-        else if (lane > j)
-          b[0][q] -= l0 * xj;
-        if (WARP + lane == j)
-          b[1][q] = xj;
-        else if (WARP + lane > j)
-          b[1][q] -= l1 * xj;
+        const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0][q] : acc[1][q], k) *
+                     panel_l(ls, p1, k, k);
+        if (lane == k)
+          z[0][q] = zk;
+        else if (lane < k)
+          acc[0][q] -= panel_l(ls, p1, k, lane) * zk;
+        if (WARP + lane == k)
+          z[1][q] = zk;
+        else if (WARP + lane < k)
+          acc[1][q] -= panel_l(ls, p1, k, WARP + lane) * zk;
       }
     }
   }
 }
 
-// Backward substitution L_m^T z = r with L_m the leading (m, m) block of L
-// in the warp's shared scratch, read transposed (row i reads L[k][i]), and
-// 1 / L[j][j] as for warp_forward: the lane brings r_i of its rows i = lane
-// + 32 s < m in acc[s] and receives z_i in z[s].
+// warp_backward for one right-hand side, acc[s] and z[s].
 template <typename T, int R>
 __device__ __forceinline__ void warp_backward(const T* ls, const T* invd, T (&acc)[R],
                                               T (&z)[R], int m, int m1, int lane) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) z[r] = T(0);
-  if constexpr (R == 1) {
-    constexpr int S = LDS;
-    for (int k = m - 1; k >= 0; --k) {
-      const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[R - 1], k) * invd[k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = lane + r * WARP;
-        if (row == k)
-          z[r] = zk;
-        else if (row < k)
-          acc[r] -= ls[row * S + k] * zk;
-      }
-    }
-  } else {
-    const int p1 = m1 - WARP;
-    for (int k = m - 1; k >= 0; --k) {
-      const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0] : acc[1], k) * panel_l(ls, p1, k, k);
-      if (lane == k)
-        z[0] = zk;
-      else if (lane < k)
-        acc[0] -= panel_l(ls, p1, k, lane) * zk;
-      if (WARP + lane == k)
-        z[1] = zk;
-      else if (WARP + lane < k)
-        acc[1] -= panel_l(ls, p1, k, WARP + lane) * zk;
-    }
-  }
+  warp_backward<T, 1, R>(ls, invd, reinterpret_cast<T(&)[R][1]>(acc),
+                         reinterpret_cast<T(&)[R][1]>(z), m, m1, lane);
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+// Sums each of V values over the warp: V xor butterflies run step by step
+// together (5 V shuffles, V independent at each step), and every lane ends
+// with every sum.  A transposing butterfly (V - 1 shuffles, a lane keeping
+// half of its values a step) selects among v by lane, which left v in a
+// stack frame, and timed 2-16% slower in K1 (PERF.md).
+template <typename T, int V>
+__device__ __forceinline__ void warp_sum_each(T (&v)[V]) {
 #pragma unroll
-  for (int o = WARP / 2; o > 0; o /= 2) v += __shfl_xor_sync(FULL_MASK, v, o);
-  return v;
+  for (int w = WARP / 2; w >= 1; w /= 2)
+#pragma unroll
+    for (int s = 0; s < V; ++s) v[s] += __shfl_xor_sync(FULL_MASK, v[s], w);
 }
 
 // Points (warps) per thread block and its dynamic shared bytes, for a kernel

@@ -210,7 +210,10 @@ def _block_scratch(m1, keep):
 def _per_point(kid, m1, d):
     """Values one point keeps in shared memory: `grad_per_point`,
     `multi_per_point`, `condw_per_point` and `parts_per_point` of the
-    sources, at the rows per lane (R) the launchers pick for m1."""
+    sources, at the rows per lane (R) the launchers pick for m1.  K1's are
+    its X tile, y, diag and dnug, the block with a copy of its
+    correlations, and (one row per lane) 1 / L[j][j] and z; a = K^-1 y goes
+    over the staged diag, which the kernel reads once."""
     one = m1 <= _WARP                                       # rows_per_lane(m1) == 1
     if kid == "K1":
         return m1 * d + 3 * m1 + _block_scratch(m1, 2) + (2 * _WARP if one else 0)

@@ -1,17 +1,19 @@
 """K1, the Vecchia gradient kernel, with more length lanes than one pass of
-its register accumulators holds (8) and at the blocks it takes with two
-rows per lane (33 <= m1 <= 64): its plain version against dgp_tpu on the
-same float64 inputs.
+its gradient stage accumulates (8) and at the blocks it takes with two
+rows per lane (33 <= m1 <= 64): its plain version, which the kernel is
+held to on the card, against dgp_tpu on the same float64 inputs.
 
-At n_length = 9 and 12 (d = n_length), with and without the nugget lane,
-at m1 = 10, against the Pallas gradient kernel in interpret mode.  At m1 =
-33, 41 and 64 the interpret mode takes more than ten minutes per case on
-the CPU (its trace grows with m1), so there the M-step objective and
-gradient through the plain version are held to jax.value_and_grad of the
-JAX package's XLA form (`vecchia.core.vecchia_nllik`, the path dgp_tpu
-itself runs off the TPU and above m1 = 64).  Tolerances as in
-tests/test_torch_vecchia.py: rtol 1e-9 for values, rtol 1e-7, atol 1e-10
-for gradients."""
+At n_length = 9, 12, 16 and 17 (d = n_length; 16 leaves the nugget lane
+alone in the last pass, 17 a length lane with it), with and without the
+nugget lane, at m1 = 10, against the Pallas gradient kernel in interpret
+mode.  At m1 = 33, 41 and 64 the interpret mode takes more than ten
+minutes per case on the CPU (its trace grows with m1), so there the M-step
+objective and gradient through the plain version are held to
+jax.value_and_grad of the JAX package's XLA form
+(`vecchia.core.vecchia_nllik`, the path dgp_tpu itself runs off the TPU and
+above m1 = 64).  Tolerances as in tests/test_torch_vecchia.py: rtol 1e-9
+for values, rtol 1e-7, atol 1e-10 for gradients.  Last, the gate admits
+K1 at no fewer dims than before the gradient stage was redesigned."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,10 +30,12 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name,nugget_est,n_length", [
-    ("sexp", True, 9), ("matern2.5", False, 9), ("matern2.5", True, 12), ("sexp", False, 12)])
+    ("sexp", True, 9), ("matern2.5", False, 9), ("matern2.5", True, 12), ("sexp", False, 12),
+    ("sexp", True, 16), ("matern2.5", False, 16), ("matern2.5", True, 17),
+    ("sexp", False, 17)])
 def test_block_nllik_grad_lanes_match_pallas(name, nugget_est, n_length):
-    """K1's plain version against the Pallas gradient kernel with 9 and 12
-    length lanes (d = n_length), with and without the nugget lane, and a
+    """K1's plain version against the Pallas gradient kernel with 9, 12, 16
+    and 17 length lanes (d = n_length), with and without the nugget lane, and a
     leading node axis of two parameter settings."""
     groups = [_grad_blocks(n_length, seed, 50, 9, n_length) for seed in (0, 1)]
     kw = dict(name=name, n_length=n_length, nugget_est=nugget_est)
@@ -50,8 +54,10 @@ def test_block_nllik_grad_lanes_match_pallas(name, nugget_est, n_length):
 
 @pytest.mark.parametrize("m1,d,n_length,nugget_est,name", [
     (33, 2, 2, True, "sexp"), (41, 2, 1, True, "matern2.5"), (64, 2, 2, False, "matern2.5"),
-    (64, 9, 9, True, "sexp"), (26, 12, 12, True, "matern2.5"), (41, 12, 1, False, "sexp")],
-    ids=["m33", "m41-iso", "m64", "m64-lanes9", "lanes12", "m41-d12-iso"])
+    (64, 9, 9, True, "sexp"), (26, 12, 12, True, "matern2.5"), (41, 12, 1, False, "sexp"),
+    (64, 12, 12, True, "matern2.5"), (33, 17, 17, False, "sexp")],
+    ids=["m33", "m41-iso", "m64", "m64-lanes9", "lanes12", "m41-d12-iso", "m64-lanes12",
+         "m33-lanes17"])
 def test_vecchia_nllik_fg_two_rows_matches_jax_autodiff(m1, d, n_length, nugget_est, name):
     """The M-step objective and its gradient through K1's plain version
     against jax.value_and_grad of dgp_tpu's XLA objective on the same
@@ -77,3 +83,16 @@ def test_vecchia_nllik_fg_two_rows_matches_jax_autodiff(m1, d, n_length, nugget_
     _close(g_t, g_j, rtol=1e-7, atol=1e-10)
     assert g_t.shape == (n_length + int(nugget_est),)
     assert cv.block_nllik_grad_parts_t.launches == 0
+
+
+@pytest.mark.parametrize("m1,dtype,d_last", [
+    (26, torch.float64, 1076), (33, torch.float64, 840), (48, torch.float64, 546),
+    (64, torch.float64, 384), (26, torch.float32, 2194), (33, torch.float32, 1721),
+    (48, torch.float32, 1151), (64, torch.float32, 838)])
+def test_gate_admits_k1_at_no_fewer_dims(m1, dtype, d_last):
+    """`use_kernel("K1", ...)` takes every d up to the last one the formula
+    took before the gradient stage was redesigned (hard-coded), and
+    `shared_bytes` stays within one SM's 227 KB there."""
+    assert cv.use_kernel("K1", m1, d_last, dtype)
+    assert cv.shared_bytes("K1", m1, d_last, dtype) <= cv.SMEM_MAX
+    assert all(cv.use_kernel("K1", m1, d, dtype) for d in range(1, d_last + 1))

@@ -7,8 +7,9 @@ repository's chip_smoke.py (the main path's shapes, sexp: K1 (2, 26, 2,
 2000) with 2 length lanes and the nugget lane, K2 (26, 2, 2000) with K=9,
 dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates, and
 the gp path's K1 without a node axis and K4, both at (26, 1, 2000); then
-its VARIANT_TIMES, each kernel at m1 = 41 and 64 and K1 with 12 length
-lanes, where the checkout's kernels take them; float64 and float32); the
+its VARIANT_TIMES, each kernel at m1 = 41, 48, 63 and 64 and K1 with 12
+and 16 length lanes, where the checkout's kernels take them; float64 and
+float32); the
 kernels are those of the checkout given.  For
 each case it measures CUDA-event time around 10 calls back to back and
 around one call alone (median of 20 each) and the host time per call (200
@@ -121,7 +122,7 @@ def main():
                 cs._bound_ms(kname, args, dname, kw), list(args[0].shape),
                 [a.is_contiguous() for a in args])
         # chip_smoke.py's timed cases beyond the main path (blocks of two
-        # rows per lane, K1 with 12 length lanes), where this checkout's
+        # rows per lane, K1 with 12 and 16 length lanes), where this checkout's
         # kernels take them
         for kname, shape in () if large else cs.VARIANT_TIMES:
             kw = cs._edge_kw(kname, shape, "sexp")

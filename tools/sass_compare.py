@@ -2,15 +2,19 @@
 dgp_tpu_torch checkouts, function by function, on a machine with the CUDA
 toolkit.
 
-    python3 tools/sass_compare.py CHECKOUT_A CHECKOUT_B [--one-row] [--show NAME]
+    python3 tools/sass_compare.py CHECKOUT_A CHECKOUT_B [--one-row] [--only NAMES]
+                                  [--show NAME]
 
 builds each checkout's kernel library in a process of its own (its
 `ops.cuda_vecchia.build`, into that checkout's `_build/`), disassembles it
 with `cuobjdump -sass`, drops the addresses and encodings, and prints one
 JSON object: for every kernel entry point of the two libraries whether its
 instructions are the same in both.  With ``--one-row`` only the
-instantiations with one row per lane (m1 <= 32) are listed; a name present
-in one library only is reported as such.  ``--show NAME`` also prints a
+instantiations with one row per lane (m1 <= 32) are listed; with ``--only
+NAMES`` (comma-separated, e.g. ``block_loglik_multi,cond_weights,
+block_loglik_parts`` for K2, K3 and K4) only the functions whose names
+contain one of them.  A name present in one library only is reported as
+such.  ``--show NAME`` also prints a
 unified diff of the instructions of each function whose name contains
 NAME.
 """
@@ -64,12 +68,15 @@ def one_row(name):
 def main():
     argv = sys.argv[1:]
     show = argv.pop(argv.index("--show") + 1) if "--show" in argv else None
+    only = argv.pop(argv.index("--only") + 1).split(",") if "--only" in argv else None
     args = [a for a in argv if not a.startswith("--")]
     rows = "--one-row" in argv
     a, b = (functions(Path(p).resolve()) for p in args[:2])
     names = sorted(set(a) | set(b))
     if rows:
         names = [n for n in names if one_row(n)]
+    if only:
+        names = [n for n in names if any(o in n for o in only)]
     res = {n: ("only in " + (args[0] if n in a else args[1])) if (n in a) != (n in b)
            else ("same" if a[n] == b[n] else "differs") for n in names}
     for n in names if show else ():

@@ -2,7 +2,7 @@
 comparing two trees of the repository on the same card.
 
     python tools/split_cost.py [--root DIR] [--lgp-points N] [--sem-only --reps K]
-                               [--model gate|large] [--profile]
+                               [--model gate|large|wide] [--profile]
 
 imports `dgp_tpu_torch` from ``DIR`` (default: this checkout) and times, on
 cuda:0, the paths that the split over a mesh runs through:
@@ -20,6 +20,12 @@ cuda:0, the paths that the split over a mesh runs through:
   `train` then run in one window of `tools/profile_torch_serving.py`
   (wall seconds, the device's busy share, launches and device
   milliseconds of each hand-written kernel), reported also per iteration;
+- ``gp_wide`` (``--model wide``, and nothing else): the `gate` phase's
+  12-input function (`chip_smoke.gate_gp_data`'s law and seed) drawn at
+  n = 1e5, a Vecchia gp with 12 lengthscales at m = 25 (the IVF search,
+  as from n >= 50000), `gp.train()` timed ``--reps`` times after one
+  warm-up `train()`, each starting where the last ended; with
+  ``--profile`` one more `train()` in one profiler window;
 - ``emulator``: the main path's emulator (N = 5) predicting 20000 points
   at m = 50;
 - ``gp_dense`` / ``gp_vecchia``: the `gp` phase's gp predicting 20000
@@ -44,6 +50,8 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
+#: points of the ``--model wide`` gp
+WIDE_N = 100_000
 
 
 def _load(name, path):
@@ -66,13 +74,40 @@ def _profile(m, iters, kw):
     return w
 
 
+def _wide(cs, dev, reps, profiled):
+    """`gp.train()` of a Vecchia gp with 12 lengthscales at n = 1e5 on the
+    `gate` phase's 12-input law: seconds per call after one warm-up, and
+    the hand-written kernels' launches per call; with ``profiled`` one more
+    call in a profiler window."""
+    from dgp_tpu_torch import gp, kernel
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    X, Y = cs.gate_gp_data(WIDE_N)
+    np.random.seed(cs.GATE_GP_SEED)
+    t0 = time.perf_counter()
+    g = gp(X, Y, kernel(length=np.full(cs.GATE_GP_D, 0.5), name="sexp", scale_est=True,
+                        nugget_est=True), vecchia=True, m=cs.M_TRAIN, device=dev)
+    out = {"n": len(X), "d": X.shape[1], "m": cs.M_TRAIN, "nn_method": g.kernel.nn_method,
+           "build_s": time.perf_counter() - t0,
+           "warmup_s": cs._timed(g.train)[1]}
+    ts, launches = [], []
+    for _ in range(reps):
+        cv.reset_launch_counts()
+        ts.append(cs._timed(g.train)[1])
+        launches.append(cs.launch_counts())
+    out.update(train_s=ts, launches=launches, length=g.kernel.length.tolist())
+    if profiled:
+        pts = _load("profile_torch_serving", HERE / "tools" / "profile_torch_serving.py")
+        out["profile"] = pts.window("gp_wide_train", g.train, None)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--lgp-points", type=int, default=2500)
     ap.add_argument("--sem-only", action="store_true")
     ap.add_argument("--reps", type=int, default=1)
-    ap.add_argument("--model", choices=("main", "gate", "large"), default="main")
+    ap.add_argument("--model", choices=("main", "gate", "large", "wide"), default="main")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -87,6 +122,10 @@ def main():
     dev = torch.device("cuda", 0)
     out = {"root": str(root), "nvidia_smi": cs.nvidia_smi()}
     t_all = time.perf_counter()
+    if args.model == "wide":
+        out["gp_wide"] = _wide(cs, dev, args.reps, args.profile)
+        print(json.dumps(out), flush=True)
+        return
 
     def timed(fn):
         fn()
