@@ -776,6 +776,9 @@ def _compare(kname, kern, plain, well64, in64, in32, kw):
 # nugget_est); K2: (m1, n, d, dl, K); K3: (m1, n, d); K4: (m1, n, d, K,
 # targets) with K = 0 for no candidate axis and the targets and diagonals
 # "shared" by all candidates ((m1, n)) or each candidate's "own" ((K, m1, n)).
+# K2's one-row path also with K = 2 and 8, with 9 at d = 5 (dl = 2, three
+# static dims) and d = 3 (dl = 1), 7 at m1 = 32 over d = 3 (dl = 2), and a
+# non-positive pivot with 2 candidates.
 # Then the two-rows-per-lane instantiation (33 <= m1 <= 64: the first
 # block that needs it, whose panel 2 has one row; the gate phase's m = 40;
 # panel 2 of 16 rows; the last two), K1 with 12 length lanes (two passes of
@@ -792,7 +795,8 @@ EDGE_K1 = ((32, 2001, 2, 2, 1, False), (2, 3, 1, 2, 2, True), (26, 2001, 1, 5, 5
            (41, 301, 2, 24, 24, True), (33, 2001, 2, 13, 12, True))
 EDGE_K2 = ((32, 2001, 2, 1, 9), (2, 3, 2, 1, 1), (26, 2001, 5, 0, 1), (26, 500, 3, 1, 3),
            (33, 2001, 2, 1, 9), (41, 2001, 2, 1, 9), (64, 2001, 2, 1, 9), (64, 301, 3, 1, 2),
-           (48, 2001, 2, 1, 9), (63, 2001, 2, 0, 3))
+           (48, 2001, 2, 1, 9), (63, 2001, 2, 0, 3), (26, 2001, 2, 1, 2), (26, 2001, 2, 1, 8),
+           (26, 2001, 5, 2, 9), (26, 2001, 3, 1, 9), (32, 2001, 3, 2, 7))
 EDGE_K3 = ((32, 2001, 2), (2, 3, 2), (26, 2001, 5), (33, 2001, 2), (41, 2001, 1),
            (64, 2001, 2), (48, 2001, 2), (63, 2001, 1))
 EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, "shared"),
@@ -801,19 +805,22 @@ EDGE_K4 = ((32, 2001, 2, 0, "shared"), (2, 3, 2, 0, "shared"), (26, 2001, 5, 0, 
            (48, 2001, 2, 0, "shared"), (63, 2001, 2, 3, "own"))
 NAN_K1 = ((26, 300, 2, 2, 2, True), (64, 300, 2, 2, 2, True), (33, 300, 2, 2, 2, True),
           (26, 300, 2, 12, 12, True))
-NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3), (33, 300, 2, 1, 3))
+NAN_K2 = ((26, 300, 2, 1, 3), (64, 300, 2, 1, 3), (33, 300, 2, 1, 3), (26, 300, 2, 1, 2))
 NAN_K3 = ((26, 300, 2), (64, 300, 2), (33, 300, 2))
 NAN_K4 = ((26, 300, 2, 3, "own"), (64, 300, 2, 3, "own"), (33, 300, 2, 3, "own"))
 EDGES = (("block_nllik_grad_parts_t", EDGE_K1, NAN_K1), ("block_loglik_multi_t", EDGE_K2, NAN_K2),
          ("cond_weights_t", EDGE_K3, NAN_K3), ("block_loglik_parts_t", EDGE_K4, NAN_K4))
 # timed beside the main path's cases: each kernel at m1 = 41, 48, 63 and 64
-# (d = 2, n = 2000; K2 with 9 candidates, K4 alone), and K1 at d = 12 and
-# 16 with as many length lanes, on the edge cases' random blocks
+# (d = 2, n = 2000; K2 with 9 candidates, K4 alone), K1 at d = 12 and 16
+# with as many length lanes, and K2 at m1 = 26 with no static dim (dl = 0)
+# and with two (d = 3, dl = 1), on the edge cases' random blocks
 TWO_ROW_M1 = (41, 48, 63, 64)
 VARIANT_TIMES = (*(("block_nllik_grad_parts_t", (m1, 2000, 2, 2, 2, True)) for m1 in TWO_ROW_M1),
                  ("block_nllik_grad_parts_t", (26, 2000, 2, 12, 12, True)),
                  ("block_nllik_grad_parts_t", (26, 2000, 2, 16, 16, True)),
                  *(("block_loglik_multi_t", (m1, 2000, 2, 1, 9)) for m1 in TWO_ROW_M1),
+                 ("block_loglik_multi_t", (26, 2000, 2, 0, 9)),
+                 ("block_loglik_multi_t", (26, 2000, 3, 1, 9)),
                  *(("cond_weights_t", (m1, 2000, 2)) for m1 in TWO_ROW_M1),
                  *(("block_loglik_parts_t", (m1, 2000, 2, 0, "shared")) for m1 in TWO_ROW_M1))
 
@@ -953,12 +960,16 @@ def _bound_ms(kname, ins, dtype_name, kw):
     pipeline's floating-point work per block (an exponential or a square
     root counts as one): the correlation pairs, the column Cholesky, the
     substitutions and, for K1, the gradient (``kw``: the call's n_length
-    and nugget_est).  K1's gradient has two algorithms, whichever needs
-    fewer operations on these shapes counting: p forward substitutions of
-    dK_k z, or one more backward substitution and the quadratic forms z^T
-    dK_k z and a^T dK_k z summed over the pairs i < j.  The count does not
-    depend on the kernel's design, so rows stay comparable across
-    designs."""
+    and nugget_est).  K2 counts the TPU kernel's algorithm (``kw``: the
+    call's dl): where 0 < dl < d the static dims' correlation factor once
+    a point, and for each candidate its coordinates and correlation over
+    the dl latent dims times that factor; otherwise each candidate's
+    whole coordinates and correlation.  K1's gradient has two algorithms,
+    whichever needs fewer operations on these shapes counting: p forward
+    substitutions of dK_k z, or one more backward substitution and the
+    quadratic forms z^T dK_k z and a^T dK_k z summed over the pairs i < j.
+    The count does not depend on the kernel's design, so rows stay
+    comparable across designs."""
     m1 = ins[0].shape[-3]
     d = ins[0].shape[-2]
     n = ins[0].shape[-1]
@@ -967,12 +978,19 @@ def _bound_ms(kname, ins, dtype_name, kw):
     corr = pairs * (3 * d + 1)
     solve = m1 * m1
     in_elems = sum(t.numel() for t in ins)
+    once = 0                                         # operations once a point
     if kname == "cond_weights_t":
         blocks, per = n, corr + chol + (m1 - 1) ** 2
         out_elems = m1 * n
     elif kname == "block_loglik_multi_t":
         K = ins[5].shape[0]
-        blocks, per = K * n, 4 * m1 * d + corr + chol + solve
+        dl = kw.get("dl")
+        dl = d if dl is None or dl == 0 or dl >= d else dl
+        lat = 4 * m1 * dl + pairs * (3 * dl + 1)
+        if dl < d:
+            once = pairs * (3 * (d - dl) + 1)
+            lat += pairs                             # times the static factor
+        blocks, per = K * n, lat + chol + solve
         out_elems = 2 * K * n
     elif kname == "block_loglik_parts_t":
         blocks = ins[0].numel() // (m1 * d)
@@ -990,7 +1008,7 @@ def _bound_ms(kname, ins, dtype_name, kw):
         out_elems = 2 * G * n + 2 * G * p * n
     nbytes = (in_elems + out_elems) * ins[0].element_size()
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = blocks * per / PEAK_OPS_S[dtype_name] * 1e3
+    t_ops = (blocks * per + n * once) / PEAK_OPS_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 

@@ -31,7 +31,13 @@
 // subtract L[i][j] L[k][j] from their entries, and a forward substitution
 // rides along: row j's owner finishes x_j and rows i > j fold in L[i][j]
 // x_j.  Column j of L is written over the block as it is finished, so L
-// ends in the shared array for the later substitutions.
+// ends in the shared array for the later substitutions.  K2 builds its
+// blocks in two parts, the static dims' correlation factor once a point
+// above the diagonal (`warp_build_static`) and each candidate's factor times
+// it below (`warp_build_lower`), and factors them with `warp_cholesky_rhs`,
+// which writes no L back and publishes each column shifted, so that the
+// update reads it at fixed offsets and checks the block's end every
+// UPDATE_GROUP entries.
 //
 // Two rows per lane (R = 2): a right-looking Cholesky over two panels of
 // rows, 0 .. p1-1 and p1 .. m1-1 with p1 = m1 - 32, so that panel 2 is a
@@ -84,6 +90,9 @@ constexpr int PANEL = WARP * LDS;
 constexpr int WARPS_MAX = 8;
 // dynamic shared memory a launch gets without opting in
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
+// entries of a row `warp_cholesky_rhs` updates between two checks of the
+// block's end (2 measured 7% slower at n = 1e5 in float64, PERF.md)
+constexpr int UPDATE_GROUP = 4;
 
 __device__ __forceinline__ double d_rsqrt(double x) { return rsqrt(x); }
 __device__ __forceinline__ float d_rsqrt(float x) { return rsqrtf(x); }
@@ -169,6 +178,22 @@ __device__ __forceinline__ void stage_transposed(const T* __restrict__ src, T* d
   }
 }
 
+// `stage_transposed` of the `lead` leading dims alone: dst laid out (P,
+// lead, nrows), from a (nrows, d, n) array.
+template <typename T>
+__device__ __forceinline__ void stage_lead_transposed(const T* __restrict__ src, T* dst,
+                                                      int nrows, int d, int lead, int n,
+                                                      int p0, int P) {
+  const int w = threadIdx.x % P;
+  const int p = p0 + w;
+  const int total = nrows * lead;
+  for (int tr = threadIdx.x / P; tr < total; tr += WARP) {
+    const int t = tr / nrows;
+    const int r = tr - t * nrows;
+    dst[w * total + tr] = p < n ? src[((long long)r * d + t) * n + p] : T(0);
+  }
+}
+
 // The reverse of `stage` for one value per row: copies src laid out
 // (P, nrows) to rows 0 .. nrows-1 of points p0 .. p0+P-1 of a (nrows, n)
 // array, consecutive threads writing consecutive points; points past n are
@@ -224,6 +249,52 @@ __device__ __forceinline__ void warp_build(const Coords& x, const T (&dg)[R], T*
   __syncwarp();
 }
 
+// warp_build in two parts, for a block whose dims [split, d) are the same
+// for many blocks (K2's static dims).  `warp_build_static` writes their
+// correlation factor above the diagonal of `ls`, at (k, i) for rows i > k,
+// with warp_build's spread of the pairs over the lanes; it is not synced,
+// since each lane reads back only its own pairs.
+template <typename T, int KN, typename Coords>
+__device__ __forceinline__ void warp_build_static(const Coords& x, T* ls, int m1, int split,
+                                                  int d, int lane) {
+  constexpr int S = LDS;
+  const int npairs = m1 * (m1 - 1) / 2;
+  int i = 1, k = lane;
+  for (int p = lane; p < npairs; p += WARP) {
+    while (k >= i) {
+      k -= i;
+      ++i;
+    }
+    ls[i * S + k] = corr<T, KN>(x, i, k, split, d);
+    k += WARP;
+  }
+}
+
+// `warp_build_lower` then writes one block below the diagonal, corr(i, k)
+// over dims [0, split) of x times, where `kept`, warp_build_static's factor
+// (pair_corr's order of operations), and the lane's diagonal dg; the upper
+// triangle is left as it is.  Ends with __syncwarp.
+template <typename T, int KN, typename Coords>
+__device__ __forceinline__ void warp_build_lower(const Coords& x, T dg, T* ls, int m1,
+                                                 int split, bool kept, int lane) {
+  constexpr int S = LDS;
+  const int npairs = m1 * (m1 - 1) / 2;
+  int i = 1, k = lane;
+  for (int p = lane; p < npairs; p += WARP) {
+    while (k >= i) {
+      k -= i;
+      ++i;
+    }
+    const T g = kept ? ls[i * S + k] : T(0);   // loaded ahead of the exponential
+    T v = corr<T, KN>(x, i, k, 0, split);
+    if (kept) v *= g;
+    ls[k * S + i] = v;
+    k += WARP;
+  }
+  if (lane < m1) ls[lane * S + lane] = dg;
+  __syncwarp();
+}
+
 // Cholesky of the warp's block of m1 <= 32 rows in its shared (m1, LDS)
 // array `ls` (entries below the diagonal and the diagonal are read; entries
 // above it are neither used nor changed), with the forward substitution of
@@ -266,6 +337,43 @@ __device__ __forceinline__ void warp_cholesky(T* ls, T* invd, T (&b)[1], T (&lii
     }
   }
   __syncwarp();
+}
+
+// warp_cholesky for a caller that reads only lii and b (K2), the lane's row
+// already in registers (a[t] = column t of row lane): L is not written
+// back, and column j goes round the warp shifted, L[i][j] of row i > j at
+// entry i - j - 1 of the double buffer col, so that the update reads entry
+// t - 1 of it at a fixed offset and checks the block's end only every
+// UPDATE_GROUP entries (the entries it computes past the end hold columns
+// >= m1, never read, from buffer entries < 32).  Each value goes through
+// warp_cholesky's operations in warp_cholesky's order.
+template <typename T>
+__device__ __forceinline__ void warp_cholesky_rhs(T (&a)[WARP], T* col, T& b, T& lii, int m1,
+                                                  int lane) {
+  lii = T(0);
+  for (int j = 0; j < m1; ++j) {
+    const T aj = a[0];
+    const T djj = __shfl_sync(FULL_MASK, aj, j);
+    const T inv = djj > T(0) ? d_rsqrt(djj) : nan_value<T>();
+    const T piv = djj * inv;
+    const T xj = __shfl_sync(FULL_MASK, b, j) * inv;
+    const T lij = lane == j ? piv : aj * inv;
+    if (lane == j) {
+      lii = piv;
+      b = xj;
+    } else if (lane > j) {
+      b -= lij * xj;
+    }
+    T* c = col + (j & 1) * WARP;       // double-buffered: one __syncwarp a step
+    if (lane > j && lane < m1) c[lane - j - 1] = lij;
+    __syncwarp();
+#pragma unroll
+    for (int t = 1; t < WARP; t += UPDATE_GROUP) {
+      if (j + t >= m1) break;
+#pragma unroll
+      for (int u = t; u < t + UPDATE_GROUP && u < WARP; ++u) a[u - 1] = a[u] - lij * c[u - 1];
+    }
+  }
 }
 
 // One panel of `rows` <= 32 rows at R = 2, lane i's row in registers (a[t]

@@ -79,6 +79,21 @@ def test_gate_shared_memory_bound(kid, dtype, d_last):
         < cv.shared_bytes(kid, 32, d_last + 1, dtype)
 
 
+# the largest d the gate admitted for K2 before its one-row kernel kept the
+# static dims' factor, by m1: (float64, float32)
+K2_D_LAST = {26: (270, 549), 32: (217, 444), 41: (168, 345), 48: (142, 293),
+             64: (104, 218)}
+
+
+@pytest.mark.parametrize("m1,dtype,d_last", [
+    (m1, dtype, d) for m1, per_dtype in K2_D_LAST.items()
+    for dtype, d in zip((torch.float64, torch.float32), per_dtype)])
+def test_k2_gate_admits_no_fewer_dims(m1, dtype, d_last):
+    """K2 still takes every d it took: its shared values are reserved from
+    (m1, d) alone, for dl = d, whatever dl a call brings."""
+    assert cv.use_kernel("K2", m1, d_last, dtype)
+
+
 def test_shared_bytes_formula_is_the_sources():
     """The gate's byte count repeats the CUDA sources' per-point formulas
     and constants; the card's run holds it to `launch_plan`'s figure."""

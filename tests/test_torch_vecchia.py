@@ -191,13 +191,17 @@ def _multi_inputs(dl, dg, seed=11, m1=6, n=300, K=7):
 
 # (dl, dg, m1, n, K): the slice's two layouts, then the edges of the warp
 # kernel's mapping: a full warp (m1 = 32) at a ragged n, a two-row block
-# with one candidate, and no static dims (dl = 0: every dim is built from
-# the candidate)
+# with one candidate, no static dims (dl = 0: every dim is built from the
+# candidate), two latent and three static dims with an even K (every
+# candidate factored beside another), the d = 3 timed row (one latent dim,
+# two static), and one candidate alone
 @pytest.mark.parametrize("name", ["sexp", "matern2.5"])
 @pytest.mark.parametrize("dl,dg,m1,n,K", [(1, 1, 6, 300, 7), (2, 0, 6, 300, 7),
                                           (1, 1, 32, 301, 3), (2, 0, 2, 37, 1),
-                                          (0, 2, 6, 300, 7)],
-                         ids=["1-1", "2-0", "1-1-m32-n301-K3", "2-0-m2-n37-K1", "0-2"])
+                                          (0, 2, 6, 300, 7), (2, 3, 26, 301, 2),
+                                          (1, 2, 26, 300, 9), (1, 1, 26, 300, 1)],
+                         ids=["1-1", "2-0", "1-1-m32-n301-K3", "2-0-m2-n37-K1", "0-2",
+                              "2-3-m26-n301-K2", "1-2-m26-K9", "1-1-m26-K1"])
 def test_block_loglik_multi_plain_matches_pallas(name, dl, dg, m1, n, K):
     args = _multi_inputs(dl, dg, m1=m1, n=n, K=K)
     ld_t, q_t = cv.block_loglik_multi_t(*(_t(a) for a in args), name=name, dl=dl)

@@ -17,20 +17,24 @@ calls queued without waiting); the first and the last again with the
 inputs made contiguous beforehand (the path's blocks may be views, which
 the wrapper copies); then the device time per call under
 torch.profiler (mean over 20 calls), and the same for
-torch.linalg.cholesky_ex of the same blocks.  Prints the card's name and
-power limit, then one JSON line.  Usage, from the repository root:
+torch.linalg.cholesky_ex of the same blocks.  Each case also records the
+SHA-256 of the kernel's outputs on its inputs, so that two checkouts'
+outputs can be compared bit for bit.  Prints the card's name and power
+limit, then one JSON line.  Usage, from the repository root:
 
-    python3 tools/kernel_times_torch.py [CHECKOUT] [LABEL] [--large]
+    python3 tools/kernel_times_torch.py [CHECKOUT] [LABEL] [--large] [--only=NAMES]
 
 CHECKOUT (default: this repository) is the root of a checkout whose
 dgp_tpu_torch is timed; it must take chip_smoke.py's inputs.  With
 ``--large`` it times, instead, the four kernels at chip_smoke.py's n = 1e5
 cases (its `_large_inputs`: the large_n phase's data and IVF neighbours),
-in float64.  Every case also reports the kernel's launch plan (points per
-thread block, shared bytes, blocks and warps per SM), and the line holds
-ptxas's register and spill figures of every kernel built.
+in float64 and float32.  ``--only=NAMES`` (wrapper names, comma-separated)
+times those kernels alone.  Every case also reports the kernel's launch
+plan (points per thread block, shared bytes, blocks and warps per SM), and
+the line holds ptxas's register and spill figures of every kernel built.
 """
 import functools
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -86,11 +90,22 @@ def host_ms(fn, reps=200):
     return t
 
 
+def outputs_sha256(fn):
+    """SHA-256 of the bytes of every tensor ``fn`` returns."""
+    out = fn()
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_times_torch: CUDA is not available", file=sys.stderr)
         return 1
     large = "--large" in sys.argv
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    only = set(only[0]) if only else None
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     checkout = Path(args[0]).resolve() if args else ROOT
     label = args[1] if len(args) > 1 else str(checkout)
@@ -108,10 +123,12 @@ def main():
     dev = torch.device("cuda", 0)
     cv.build()
     calls = {}
-    for dt in (torch.float64,) if large else (torch.float64, torch.float32):
+    for dt in (torch.float64, torch.float32):
         dname = str(dt).split(".")[1]
         ins = (cs._large_inputs if large else cs._slice_inputs)(dt, dev, cs.NUGGET_BENCH)
         for kname, case, kw in LARGE_CASES if large else CASES:
+            if only and kname not in only:
+                continue
             args = ins[case]
             blocks = cs._blocks_of(kname, args)
             dense = [a.contiguous() for a in args]
@@ -125,6 +142,8 @@ def main():
         # rows per lane, K1 with 12 and 16 length lanes), where this checkout's
         # kernels take them
         for kname, shape in () if large else cs.VARIANT_TIMES:
+            if only and kname not in only:
+                continue
             kw = cs._edge_kw(kname, shape, "sexp")
             args = [torch.as_tensor(a, dtype=dt, device=dev)
                     for a in cs._edge_inputs(kname, shape, 0)]
@@ -142,7 +161,7 @@ def main():
              for key, (kname, _, _, _, _, shape, _) in calls.items()}
     times = {}
     for key, (kname, call, dense, library, (bound, by), shape, flat) in calls.items():
-        times[key] = {"plan": plans[key],
+        times[key] = {"plan": plans[key], "out_sha256": outputs_sha256(call),
             "ms": cs.cuda_ms(call), "ms_one_call": cs.cuda_ms(call, inner=1),
             "host_ms": host_ms(call), "ms_contiguous": cs.cuda_ms(dense),
             "host_ms_contiguous": host_ms(dense), "library_ms": cs.cuda_ms(library),

@@ -2,7 +2,7 @@
 comparing two trees of the repository on the same card.
 
     python tools/split_cost.py [--root DIR] [--lgp-points N] [--sem-only --reps K]
-                               [--model gate|large|wide] [--profile]
+                               [--model gate|large|large25|wide] [--profile]
 
 imports `dgp_tpu_torch` from ``DIR`` (default: this checkout) and times, on
 cuda:0, the paths that the split over a mesh runs through:
@@ -15,11 +15,13 @@ cuda:0, the paths that the split over a mesh runs through:
   instead `chip_smoke.py`'s `gate` phase's at m = 40 (blocks of 41 rows,
   bench.py's starting hyper-parameters, `train(N=16, chunk_size=16)` after
   16 of warm-up, no ptrain); with ``--model large`` it is `large_n`'s
-  DGP (bench.py's n = 1e5 draw, its seed, warm-up and chunk) at m = 40;
-  either model times SEM alone.  With ``--profile``, 4 more iterations of
-  `train` then run in one window of `tools/profile_torch_serving.py`
-  (wall seconds, the device's busy share, launches and device
-  milliseconds of each hand-written kernel), reported also per iteration;
+  DGP (bench.py's n = 1e5 draw, its seed, warm-up and chunk) at m = 40,
+  and with ``--model large25`` the same DGP at bench.py's m = 25, as
+  `large_n` runs it; each of these models times SEM alone.  With
+  ``--profile``, 4 more iterations of `train` then run in one window of
+  `tools/profile_torch_serving.py` (wall seconds, the device's busy share,
+  launches and device milliseconds of each hand-written kernel), reported
+  also per iteration;
 - ``gp_wide`` (``--model wide``, and nothing else): the `gate` phase's
   12-input function (`chip_smoke.gate_gp_data`'s law and seed) drawn at
   n = 1e5, a Vecchia gp with 12 lengthscales at m = 25 (the IVF search,
@@ -107,7 +109,8 @@ def main():
     ap.add_argument("--lgp-points", type=int, default=2500)
     ap.add_argument("--sem-only", action="store_true")
     ap.add_argument("--reps", type=int, default=1)
-    ap.add_argument("--model", choices=("main", "gate", "large", "wide"), default="main")
+    ap.add_argument("--model", choices=("main", "gate", "large", "large25", "wide"),
+                    default="main")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -135,23 +138,24 @@ def main():
     X, Y = cs.bench_data()
     layers = cs._params_json()["layers"]
     lp = cs._data_json("large_n1e5.json")["protocol"]
-    if args.model == "large":
+    large = args.model in ("large", "large25")
+    if large:
         X, Y = cs.large_data(lp)
+    m_sem = {"main": cs.M_TRAIN, "large25": lp["dgp_m"]}.get(args.model, cs.GATE_M)
 
     def build():
-        if args.model == "large":
+        if large:
             nb_seed(lp["dgp_seed"])
-            return dgp(X, Y, cs._bench_layers(), vecchia=True, m=cs.GATE_M, check_rep=False,
+            return dgp(X, Y, cs._bench_layers(), vecchia=True, m=m_sem, check_rep=False,
                        device=dev)
         nb_seed(123)
         if args.model == "gate":
             return dgp(X, Y, cs._bench_layers(), vecchia=True, m=cs.GATE_M, device=dev)
         return dgp(X, Y, layers_from_numpy(layers), vecchia=True, m=cs.M_TRAIN, device=dev)
-    kw = {"main": {}, "gate": {"chunk_size": 16},
-          "large": {"chunk_size": lp["dgp_chunk"]}}[args.model]
-    warmup = {"main": 2, "gate": 16, "large": lp["dgp_warm"]}[args.model]
-    sem = {"model": args.model, "n": len(X),
-           "m": cs.M_TRAIN if args.model == "main" else cs.GATE_M, "warmup": warmup}
+    kw = {"main": {}, "gate": {"chunk_size": 16}}.get(args.model,
+                                                       {"chunk_size": lp["dgp_chunk"]})
+    warmup = {"main": 2, "gate": 16}.get(args.model, lp["dgp_warm"])
+    sem = {"model": args.model, "n": len(X), "m": m_sem, "warmup": warmup}
     hows = ["train"] + (["ptrain"] if hasattr(pmesh, "Split") and args.model == "main"
                         else [])
     real_mesh = pmesh.model_mesh
@@ -167,7 +171,7 @@ def main():
                 sem["profile"] = _profile(m, 4, kw)
     finally:
         pmesh.model_mesh = real_mesh
-    out["sem_n1e5" if args.model == "large" else "sem_n2000"] = sem
+    out["sem_n1e5" if large else "sem_n2000"] = sem
     if args.sem_only or args.model != "main":
         print(json.dumps(out), flush=True)
         return
