@@ -13,10 +13,17 @@ bracket (a handful of scalars) lives on the host and each round makes one
 host check: the round's K log-likelihoods come back from the device and the
 accepted angle goes out.  Only the candidate state f cos + nu sin is
 computed on the device.
+
+Each round is a ``sem.ess.round`` span around its evaluation and read
+(`tracing.to_host`, cause ``ess_round``), counted in ``ess.rounds`` and
+its evaluated states in ``ess.candidates``; each call counts in
+``ess.transitions``, and in ``ess.moves`` when it accepts a candidate.
 """
 import math
 
 import torch
+
+from . import tracing
 
 _TWO_PI = 2.0 * math.pi
 
@@ -39,6 +46,7 @@ def ess_update(gen, f, nu, log_lik_fn, log_lik_angles=None, spec=4,
         return_angle: also return the accepted angle as (cos, sin), which
             is (1, 0) when no candidate was accepted.
     """
+    tracing.count("ess.transitions")
     if uniform is None:
         def uniform(k):
             return torch.rand(k, generator=gen, dtype=torch.float64).tolist()
@@ -51,16 +59,25 @@ def ess_update(gen, f, nu, log_lik_fn, log_lik_angles=None, spec=4,
         return f * math.cos(th) + nu * math.sin(th)
 
     def out(fp, th, done):
-        if not done:
+        if done:
+            tracing.count("ess.moves")
+        else:
             fp, th = f, 0.0
         return (fp, (math.cos(th), math.sin(th))) if return_angle else fp
 
     if spec <= 1:
-        log_y = float(log_lik_fn(f)) + math.log(u0)
+        def eval_one(x):
+            tracing.count("ess.rounds")
+            tracing.count("ess.candidates")
+            with tracing.span("sem.ess.round"):
+                ll = torch.as_tensor(log_lik_fn(x), dtype=torch.float64)
+                return float(tracing.to_host(ll, "ess_round"))
+
+        log_y = eval_one(f) + math.log(u0)
         theta, tmin, tmax = theta0, theta0 - _TWO_PI, theta0
         for _ in range(max_steps):
             fp = cand(theta)
-            if float(log_lik_fn(fp)) > log_y:
+            if eval_one(fp) > log_y:
                 return out(fp, theta, True)
             if theta < 0.0:
                 tmin = theta
@@ -89,12 +106,15 @@ def ess_update(gen, f, nu, log_lik_fn, log_lik_angles=None, spec=4,
         sin_v = [math.sin(t) for t in thetas]
         if with_current:
             cos_v, sin_v = [1.0] + cos_v, [0.0] + sin_v
-        if log_lik_angles is not None:
-            lls = log_lik_angles(cos_v, sin_v)
-        else:
-            lls = torch.stack([torch.as_tensor(log_lik_fn(f * c + nu * s))
-                               for c, s in zip(cos_v, sin_v)])
-        return torch.as_tensor(lls).double().cpu().tolist()
+        tracing.count("ess.rounds")
+        tracing.count("ess.candidates", len(cos_v))
+        with tracing.span("sem.ess.round"):
+            if log_lik_angles is not None:
+                lls = log_lik_angles(cos_v, sin_v)
+            else:
+                lls = torch.stack([torch.as_tensor(log_lik_fn(f * c + nu * s))
+                                   for c, s in zip(cos_v, sin_v)])
+            return tracing.to_host(torch.as_tensor(lls).double(), "ess_round").tolist()
 
     theta, tmin, tmax = theta0, theta0 - _TWO_PI, theta0
     log_y = None

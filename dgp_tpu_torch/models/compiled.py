@@ -53,11 +53,16 @@ change of the latents); the per-point outputs come back to the engine's
 device, joined in share order, and are reduced there.  Random draws, the
 ancestral pass, ESS decisions, the L-BFGS state, likelihood nodes, dense
 nodes, R^2 and the NN refresh stay on the engine's device.
+
+Spans (`tracing`): ``sem.chunk`` (`train_chunk`), ``sem.istep``,
+``sem.prior_draw``, ``sem.ess`` (one transition of a layer, or of a node
+of a node-wise layer), ``sem.mstep`` and ``nn.refresh``; the state's
+reads back to the node objects are `tracing.to_host` reads.
 """
 import numpy as np
 import torch
 
-from .. import config, gp_core, likelihoods
+from .. import config, gp_core, likelihoods, tracing
 from ..ess import ess_update
 from ..ops import cuda_vecchia as cv
 from ..ops import kernels as kops
@@ -254,11 +259,11 @@ class CompiledDGP:
             for node, d in zip(layer, nn_layer):
                 if d is None:
                     continue
-                node.ord = d['ord'].cpu().numpy()
+                node.ord = tracing.to_host(d['ord'], 'nn_state').numpy()
                 node.rev_ord = np.argsort(node.ord)
-                node.NNarray = d['NN'].cpu().numpy()
+                node.NNarray = tracing.to_host(d['NN'], 'nn_state').numpy()
                 if 'impNN' in d:
-                    node.imp_NNarray = d['impNN'].cpu().numpy()
+                    node.imp_NNarray = tracing.to_host(d['impNN'], 'nn_state').numpy()
                 node.nn_version = getattr(node, 'nn_version', 0) + 1
 
     def supports_device_refresh(self):
@@ -281,54 +286,55 @@ class CompiledDGP:
         share one ordering (dgp.py:643-663), but for a node that carries
         the self-excluded neighbour sets of the Hetero exact draw
         (``imp_NNarray``), which are rebuilt with it."""
-        latents, params = state
-        built = {}
-        for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
-            approx = [sp.vecch and vnn.is_approx(node.nn_method, node.input.shape[0])
-                      for node, sp in zip(layer, specs)]
-            for k, (node, sp) in enumerate(zip(layer, specs)):
-                if not sp.vecch:
-                    built[(l, k)] = None
-                    continue
-                needs_imp = node.imp_NNarray is not None
-                share = next(((l, j) for j in range(k)
-                              if (self.spec[l][j].vecch and not needs_imp
-                                  and layer[j].imp_NNarray is None
-                                  and self.spec[l][j].n_length == 1 and sp.n_length == 1
-                                  and self.spec[l][j].input_dim == sp.input_dim
-                                  and self.spec[l][j].connect == sp.connect
-                                  and layer[j].m == node.m
-                                  and approx[j] == approx[k])), None)
-                if share is not None:
-                    built[(l, k)] = built[share]
-                    continue
-                Xn = self._node_input(l, k, latents)
-                ordv = torch.randperm(Xn.shape[0], generator=gen, device=self.device)
-                Xo = (Xn / params[l][k]['length'])[ordv]
-                m = int(node.m)
-                d = {'ord': ordv, 'rev': torch.argsort(ordv)}
-                if approx[k]:
-                    d['NN'], imp = vnn.nn_approx(Xo, m, impute=needs_imp)
-                else:
-                    d['NN'] = vnn._nn_ordered_impl(Xo, m)
-                    imp = vnn._pred_nn_impl(Xo, Xo, m)[:, 1:] if needs_imp else None
-                if needs_imp:
-                    d['impNN'] = imp
-                built[(l, k)] = d
-        return tuple(tuple(built[(l, k)] for k in range(len(layer)))
-                     for l, layer in enumerate(self.spec))
+        with tracing.span('nn.refresh'):
+            latents, params = state
+            built = {}
+            for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
+                approx = [sp.vecch and vnn.is_approx(node.nn_method, node.input.shape[0])
+                          for node, sp in zip(layer, specs)]
+                for k, (node, sp) in enumerate(zip(layer, specs)):
+                    if not sp.vecch:
+                        built[(l, k)] = None
+                        continue
+                    needs_imp = node.imp_NNarray is not None
+                    share = next(((l, j) for j in range(k)
+                                  if (self.spec[l][j].vecch and not needs_imp
+                                      and layer[j].imp_NNarray is None
+                                      and self.spec[l][j].n_length == 1 and sp.n_length == 1
+                                      and self.spec[l][j].input_dim == sp.input_dim
+                                      and self.spec[l][j].connect == sp.connect
+                                      and layer[j].m == node.m
+                                      and approx[j] == approx[k])), None)
+                    if share is not None:
+                        built[(l, k)] = built[share]
+                        continue
+                    Xn = self._node_input(l, k, latents)
+                    ordv = torch.randperm(Xn.shape[0], generator=gen, device=self.device)
+                    Xo = (Xn / params[l][k]['length'])[ordv]
+                    m = int(node.m)
+                    d = {'ord': ordv, 'rev': torch.argsort(ordv)}
+                    if approx[k]:
+                        d['NN'], imp = vnn.nn_approx(Xo, m, impute=needs_imp)
+                    else:
+                        d['NN'] = vnn._nn_ordered_impl(Xo, m)
+                        imp = vnn._pred_nn_impl(Xo, Xo, m)[:, 1:] if needs_imp else None
+                    if needs_imp:
+                        d['impNN'] = imp
+                    built[(l, k)] = d
+            return tuple(tuple(built[(l, k)] for k in range(len(layer)))
+                         for l, layer in enumerate(self.spec))
 
     def set_state(self, state):
         latents, params = state
-        latents = [a.cpu().numpy() for a in latents]
+        latents = [tracing.to_host(a, 'state').numpy() for a in latents]
         for l, (layer, specs) in enumerate(zip(self.all_layer, self.spec)):
             In = None if l == 0 else latents[l - 1]
             for k, (node, sp) in enumerate(zip(layer, specs)):
                 p = params[l][k]
                 if p is not None:
-                    node.length = np.atleast_1d(p['length'].cpu().numpy())
-                    node.nugget = np.atleast_1d(p['nugget'].cpu().numpy())
-                    node.scale = np.atleast_1d(p['scale'].cpu().numpy())
+                    node.length, node.nugget, node.scale = (
+                        np.atleast_1d(tracing.to_host(p[key], 'state').numpy())
+                        for key in ('length', 'nugget', 'scale'))
                 if l > 0:
                     rows = In[node.rep] if sp.kind != 'gp' and sp.has_rep else In
                     node.input = rows[:, list(sp.input_dim)]
@@ -458,18 +464,19 @@ class CompiledDGP:
     def _draw_prior_node(self, l, k, latents, params, nn_state, gen, shares=None):
         """nu ~ N(0, scale * K) for one hidden node (Vecchia ancestral
         sampling, or a dense Cholesky)."""
-        sp = self.spec[l][k]
-        p = params[l][k]
-        Xn = self._node_input(l, k, latents)
-        if not sp.vecch:
-            K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
-            return linalg.mvn_sample(gen, linalg.safe_cholesky(K))
-        ns = nn_state[l][k]
-        Xo = Xn[ns['ord']]
-        parts = self._cond_parts(l, k, Xo, p, shares or _Shares(self, nn_state), False)
-        samp = vcore.fmvn_sp(gen, Xo, ns['NN'], p['scale'], p['length'], p['nugget'],
-                             sp.name, parts=parts)
-        return samp[ns['rev']]
+        with tracing.span('sem.prior_draw'):
+            sp = self.spec[l][k]
+            p = params[l][k]
+            Xn = self._node_input(l, k, latents)
+            if not sp.vecch:
+                K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+                return linalg.mvn_sample(gen, linalg.safe_cholesky(K))
+            ns = nn_state[l][k]
+            Xo = Xn[ns['ord']]
+            parts = self._cond_parts(l, k, Xo, p, shares or _Shares(self, nn_state), False)
+            samp = vcore.fmvn_sp(gen, Xo, ns['NN'], p['scale'], p['length'], p['nugget'],
+                                 sp.name, parts=parts)
+            return samp[ns['rev']]
 
     def _cond_parts(self, l, k, Xo, p, shares, use_cs):
         """The conditional weights (w, sigma) of node (l, k) at its ordered
@@ -498,26 +505,27 @@ class CompiledDGP:
         one share on the engine's device), from the shares' chunk statics at
         layer 0, and one ancestral pass for all the ESS sweeps of an
         I-step."""
-        sp = self.spec[l][k]
-        p = params[l][k]
-        Xn = self._node_input(l, k, latents)
-        n = Xn.shape[0]
-        if not sp.vecch:
-            K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
-            L = linalg.safe_cholesky(K)
-            eps = torch.randn((n, S), generator=gen, dtype=self.dtype,
-                              device=self.device)
-            return (L @ eps).T
-        ns = nn_state[l][k]
-        parts = self._cond_parts(l, k, Xn[ns['ord']], p, shares or _Shares(self, nn_state),
-                                 l == 0)
-        w, sigma, idx_asc, _ = vcore.cond_weights(
-            Xn[ns['ord']], ns['NN'], p['length'], p['nugget'], sp.name, parts=parts)
-        eps = (torch.randn((S, n), generator=gen, dtype=self.dtype,
-                           device=self.device)
-               * torch.sqrt(p['scale']) * sigma[None, :])
-        samp = vcore.ancestral_sample(eps, w, idx_asc)
-        return samp[:, ns['rev']]
+        with tracing.span('sem.prior_draw'):
+            sp = self.spec[l][k]
+            p = params[l][k]
+            Xn = self._node_input(l, k, latents)
+            n = Xn.shape[0]
+            if not sp.vecch:
+                K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+                L = linalg.safe_cholesky(K)
+                eps = torch.randn((n, S), generator=gen, dtype=self.dtype,
+                                  device=self.device)
+                return (L @ eps).T
+            ns = nn_state[l][k]
+            parts = self._cond_parts(l, k, Xn[ns['ord']], p, shares or _Shares(self, nn_state),
+                                     l == 0)
+            w, sigma, idx_asc, _ = vcore.cond_weights(
+                Xn[ns['ord']], ns['NN'], p['length'], p['nugget'], sp.name, parts=parts)
+            eps = (torch.randn((S, n), generator=gen, dtype=self.dtype,
+                               device=self.device)
+                   * torch.sqrt(p['scale']) * sigma[None, :])
+            samp = vcore.ancestral_sample(eps, w, idx_asc)
+            return samp[:, ns['rev']]
 
     def _ess_block_layer(self, l, latents, views, params, nn_state, gens, shares,
                          pre_nu=None, s=None, plan=None):
@@ -547,9 +555,10 @@ class CompiledDGP:
                 sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
                 return log_lik(c[:, None, None] * f + sn[:, None, None] * nu)
 
-            f_new = ess_update(host_gen, f, nu, log_lik,
-                               log_lik_angles=log_lik_angles,
-                               spec=config.ess_spec(f.shape[0]))
+            with tracing.span('sem.ess', layer=l):
+                f_new = ess_update(host_gen, f, nu, log_lik,
+                                   log_lik_angles=log_lik_angles,
+                                   spec=config.ess_spec(f.shape[0]))
             return latents[:l] + (f_new,) + latents[l + 1:], views
 
         # angle path: gathered block views are maintained across sweeps,
@@ -559,10 +568,11 @@ class CompiledDGP:
                     else self._gather_latent_view(nd_, nu_i) for nd_ in p['nodes']]
                    for p, nu_i in zip(plan, shares.split.copies(nu))]
         ll = self._plan_ll(plan, l, latents, nu, A_lists, B_lists, shares)
-        f_new, (c_a, s_a) = ess_update(host_gen, f, nu, log_lik,
-                                       log_lik_angles=ll,
-                                       spec=config.ess_spec(f.shape[0]),
-                                       return_angle=True)
+        with tracing.span('sem.ess', layer=l):
+            f_new, (c_a, s_a) = ess_update(host_gen, f, nu, log_lik,
+                                           log_lik_angles=ll,
+                                           spec=config.ess_spec(f.shape[0]),
+                                           return_angle=True)
         new_A = [tuple(c_a * A + s_a * B for A, B in zip(Al, Bl))
                  for Al, Bl in zip(A_lists, B_lists)]
         return latents[:l] + (f_new,) + latents[l + 1:], views[:l] + (new_A,) + views[l + 1:]
@@ -801,9 +811,10 @@ class CompiledDGP:
                 sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
                 return log_lik(c[:, None] * f + sn[:, None] * nu)
 
-            f_new = ess_update(host_gen, f, nu, log_lik,
-                               log_lik_angles=log_lik_angles,
-                               spec=config.ess_spec(f.shape[0]))
+            with tracing.span('sem.ess', layer=l):
+                f_new = ess_update(host_gen, f, nu, log_lik,
+                                   log_lik_angles=log_lik_angles,
+                                   spec=config.ess_spec(f.shape[0]))
             lat = latents[l].clone()
             lat[:, k] = f_new
             latents = latents[:l] + (lat,) + latents[l + 1:]
@@ -843,25 +854,26 @@ class CompiledDGP:
     def _i_step(self, latents, params, nn_state, gens, burnin, shares=None):
         """One I-step: ``burnin`` + 1 ESS sweeps over the shares of
         ``shares`` (by default one share on the engine's device)."""
-        S = burnin + 1
-        shares = shares or _Shares(self, nn_state)
-        shares.sync(latents, params)
-        # layer-0 prior draws are iid across sweeps (their inputs are the
-        # fixed global X), so draw them all at once
-        pre_nu = {}
-        if self.n_layer > 1:
-            for k in range(len(self.spec[0])):
-                pre_nu[(0, k)] = self._draw_prior_node_batch(
-                    0, k, latents, params, nn_state, gens[0], S, shares)
-        plans = tuple(self._share_plans(l, pre_nu if l == 0 else None, S, shares)
-                      for l in range(self.n_layer - 1))
-        views = tuple(None if ps is None else
-                      [tuple(nd_['A0'] for nd_ in plan['nodes']) for plan in ps]
-                      for ps in plans)
-        for s in range(S):
-            latents, views = self._sweep(latents, views, params, nn_state, gens, shares,
-                                         pre_nu, s, plans)
-        return latents
+        with tracing.span('sem.istep'):
+            S = burnin + 1
+            shares = shares or _Shares(self, nn_state)
+            shares.sync(latents, params)
+            # layer-0 prior draws are iid across sweeps (their inputs are the
+            # fixed global X), so draw them all at once
+            pre_nu = {}
+            if self.n_layer > 1:
+                for k in range(len(self.spec[0])):
+                    pre_nu[(0, k)] = self._draw_prior_node_batch(
+                        0, k, latents, params, nn_state, gens[0], S, shares)
+            plans = tuple(self._share_plans(l, pre_nu if l == 0 else None, S, shares)
+                          for l in range(self.n_layer - 1))
+            views = tuple(None if ps is None else
+                          [tuple(nd_['A0'] for nd_ in plan['nodes']) for plan in ps]
+                          for ps in plans)
+            for s in range(S):
+                latents, views = self._sweep(latents, views, params, nn_state, gens, shares,
+                                             pre_nu, s, plans)
+            return latents
 
     # -- M-step ---------------------------------------------------------
     def _node_bounds(self, sp, p_max):
@@ -977,50 +989,51 @@ class CompiledDGP:
         (by default one share on the engine's device) from its copy of the
         latents, and each objective evaluation launches K1 (or the route)
         per share."""
-        shares = shares or _Shares(self, nn_state)
-        shares.sync(latents, params)
-        groups = {}
-        for l, layer in enumerate(self.spec):
-            for k, sp in enumerate(layer):
-                if sp.kind != 'gp':
-                    continue
-                key = (('vecch', sp.name, nn_state[l][k]['NN'].shape[1]) if sp.vecch
-                       else ('dense', sp.name, 0))
-                groups.setdefault(key, []).append((l, k, sp))
-        results = {}
-        for (mode, name, _m1), es in groups.items():
-            d_max = max(sp.D for _, _, sp in es)
-            p_max = max(sp.n_length + (1 if sp.nugget_est else 0) for _, _, sp in es)
-            built = [self._node_operands(l, k, sp, latents, params, d_max, p_max)
-                     for l, k, sp in es]
-            ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
-            lt0, lb, ub = (torch.stack([b[i] for b in built]) for i in (1, 2, 3))
-            parts = self._group_blocks(es, d_max, shares) if mode == 'vecch' else None
-            lt, scale, ok = mstep.run_group(
-                ops, lt0, lb, ub, [b[4] for b in built], name=name, mode=mode,
-                d_max=d_max, n=self.n,
-                has_ref=any(sp.prior_name == 'ref' for _, _, sp in es),
-                parts=parts, split=shares.split)
-            for i, (l, k, _) in enumerate(es):
-                results[(l, k)] = (lt[i], scale[i], ok[i], lt0[i])
+        with tracing.span('sem.mstep'):
+            shares = shares or _Shares(self, nn_state)
+            shares.sync(latents, params)
+            groups = {}
+            for l, layer in enumerate(self.spec):
+                for k, sp in enumerate(layer):
+                    if sp.kind != 'gp':
+                        continue
+                    key = (('vecch', sp.name, nn_state[l][k]['NN'].shape[1]) if sp.vecch
+                           else ('dense', sp.name, 0))
+                    groups.setdefault(key, []).append((l, k, sp))
+            results = {}
+            for (mode, name, _m1), es in groups.items():
+                d_max = max(sp.D for _, _, sp in es)
+                p_max = max(sp.n_length + (1 if sp.nugget_est else 0) for _, _, sp in es)
+                built = [self._node_operands(l, k, sp, latents, params, d_max, p_max)
+                         for l, k, sp in es]
+                ops = {key: torch.stack([b[0][key] for b in built]) for key in built[0][0]}
+                lt0, lb, ub = (torch.stack([b[i] for b in built]) for i in (1, 2, 3))
+                parts = self._group_blocks(es, d_max, shares) if mode == 'vecch' else None
+                lt, scale, ok = mstep.run_group(
+                    ops, lt0, lb, ub, [b[4] for b in built], name=name, mode=mode,
+                    d_max=d_max, n=self.n,
+                    has_ref=any(sp.prior_name == 'ref' for _, _, sp in es),
+                    parts=parts, split=shares.split)
+                for i, (l, k, _) in enumerate(es):
+                    results[(l, k)] = (lt[i], scale[i], ok[i], lt0[i])
 
-        new_params = []
-        for l, layer in enumerate(self.spec):
-            layer_p = []
-            for k, sp in enumerate(layer):
-                if sp.kind != 'gp':
-                    layer_p.append(None)
-                    continue
-                p = params[l][k]
-                lt, scale, ok, lt0 = results[(l, k)]
-                lt = torch.where(ok, lt, lt0)
-                scale = torch.where(ok & sp.scale_est, scale.to(p['scale'].dtype),
-                                    p['scale'])
-                nugget = torch.exp(lt[sp.n_length]) if sp.nugget_est else p['nugget']
-                layer_p.append({'length': torch.exp(lt[:sp.n_length]),
-                                'nugget': nugget, 'scale': scale})
-            new_params.append(tuple(layer_p))
-        return tuple(new_params)
+            new_params = []
+            for l, layer in enumerate(self.spec):
+                layer_p = []
+                for k, sp in enumerate(layer):
+                    if sp.kind != 'gp':
+                        layer_p.append(None)
+                        continue
+                    p = params[l][k]
+                    lt, scale, ok, lt0 = results[(l, k)]
+                    lt = torch.where(ok, lt, lt0)
+                    scale = torch.where(ok & sp.scale_est, scale.to(p['scale'].dtype),
+                                        p['scale'])
+                    nugget = torch.exp(lt[sp.n_length]) if sp.nugget_est else p['nugget']
+                    layer_p.append({'length': torch.exp(lt[:sp.n_length]),
+                                    'nugget': nugget, 'scale': scale})
+                new_params.append(tuple(layer_p))
+            return tuple(new_params)
 
     def _para_vector(self, params):
         """Per GP node: (scale, lengths..., nugget), the para_path row."""
@@ -1074,16 +1087,17 @@ class CompiledDGP:
         Returns (state, para, r2): per GP node an (n_iters, 2 + p) tensor of
         para_path rows, and per globally connected node an (n_iters, d)
         tensor of R^2 values."""
-        if nn_state is None:
-            nn_state = self.get_nn_state()
-        latents, params = state
-        shares = _Shares(self, nn_state, mesh)
-        paras, r2s = [], []
-        for _ in range(n_iters):
-            latents = self._i_step(latents, params, nn_state, gens, ess_burn, shares)
-            r2s.append(self._r2_vector(latents))
-            params = self._m_step(latents, params, nn_state, shares)
-            paras.append(self._para_vector(params))
-        para = tuple(torch.stack(col) for col in zip(*paras))
-        r2 = tuple(torch.stack(col) for col in zip(*r2s))
-        return (latents, params), para, r2
+        with tracing.span('sem.chunk'):
+            if nn_state is None:
+                nn_state = self.get_nn_state()
+            latents, params = state
+            shares = _Shares(self, nn_state, mesh)
+            paras, r2s = [], []
+            for _ in range(n_iters):
+                latents = self._i_step(latents, params, nn_state, gens, ess_burn, shares)
+                r2s.append(self._r2_vector(latents))
+                params = self._m_step(latents, params, nn_state, shares)
+                paras.append(self._para_vector(params))
+            para = tuple(torch.stack(col) for col in zip(*paras))
+            r2 = tuple(torch.stack(col) for col in zip(*r2s))
+            return (latents, params), para, r2

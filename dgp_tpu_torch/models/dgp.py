@@ -17,6 +17,8 @@ neighbours with the IVF approximate search (``nn_method = 'approx'``), as
 in the JAX package.  `ptrain` is ``train(sharded=True)``: on a
 one-device mesh (`parallel.mesh`) the same training; on several devices
 SEM's per-point kernel calls are split over them, with the same results.
+A `train` call is the root span ``sem.train`` (attr ``N``) of its spans
+(`tracing`).
 """
 import copy
 import sys
@@ -25,7 +27,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from .. import config, rng, utils
+from .. import config, rng, tracing, utils
 from ..parallel import mesh as pmesh
 from .node import kernel as ker
 from .node import combine
@@ -489,64 +491,65 @@ class dgp:
         several, every per-point kernel call of SEM is split over the mesh's
         devices (`CompiledDGP.train_chunk`), with the same results bit for
         bit."""
-        N0 = self.N
-        restarts, max_restarts = 0, 3
-        split = {'mesh': pmesh.model_mesh(self.device)} if sharded else {}
-        while True:
-            engine = self.imp._engine()
-            state = engine.get_state()
-            if self.N == 0 and getattr(self.all_layer[-1][0], 'name', None) == 'Categorical':
-                state = self._inflate_scales(state)
-            gens = (rng.next_generator(self.device), rng.next_generator('cpu'))
-            nn_dev = None  # device-refreshed NN structure, if any
-            snapshots = ([], [])  # para, r2 chunks
-            done = 0
-            ok = True
-            while done < N:
-                this = min(chunk_size, N - done)
-                if self.vecch:
-                    # stop chunks at the next power-of-2 global iteration,
-                    # so that the NN refresh happens on schedule
+        with tracing.span('sem.train', N=N):
+            N0 = self.N
+            restarts, max_restarts = 0, 3
+            split = {'mesh': pmesh.model_mesh(self.device)} if sharded else {}
+            while True:
+                engine = self.imp._engine()
+                state = engine.get_state()
+                if self.N == 0 and getattr(self.all_layer[-1][0], 'name', None) == 'Categorical':
+                    state = self._inflate_scales(state)
+                gens = (rng.next_generator(self.device), rng.next_generator('cpu'))
+                nn_dev = None  # device-refreshed NN structure, if any
+                snapshots = ([], [])  # para, r2 chunks
+                done = 0
+                ok = True
+                while done < N:
+                    this = min(chunk_size, N - done)
+                    if self.vecch:
+                        # stop chunks at the next power-of-2 global iteration,
+                        # so that the NN refresh happens on schedule
+                        g = N0 + done
+                        nxt = 1
+                        while nxt <= g:
+                            nxt *= 2
+                        this = min(this, nxt - g)
+                    state, para, r2 = engine.train_chunk(state, gens, this, ess_burn,
+                                                         nn_state=nn_dev, **split)
+                    finite = torch.stack([torch.isfinite(t).all()
+                                          for grp in (para, r2, state[0]) for t in grp]).all()
+                    ok = bool(tracing.to_host(finite, 'finite_check'))
+                    if not ok:
+                        break
+                    snapshots[0].append(para)
+                    snapshots[1].append(r2)
+                    done += this
+                    if not disable:
+                        print(f"dgp.train: {done}/{N}", file=sys.stderr, flush=True)
                     g = N0 + done
-                    nxt = 1
-                    while nxt <= g:
-                        nxt *= 2
-                    this = min(this, nxt - g)
-                state, para, r2 = engine.train_chunk(state, gens, this, ess_burn,
-                                                     nn_state=nn_dev, **split)
-                ok = bool(torch.stack([torch.isfinite(t).all()
-                                       for grp in (para, r2, state[0])
-                                       for t in grp]).all())
-                if not ok:
-                    break
-                snapshots[0].append(para)
-                snapshots[1].append(r2)
-                done += this
-                if not disable:
-                    print(f"dgp.train: {done}/{N}", file=sys.stderr, flush=True)
-                g = N0 + done
-                if self.vecch and g > 1 and (g & (g - 1)) == 0:
-                    if engine.supports_device_refresh():
-                        nn_dev = engine.refresh_nn(state, gens[0])
-                    else:
-                        engine.set_state(state)
-                        self.imp.update_ord_nn()
-                        state = engine.get_state()
-                        nn_dev = None
-            if ok:
-                engine.set_state(state)
-                if nn_dev is not None:
-                    engine.set_nn_state(nn_dev)
-                self._append_paths(snapshots)
-                self.N += N
-                return
-            restarts += 1
-            if restarts > max_restarts:
-                raise RuntimeError(f'Training failed after {max_restarts} restarts.')
-            self.N = N0
-            self.reinit_all_layer(reset_lengthscale=True, row=0)
-            self.imp.invalidate()
-            self.imp.sample(burnin=10)
+                    if self.vecch and g > 1 and (g & (g - 1)) == 0:
+                        if engine.supports_device_refresh():
+                            nn_dev = engine.refresh_nn(state, gens[0])
+                        else:
+                            engine.set_state(state)
+                            self.imp.update_ord_nn()
+                            state = engine.get_state()
+                            nn_dev = None
+                if ok:
+                    engine.set_state(state)
+                    if nn_dev is not None:
+                        engine.set_nn_state(nn_dev)
+                    self._append_paths(snapshots)
+                    self.N += N
+                    return
+                restarts += 1
+                if restarts > max_restarts:
+                    raise RuntimeError(f'Training failed after {max_restarts} restarts.')
+                self.N = N0
+                self.reinit_all_layer(reset_lengthscale=True, row=0)
+                self.imp.invalidate()
+                self.imp.sample(burnin=10)
 
     def ptrain(self, N=500, ess_burn=10, disable=False, core_num=None):
         """`train` with ``sharded=True``: SEM split over the devices of the
@@ -560,14 +563,16 @@ class dgp:
         para_path and the R^2 rows to each globally connected node's R2."""
         para_chunks, r2_chunks = snapshots
         if para_chunks:
-            merged = [np.concatenate([c[i].cpu().numpy() for c in para_chunks])
+            merged = [np.concatenate([tracing.to_host(c[i], 'paths').numpy()
+                                      for c in para_chunks])
                       for i in range(len(para_chunks[0]))]
             nodes = [node for layer in self.all_layer for node in layer
                      if node.type == 'gp']
             for node, rows in zip(nodes, merged):
                 node.para_path = np.vstack((node.para_path, rows))
         if r2_chunks and r2_chunks[0]:
-            merged = [np.concatenate([c[i].cpu().numpy() for c in r2_chunks])
+            merged = [np.concatenate([tracing.to_host(c[i], 'paths').numpy()
+                                      for c in r2_chunks])
                       for i in range(len(r2_chunks[0]))]
             nodes = [node for layer in self.all_layer[1:] for node in layer
                      if node.type == 'gp' and node.connect is not None]

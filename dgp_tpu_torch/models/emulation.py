@@ -20,13 +20,14 @@ rebuilt whenever the nodes' modes differ from the ones it was built on.
 the emulator's mesh (`parallel/mesh.py`, `CompiledEnsemble.propagate`),
 with the same results bit for bit; the ``chunk_num`` and ``core_num`` of
 the reference's process pools are accepted and ignored.
+A `predict` call is the root span ``emulator.predict`` (`tracing`).
 """
 import copy
 from contextlib import contextmanager
 
 import numpy as np
 
-from .. import config
+from .. import config, tracing
 from ..design import mice_var
 from ..parallel import mesh as pmesh
 from .imputation import imputer
@@ -192,57 +193,58 @@ class emulator:
         such lists).  ``sharded`` splits the query rows over the devices
         of the emulator's mesh (`parallel.mesh.model_mesh`); the results
         are the same bit for bit."""
-        if x.ndim == 1:
-            raise Exception('The testing input has to be a numpy 2d-array')
-        x = np.asarray(x, config.np_dtype())
-        final = self.all_layer[-1]
-        is_cat = final[0].name == 'Categorical'
-        M = len(x)
-        if method == 'mean_var':
-            sample_size = 1
-        means, vars_ = self._propagate(x, m, sharded)
-        mean_pred, variance_pred = [], []
-        likelihood_mean, likelihood_variance = [], []
-        for i, one_imputed in enumerate(self.all_layer_set):
-            layer_means = [means[l][i] for l in range(self.n_layer - 1)]
-            layer_vars = [vars_[l][i] for l in range(self.n_layer - 1)]
-            lik_mean, lik_var = self._final_moments(i, one_imputed, means, vars_,
-                                                    layer_means[-1], layer_vars[-1])
-            for _ in range(sample_size):
-                mean_pred.append(layer_means if full_layer else layer_means[-1])
-                variance_pred.append(layer_vars if full_layer else layer_vars[-1])
-                likelihood_mean.append(lik_mean)
-                likelihood_variance.append(lik_var)
-        if method == 'sampling':
-            return self._sampling_output(mean_pred, variance_pred, likelihood_mean,
-                                         likelihood_variance, full_layer, is_cat)
-        if full_layer:
-            mu_layer = [list(t) for t in zip(*mean_pred)]
-            var_layer = [list(t) for t in zip(*variance_pred)]
-            mu = [np.mean(ml, axis=0) for ml in mu_layer]
-            mu2 = [np.mean(np.square(ml), axis=0) for ml in mu_layer]
-            vm = [np.mean(vl, axis=0) for vl in var_layer]
-            sigma2 = [i + j - k**2 for i, j, k in zip(mu2, vm, mu)]
-            agg_mean = np.mean(likelihood_mean, axis=0)
-            agg_var = (np.mean(np.square(likelihood_mean) + likelihood_variance, axis=0)
-                       - agg_mean**2)
-            if is_cat:
-                agg_mean, agg_var = final[0].prediction(m=agg_mean, v=agg_var)
-            mu.append(agg_mean)
-            sigma2.append(agg_var)
-            return mu, sigma2
-        if not aggregation:
-            if is_cat:
-                mu, sigma2 = [list(t) for t in zip(*(final[0].prediction(a, b)
-                              for a, b in zip(likelihood_mean, likelihood_variance)))]
+        with tracing.span('emulator.predict'):
+            if x.ndim == 1:
+                raise Exception('The testing input has to be a numpy 2d-array')
+            x = np.asarray(x, config.np_dtype())
+            final = self.all_layer[-1]
+            is_cat = final[0].name == 'Categorical'
+            M = len(x)
+            if method == 'mean_var':
+                sample_size = 1
+            means, vars_ = self._propagate(x, m, sharded)
+            mean_pred, variance_pred = [], []
+            likelihood_mean, likelihood_variance = [], []
+            for i, one_imputed in enumerate(self.all_layer_set):
+                layer_means = [means[l][i] for l in range(self.n_layer - 1)]
+                layer_vars = [vars_[l][i] for l in range(self.n_layer - 1)]
+                lik_mean, lik_var = self._final_moments(i, one_imputed, means, vars_,
+                                                        layer_means[-1], layer_vars[-1])
+                for _ in range(sample_size):
+                    mean_pred.append(layer_means if full_layer else layer_means[-1])
+                    variance_pred.append(layer_vars if full_layer else layer_vars[-1])
+                    likelihood_mean.append(lik_mean)
+                    likelihood_variance.append(lik_var)
+            if method == 'sampling':
+                return self._sampling_output(mean_pred, variance_pred, likelihood_mean,
+                                             likelihood_variance, full_layer, is_cat)
+            if full_layer:
+                mu_layer = [list(t) for t in zip(*mean_pred)]
+                var_layer = [list(t) for t in zip(*variance_pred)]
+                mu = [np.mean(ml, axis=0) for ml in mu_layer]
+                mu2 = [np.mean(np.square(ml), axis=0) for ml in mu_layer]
+                vm = [np.mean(vl, axis=0) for vl in var_layer]
+                sigma2 = [i + j - k**2 for i, j, k in zip(mu2, vm, mu)]
+                agg_mean = np.mean(likelihood_mean, axis=0)
+                agg_var = (np.mean(np.square(likelihood_mean) + likelihood_variance, axis=0)
+                           - agg_mean**2)
+                if is_cat:
+                    agg_mean, agg_var = final[0].prediction(m=agg_mean, v=agg_var)
+                mu.append(agg_mean)
+                sigma2.append(agg_var)
                 return mu, sigma2
-            return likelihood_mean, likelihood_variance
-        mu = np.mean(likelihood_mean, axis=0)
-        sigma2 = np.mean(np.square(likelihood_mean) + likelihood_variance, axis=0) - mu**2
-        if is_cat:
-            mu, sigma2 = final[0].prediction(mu, sigma2)
-            return np.asarray(mu).reshape(M, -1), np.asarray(sigma2).reshape(M, -1)
-        return mu, sigma2
+            if not aggregation:
+                if is_cat:
+                    mu, sigma2 = [list(t) for t in zip(*(final[0].prediction(a, b)
+                                  for a, b in zip(likelihood_mean, likelihood_variance)))]
+                    return mu, sigma2
+                return likelihood_mean, likelihood_variance
+            mu = np.mean(likelihood_mean, axis=0)
+            sigma2 = np.mean(np.square(likelihood_mean) + likelihood_variance, axis=0) - mu**2
+            if is_cat:
+                mu, sigma2 = final[0].prediction(mu, sigma2)
+                return np.asarray(mu).reshape(M, -1), np.asarray(sigma2).reshape(M, -1)
+            return mu, sigma2
 
     def ppredict(self, x, method='mean_var', full_layer=False, sample_size=50, m=50,
                  chunk_num=None, core_num=None):

@@ -31,13 +31,18 @@ a replica of them on its device (`_replica`, copied once per ensemble);
 all chunks are launched before anything is read back, and the outputs come
 to the host once.  Every query's result is its own, so any split returns
 the one-device results bit for bit.
+
+Within a chunk, a neighbour search is a ``predict.nn_search`` span, a
+prediction at fixed inputs a ``predict.kriging`` span and a linked one a
+``predict.linked_moments`` span (`tracing`); the one read of the outputs
+is a `tracing` read.
 """
 import copy
 
 import numpy as np
 import torch
 
-from .. import config, gp_core
+from .. import config, gp_core, tracing
 from ..parallel import mesh as pmesh
 from ..vecchia import core as vcore
 from ..vecchia import nn as vnn
@@ -201,12 +206,13 @@ class CompiledEnsemble:
             # with an IVF index, the cluster-restricted search of
             # `vecchia.nn.get_pred_nn(method='approx')`, -1 (too few
             # candidates) set to 0
-            if ivf is None:
-                nn = vnn._pred_nn_impl(q, w, m_eff)
-            else:
-                nn = vnn._ivf_query(q, w, ivf[0], ivf[1], m_eff)
-                nn = torch.where(nn >= 0, nn, 0)
-            return nn[:, 1:] if loo else nn
+            with tracing.span('predict.nn_search'):
+                if ivf is None:
+                    nn = vnn._pred_nn_impl(q, w, m_eff)
+                else:
+                    nn = vnn._ivf_query(q, w, ivf[0], ivf[1], m_eff)
+                    nn = torch.where(nn >= 0, nn, 0)
+                return nn[:, 1:] if loo else nn
 
         in_mean = in_var = None
         means, vars_ = [], []
@@ -223,27 +229,30 @@ class CompiledEnsemble:
                     xq = x[:, list(nd['input_dim'])]
                     if z is not None:
                         xq = torch.cat([xq, z], dim=1)
-                    out = [gp_core.gp_predict(xq, W, nd['Rinv'], nd['Rinv_y'][i],
-                                              nd['scale'], nd['length'], nd['nugget'],
-                                              name=nd['name'])
-                           for i in range(self.N)]
+                    with tracing.span('predict.kriging'):
+                        out = [gp_core.gp_predict(xq, W, nd['Rinv'], nd['Rinv_y'][i],
+                                                  nd['scale'], nd['length'], nd['nugget'],
+                                                  name=nd['name'])
+                               for i in range(self.N)]
                 elif not nd['vecch']:
                     dl = len(nd['input_dim'])
-                    out = [gp_core.linkgp_predict(
-                        in_mean[i][:, list(nd['input_dim'])],
-                        in_var[i][:, list(nd['input_dim'])], z, W[i][:, :dl],
-                        W[i][:, dl:] if z is not None else None, nd['Rinv'][i],
-                        nd['Rinv_y'][i], nd['scale'], nd['length'], nd['nugget'],
-                        name=nd['name'])
-                        for i in range(self.N)]
+                    with tracing.span('predict.linked_moments', kind='dense'):
+                        out = [gp_core.linkgp_predict(
+                            in_mean[i][:, list(nd['input_dim'])],
+                            in_var[i][:, list(nd['input_dim'])], z, W[i][:, :dl],
+                            W[i][:, dl:] if z is not None else None, nd['Rinv'][i],
+                            nd['Rinv_y'][i], nd['scale'], nd['length'], nd['nugget'],
+                            name=nd['name'])
+                            for i in range(self.N)]
                 elif l == 0:
                     xq = x[:, list(nd['input_dim'])]
                     if z is not None:
                         xq = torch.cat([xq, z], dim=1)
                     NN = nn_search(xq / nd['length'], W / nd['length'], m_eff, nd['ivf'])
-                    out = [vcore.gp_vecch(xq, W, NN, y[i], nd['scale'], nd['length'],
-                                          nd['nugget'], nd['nug_diag'], nd['name'],
-                                          extra_jit) for i in range(self.N)]
+                    with tracing.span('predict.kriging'):
+                        out = [vcore.gp_vecch(xq, W, NN, y[i], nd['scale'], nd['length'],
+                                              nd['nugget'], nd['nug_diag'], nd['name'],
+                                              extra_jit) for i in range(self.N)]
                 else:
                     dl = len(nd['input_dim'])
                     full_len = torch.broadcast_to(nd['length'], (W.shape[2],))
@@ -254,11 +263,12 @@ class CompiledEnsemble:
                         xq = mi if z is None else torch.cat([mi, z], dim=1)
                         NN = nn_search(xq / full_len, W[i] / full_len, m_eff,
                                        None if nd['ivf'] is None else nd['ivf'][i])
-                        out.append(vcore.link_gp_vecch(
-                            mi, vi, z, W[i][:, :dl],
-                            W[i][:, dl:] if z is not None else None, NN, y[i],
-                            nd['scale'], nd['length'], nd['nugget'],
-                            nd['nug_diag'], nd['name'], extra_jit))
+                        with tracing.span('predict.linked_moments', kind='vecchia'):
+                            out.append(vcore.link_gp_vecch(
+                                mi, vi, z, W[i][:, :dl],
+                                W[i][:, dl:] if z is not None else None, NN, y[i],
+                                nd['scale'], nd['length'], nd['nugget'],
+                                nd['nug_diag'], nd['name'], extra_jit))
                 cols_m.append(torch.stack([o[0] for o in out]))
                 cols_v.append(torch.abs(torch.stack([o[1] for o in out])))
             empty = x.new_zeros((self.N, x.shape[0], 0))
@@ -312,7 +322,8 @@ class CompiledEnsemble:
             flat = [t for o in outs for mv in o for part in mv for t in part]
             if not flat:
                 return outs
-            host = torch.cat([t.reshape(-1) for t in flat]).cpu().numpy()
+            host = tracing.to_host(torch.cat([t.reshape(-1) for t in flat]),
+                                   'predict_out').numpy()
             arrs = iter(np.split(host, np.cumsum([t.numel() for t in flat])[:-1]))
             shapes = iter([t.shape for t in flat])
             return [[[[next(arrs).reshape(next(shapes)) for _ in part] for part in mv]

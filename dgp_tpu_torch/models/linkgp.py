@@ -20,13 +20,16 @@ and `ppredict` split the chunks over the devices of lgp's mesh
 copies of the system whose nodes compute on the share's device, one host
 thread per share, with the same results bit for bit.  'sampling' draws from numpy's global generator node
 by node, so it is neither chunked nor split.
+A `predict` call is the root span ``lgp.predict``, each imputation's pass a
+``predict.imputation`` span and each container's prediction in it a
+``predict.container`` span (`tracing`).
 """
 import contextlib
 import copy
 
 import numpy as np
 
-from .. import config
+from .. import config, tracing
 from ..parallel import mesh as pmesh
 from ..utils import have_same_shape
 from . import ensemble
@@ -191,44 +194,45 @@ class lgp:
         ``sample_size`` draws per imputation.  ``sharded`` splits the row
         chunks of a 'mean_var' prediction over the devices of lgp's mesh
         (`parallel.mesh.model_mesh`)."""
-        if isinstance(x, list) and len(x) != self.L:
-            raise Exception('When the test input is a list it must have global '
-                            'inputs for all layers (use None for layers without).')
-        if not isinstance(x, list):
-            if x.ndim == 1:
-                raise Exception('The testing input has to be a numpy 2d-array.')
-            x = [x] + [[None] * num for num in self.num_model]
-        if method == 'mean_var':
-            sample_size = 1
-        dt = config.np_dtype()
-        mean_pred, variance_pred, sample_pred = [], [], []
-        if method == 'mean_var':
-            results = self._predict_rows(x, full_layer, m, dt, sharded)
-        else:
-            results = [self._predict_one(one_imputed, x, method, full_layer, sample_size,
-                                         m, dt) for one_imputed in self.all_layer_set]
-        for res in results:
+        with tracing.span('lgp.predict'):
+            if isinstance(x, list) and len(x) != self.L:
+                raise Exception('When the test input is a list it must have global '
+                                'inputs for all layers (use None for layers without).')
+            if not isinstance(x, list):
+                if x.ndim == 1:
+                    raise Exception('The testing input has to be a numpy 2d-array.')
+                x = [x] + [[None] * num for num in self.num_model]
             if method == 'mean_var':
-                mean_pred.append(res[0])
-                variance_pred.append(res[1])
+                sample_size = 1
+            dt = config.np_dtype()
+            mean_pred, variance_pred, sample_pred = [], [], []
+            if method == 'mean_var':
+                results = self._predict_rows(x, full_layer, m, dt, sharded)
             else:
-                sample_pred.append(res)
-        if method == 'mean_var':
+                results = [self._predict_one(one_imputed, x, method, full_layer, sample_size,
+                                             m, dt) for one_imputed in self.all_layer_set]
+            for res in results:
+                if method == 'mean_var':
+                    mean_pred.append(res[0])
+                    variance_pred.append(res[1])
+                else:
+                    sample_pred.append(res)
+            if method == 'mean_var':
+                if full_layer:
+                    mu = [[np.mean(i, axis=0) for i in zip(*case_m)]
+                          for case_m in zip(*mean_pred)]
+                    sigma2 = [[np.mean(np.square(i) + j, axis=0) - np.mean(i, axis=0) ** 2
+                               for i, j in zip(zip(*cm), zip(*cv))]
+                              for cm, cv in zip(zip(*mean_pred), zip(*variance_pred))]
+                else:
+                    mu = [np.mean(i, axis=0) for i in zip(*mean_pred)]
+                    sigma2 = [np.mean(np.square(i) + j, axis=0) - np.mean(i, axis=0) ** 2
+                              for i, j in zip(zip(*mean_pred), zip(*variance_pred))]
+                return mu, sigma2
             if full_layer:
-                mu = [[np.mean(i, axis=0) for i in zip(*case_m)]
-                      for case_m in zip(*mean_pred)]
-                sigma2 = [[np.mean(np.square(i) + j, axis=0) - np.mean(i, axis=0) ** 2
-                           for i, j in zip(zip(*cm), zip(*cv))]
-                          for cm, cv in zip(zip(*mean_pred), zip(*variance_pred))]
-            else:
-                mu = [np.mean(i, axis=0) for i in zip(*mean_pred)]
-                sigma2 = [np.mean(np.square(i) + j, axis=0) - np.mean(i, axis=0) ** 2
-                          for i, j in zip(zip(*mean_pred), zip(*variance_pred))]
-            return mu, sigma2
-        if full_layer:
-            return [[np.concatenate(i, axis=2) for i in zip(*case_s)]
-                    for case_s in zip(*sample_pred)]
-        return [np.concatenate(i, axis=2) for i in zip(*sample_pred)]
+                return [[np.concatenate(i, axis=2) for i in zip(*case_s)]
+                        for case_s in zip(*sample_pred)]
+            return [np.concatenate(i, axis=2) for i in zip(*sample_pred)]
 
     def _predict_rows(self, x, full_layer, m, dt, sharded):
         """The 'mean_var' results of `_predict_one` for every imputation,
@@ -270,74 +274,76 @@ class lgp:
 
     def _predict_one(self, one_imputed, x, method, full_layer, sample_size, m, dt):
         """One imputation's pass through the system, container by container."""
-        mean_layers, var_layers, sample_layers = [], [], []
-        m_l_next, v_l_next = [], []
-        m_last, v_last, sample_last = [], [], []
-        for l in range(self.L):
-            layer = one_imputed[l]
-            m_l, v_l, sample_l = [], [], []
-            for k, model in enumerate(layer):
-                if l == 0:
-                    if isinstance(model.local_input_idx, list):
-                        raise Exception('First-layer local_input_idx must be a 1d-array.')
-                    input_lk = np.asarray(x[0], dt)[:, model.local_input_idx]
-                    if model.type == 'gp':
-                        m_lk, v_lk = self.gp_pred(input_lk, None, None, None,
-                                                  model.structure, m)
-                    else:
-                        _, _, m_lk, v_lk = self.dgp_pred(input_lk, None, None, None,
-                                                         model.structure, m)
-                    m_l.append(m_lk)
-                    v_l.append(v_lk)
-                    if method == 'sampling' and full_layer:
-                        sample_l.append(self._normal_samples(m_lk, v_lk, sample_size))
-                else:
-                    local_input_idx = self._norm_idx(model.local_input_idx, l)
-                    external = x[l][k]
-                    if external is not None:
-                        external = np.asarray(external, dt)
-                    m_in, v_in = [], []
-                    for i in range(l):
-                        idx = local_input_idx[i]
-                        if idx is not None:
-                            m_in.append(m_l_next[i][:, idx])
-                            v_in.append(v_l_next[i][:, idx])
-                    m_in = np.concatenate(m_in, axis=1)
-                    v_in = np.concatenate(v_in, axis=1)
-                    if model.type == 'gp':
-                        m_lk, v_lk = self.gp_pred(None, m_in, v_in, external,
-                                                  model.structure, m)
-                        if method == 'sampling' and l == self.L - 1:
-                            sample_lk = self._normal_samples(m_lk, v_lk, sample_size)
-                    else:
-                        m_before, v_before, m_lk, v_lk = self.dgp_pred(
-                            None, m_in, v_in, external, model.structure, m)
-                        if method == 'sampling' and l == self.L - 1:
-                            sample_lk = self._dgp_samples(model, m_lk, m_before,
-                                                          v_before, sample_size)
-                    if l == self.L - 1:
-                        m_last.append(m_lk)
-                        v_last.append(v_lk)
-                        if method == 'sampling':
-                            sample_last.append(sample_lk)
-                    else:
-                        m_l.append(m_lk)
-                        v_l.append(v_lk)
-                        if method == 'sampling' and full_layer:
-                            sample_l.append(self._normal_samples(m_lk, v_lk, sample_size))
-            if l < self.L - 1:
-                m_l_next.append(np.concatenate(m_l, axis=1))
-                v_l_next.append(np.concatenate(v_l, axis=1))
-                mean_layers.append(m_l)
-                var_layers.append(v_l)
-                sample_layers.append(sample_l)
-        if method == 'mean_var':
+        with tracing.span('predict.imputation'):
+            mean_layers, var_layers, sample_layers = [], [], []
+            m_l_next, v_l_next = [], []
+            m_last, v_last, sample_last = [], [], []
+            for l in range(self.L):
+                layer = one_imputed[l]
+                m_l, v_l, sample_l = [], [], []
+                for k, model in enumerate(layer):
+                    with tracing.span('predict.container', kind=model.type, layer=l):
+                        if l == 0:
+                            if isinstance(model.local_input_idx, list):
+                                raise Exception('First-layer local_input_idx must be a 1d-array.')
+                            input_lk = np.asarray(x[0], dt)[:, model.local_input_idx]
+                            if model.type == 'gp':
+                                m_lk, v_lk = self.gp_pred(input_lk, None, None, None,
+                                                          model.structure, m)
+                            else:
+                                _, _, m_lk, v_lk = self.dgp_pred(input_lk, None, None, None,
+                                                                 model.structure, m)
+                            m_l.append(m_lk)
+                            v_l.append(v_lk)
+                            if method == 'sampling' and full_layer:
+                                sample_l.append(self._normal_samples(m_lk, v_lk, sample_size))
+                        else:
+                            local_input_idx = self._norm_idx(model.local_input_idx, l)
+                            external = x[l][k]
+                            if external is not None:
+                                external = np.asarray(external, dt)
+                            m_in, v_in = [], []
+                            for i in range(l):
+                                idx = local_input_idx[i]
+                                if idx is not None:
+                                    m_in.append(m_l_next[i][:, idx])
+                                    v_in.append(v_l_next[i][:, idx])
+                            m_in = np.concatenate(m_in, axis=1)
+                            v_in = np.concatenate(v_in, axis=1)
+                            if model.type == 'gp':
+                                m_lk, v_lk = self.gp_pred(None, m_in, v_in, external,
+                                                          model.structure, m)
+                                if method == 'sampling' and l == self.L - 1:
+                                    sample_lk = self._normal_samples(m_lk, v_lk, sample_size)
+                            else:
+                                m_before, v_before, m_lk, v_lk = self.dgp_pred(
+                                    None, m_in, v_in, external, model.structure, m)
+                                if method == 'sampling' and l == self.L - 1:
+                                    sample_lk = self._dgp_samples(model, m_lk, m_before,
+                                                                  v_before, sample_size)
+                            if l == self.L - 1:
+                                m_last.append(m_lk)
+                                v_last.append(v_lk)
+                                if method == 'sampling':
+                                    sample_last.append(sample_lk)
+                            else:
+                                m_l.append(m_lk)
+                                v_l.append(v_lk)
+                                if method == 'sampling' and full_layer:
+                                    sample_l.append(self._normal_samples(m_lk, v_lk, sample_size))
+                if l < self.L - 1:
+                    m_l_next.append(np.concatenate(m_l, axis=1))
+                    v_l_next.append(np.concatenate(v_l, axis=1))
+                    mean_layers.append(m_l)
+                    var_layers.append(v_l)
+                    sample_layers.append(sample_l)
+            if method == 'mean_var':
+                if full_layer:
+                    return mean_layers + [m_last], var_layers + [v_last]
+                return m_last, v_last
             if full_layer:
-                return mean_layers + [m_last], var_layers + [v_last]
-            return m_last, v_last
-        if full_layer:
-            return sample_layers + [sample_last]
-        return sample_last
+                return sample_layers + [sample_last]
+            return sample_last
 
     @staticmethod
     def _norm_idx(local_input_idx, l):

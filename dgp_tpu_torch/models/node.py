@@ -15,13 +15,16 @@ given size, all launched before one read back; within
 `prediction_operands` the predictions upload their training-side operands
 (inputs, Rinv, the neighbour search's index) to the device once, not on
 every call, as `lgp.predict` calls them once per chunk of test rows.
+A prediction is a ``predict.kriging`` span, a linked one a
+``predict.linked_moments`` span (`tracing`), and its reads of the results
+are `tracing` reads.
 """
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
-from .. import config, gp_core
+from .. import config, gp_core, tracing
 from ..ops import kernels as kops
 from ..ops import lbfgs
 from ..parallel import mesh as pmesh
@@ -304,7 +307,7 @@ class kernel:
             self._t(self._X()), self._t(self.output[:, 0]), self._t(self.length),
             float(self.nugget[0]), name=self.name,
             w_diag=self._t(self.W_diag) if self._has_rep() else None)
-        self.Rinv, self.Rinv_y = Rinv.cpu().numpy(), Rinv_y.cpu().numpy()
+        self.Rinv, self.Rinv_y = (tracing.to_host(t, 'stats').numpy() for t in (Rinv, Rinv_y))
 
     # ------------------------------------------------------------------
     # predictions
@@ -315,19 +318,21 @@ class kernel:
         ``chunk`` (default: one chunk), all launched before one read back;
         no row's result depends on the other rows of its chunk, but a
         library's product may take another path at another chunk size."""
-        if self.vecch:
-            from ..vecchia import api as vecchia_api
-            return vecchia_api.gp_prediction_vecch(self, x, z, chunk)
-        if z is not None:
-            x = np.concatenate((x, z), axis=1)
-        if self.Rinv is None:
-            self.compute_stats()
-        xt, ops = self._t(x), self._dense_ops(self._X)
-        length = self._op('length', lambda: self._t(self.length))
-        parts = [gp_core.gp_predict(xt[c], *ops, float(self.scale[0]), length,
-                                    float(self.nugget[0]), name=self.name)
-                 for c in pmesh.row_chunks(len(x), chunk)]
-        return tuple(torch.stack([torch.cat(p) for p in zip(*parts)]).cpu().numpy())
+        with tracing.span('predict.kriging'):
+            if self.vecch:
+                from ..vecchia import api as vecchia_api
+                return vecchia_api.gp_prediction_vecch(self, x, z, chunk)
+            if z is not None:
+                x = np.concatenate((x, z), axis=1)
+            if self.Rinv is None:
+                self.compute_stats()
+            xt, ops = self._t(x), self._dense_ops(self._X)
+            length = self._op('length', lambda: self._t(self.length))
+            parts = [gp_core.gp_predict(xt[c], *ops, float(self.scale[0]), length,
+                                        float(self.nugget[0]), name=self.name)
+                     for c in pmesh.row_chunks(len(x), chunk)]
+            return tuple(tracing.to_host(torch.stack([torch.cat(p) for p in zip(*parts)]),
+                                         'predict_out').numpy())
 
     def _dense_ops(self, train, key='X'):
         """(training inputs ``train()``, Rinv, Rinv_y) on the device, kept
@@ -341,20 +346,22 @@ class kernel:
         each (M, Dw)) with the deterministic global input z (M, Dz) or None:
         (mean (M,), var (M,)) as numpy arrays; dense from Rinv, Vecchia from
         the ``pred_m`` nearest training points of each query's mean."""
-        if self.vecch:
-            from ..vecchia import api as vecchia_api
-            return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
-        if self.Rinv is None:
-            self.compute_stats()
-        W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input')
-        mu, var = gp_core.linkgp_predict(
-            self._t(m), self._t(v), None if z is None else self._t(z), W,
-            None if z is None else self._op('global_input',
-                                            lambda: self._t(self.global_input)),
-            Rinv, Rinv_y, float(self.scale[0]),
-            self._op('length', lambda: self._t(self.length)),
-            float(self.nugget[0]), name=self.name)
-        return mu.cpu().numpy(), var.cpu().numpy()
+        with tracing.span('predict.linked_moments', kind='vecchia' if self.vecch else 'dense'):
+            if self.vecch:
+                from ..vecchia import api as vecchia_api
+                return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
+            if self.Rinv is None:
+                self.compute_stats()
+            W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input')
+            mu, var = gp_core.linkgp_predict(
+                self._t(m), self._t(v), None if z is None else self._t(z), W,
+                None if z is None else self._op('global_input',
+                                                lambda: self._t(self.global_input)),
+                Rinv, Rinv_y, float(self.scale[0]),
+                self._op('length', lambda: self._t(self.length)),
+                float(self.nugget[0]), name=self.name)
+            return (tracing.to_host(mu, 'predict_out').numpy(),
+                    tracing.to_host(var, 'predict_out').numpy())
 
     def linkgp_prediction_full(self, m, v, m_z, v_z, z):
         """Linked prediction when the first m_z.shape[1] global dims are
@@ -362,22 +369,24 @@ class kernel:
         absent (kernel_class.py:672): those dims fold into the Gaussian block,
         the training inputs re-ordered to match; dense whatever ``vecch``
         says, as the reference computes it."""
-        m_full = np.concatenate((m, m_z), axis=1)
-        v_full = np.concatenate((v, v_z), axis=1)
-        n_mz = m_z.shape[1]
-        if self.Rinv is None:
-            self.compute_stats()
-        W, Rinv, Rinv_y = self._dense_ops(
-            lambda: np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1),
-            ('input', n_mz))
-        mu, var = gp_core.linkgp_predict(
-            self._t(m_full), self._t(v_full), None if z is None else self._t(z), W,
-            None if z is None else self._op(('global_input', n_mz), lambda: self._t(
-                self.global_input[:, n_mz:])),
-            Rinv, Rinv_y, float(self.scale[0]),
-            self._op('length', lambda: self._t(self.length)),
-            float(self.nugget[0]), name=self.name)
-        return mu.cpu().numpy(), var.cpu().numpy()
+        with tracing.span('predict.linked_moments', kind='dense'):
+            m_full = np.concatenate((m, m_z), axis=1)
+            v_full = np.concatenate((v, v_z), axis=1)
+            n_mz = m_z.shape[1]
+            if self.Rinv is None:
+                self.compute_stats()
+            W, Rinv, Rinv_y = self._dense_ops(
+                lambda: np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1),
+                ('input', n_mz))
+            mu, var = gp_core.linkgp_predict(
+                self._t(m_full), self._t(v_full), None if z is None else self._t(z), W,
+                None if z is None else self._op(('global_input', n_mz), lambda: self._t(
+                    self.global_input[:, n_mz:])),
+                Rinv, Rinv_y, float(self.scale[0]),
+                self._op('length', lambda: self._t(self.length)),
+                float(self.nugget[0]), name=self.name)
+            return (tracing.to_host(mu, 'predict_out').numpy(),
+                    tracing.to_host(var, 'predict_out').numpy())
 
     def ord_nn(self, ord=None, NNarray=None, pointer=False, device=None):
         """Vecchia ordering and neighbours (kernel_class.py:245), with

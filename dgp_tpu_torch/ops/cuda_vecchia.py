@@ -26,9 +26,11 @@ as the JAX package's kernels take (one row per lane up to 32, two above),
 for K1 any number of length lanes, and staged tiles that fit one SM's
 shared memory (`shared_bytes`, the sources' own formula).  Every wrapper
 asks it first.  A CPU tensor always goes to the plain version (`*_plain`);
-outside the bound that adds one to the wrapper's ``plain_calls``, so a run
-on the CPU shows which calls the card would refuse.  A CUDA tensor inside
-the bound goes to the kernel (adding one to ``launches``); outside it the
+outside the bound that adds one to the counter ``kernel.plain_calls.<id>``
+(`tracing`), so a run on the CPU shows which calls the card would refuse.
+A CUDA tensor inside the bound goes to the kernel (adding one to
+``kernel.launches.<id>`` and ``kernel.launches.<id>@<device>``;
+`launch_counts` and `launch_counts_by_device` read them); outside it the
 wrapper raises NotImplementedError before anything is built: no plain
 version runs on the card in a kernel's place.  The callers do not send such
 blocks here: as the JAX package hands blocks above 64 rows to XLA, they
@@ -51,6 +53,7 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
 from . import kernels as kops
 from . import linalg
 
@@ -250,13 +253,13 @@ def use_kernel(kid, m1, d, dtype=torch.float64):
 
 def _runs_plain(wrapper, kid, t, m1, d):
     """Whether ``wrapper``'s call on tensor ``t`` runs the plain version: a
-    CPU tensor does (counted in ``plain_calls`` when the gate says the
-    kernel would not take it); a tensor on another device outside the
-    kernel's bound is refused."""
+    CPU tensor does (counted in ``kernel.plain_calls.<kid>`` when the gate
+    says the kernel would not take it); a tensor on another device outside
+    the kernel's bound is refused."""
     inside = use_kernel(kid, m1, d, t.dtype)
     if t.device.type == "cpu":
         if not inside:
-            wrapper.plain_calls += 1
+            tracing.count("kernel.plain_calls." + kid)
         return True
     if not inside:
         raise NotImplementedError(
@@ -301,11 +304,10 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launched(wrapper, device):
-    """Count one launch of ``wrapper``'s kernel on ``device``."""
-    wrapper.launches += 1
-    key = str(device)
-    wrapper.by_device[key] = wrapper.by_device.get(key, 0) + 1
+def _launched(kid, device):
+    """Count one launch of the kernel ``kid`` on ``device``."""
+    tracing.count("kernel.launches." + kid)
+    tracing.count(f"kernel.launches.{kid}@{device}")
 
 
 # ----------------------------------------------------------------------
@@ -423,13 +425,8 @@ def cond_weights_t(Xg, diag, *, name):
                                    m1, d, n, _stream(Xg.device))
     if err != 0:
         raise RuntimeError(f"cond_weights_t: kernel launch failed (cudaError {err})")
-    _launched(cond_weights_t, dev)
+    _launched("K3", dev)
     return w, sigma
-
-
-cond_weights_t.launches = 0
-cond_weights_t.plain_calls = 0
-cond_weights_t.by_device = {}
 
 
 def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
@@ -472,13 +469,8 @@ def block_loglik_multi_t(A, B, C, yg, diag, cosv, sinv, *, name, dl=None):
             _stream(A.device))
     if err != 0:
         raise RuntimeError(f"block_loglik_multi_t: kernel launch failed (cudaError {err})")
-    _launched(block_loglik_multi_t, dev)
+    _launched("K2", dev)
     return logdet, quad
-
-
-block_loglik_multi_t.launches = 0
-block_loglik_multi_t.plain_calls = 0
-block_loglik_multi_t.by_device = {}
 
 
 def block_loglik_parts_t(Xg, yg, diag, *, name):
@@ -512,13 +504,8 @@ def block_loglik_parts_t(Xg, yg, diag, *, name):
             _stream(Xg.device))
     if err != 0:
         raise RuntimeError(f"block_loglik_parts_t: kernel launch failed (cudaError {err})")
-    _launched(block_loglik_parts_t, dev)
+    _launched("K4", dev)
     return logdet, quad
-
-
-block_loglik_parts_t.launches = 0
-block_loglik_parts_t.plain_calls = 0
-block_loglik_parts_t.by_device = {}
 
 
 def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
@@ -568,14 +555,10 @@ def block_nllik_grad_parts_t(Xg, yg, diag, dnug, *, name, n_length, nugget_est):
         if err != 0:
             raise RuntimeError(f"block_nllik_grad_parts_t: kernel launch failed "
                                f"(cudaError {err})")
-        _launched(block_nllik_grad_parts_t, dev)
+        _launched("K1", dev)
     out = (logdet, quad, dlogdet, dquad)
     return tuple(o[0] for o in out) if single else out
 
-
-block_nllik_grad_parts_t.launches = 0
-block_nllik_grad_parts_t.plain_calls = 0
-block_nllik_grad_parts_t.by_device = {}
 
 #: every kernel wrapper, by the name its launch count is reported under
 WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
@@ -588,23 +571,26 @@ KERNEL_ID = {"block_nllik_grad_parts_t": "K1", "block_loglik_multi_t": "K2",
 
 
 def reset_launch_counts():
-    for w in WRAPPERS:
-        w.launches = 0
-        w.plain_calls = 0
-        w.by_device = {}
+    tracing.reset("kernel.")
 
 
 def launch_counts():
     """Per wrapper, since the last reset: the kernel launches, and the calls
-    on CPU tensors that lay outside the kernel's bound."""
-    return {w.__name__: {"launches": w.launches, "plain_calls": w.plain_calls}
-            for w in WRAPPERS}
+    on CPU tensors that lay outside the kernel's bound (the counters
+    ``kernel.launches.<id>`` and ``kernel.plain_calls.<id>``)."""
+    t = tracing.totals("kernel.")
+    return {name: {"launches": t.get("kernel.launches." + kid, 0),
+                   "plain_calls": t.get("kernel.plain_calls." + kid, 0)}
+            for name, kid in KERNEL_ID.items()}
 
 
 def launch_counts_by_device():
     """Per wrapper, since the last reset: the kernel launches by card (they
     sum to `launch_counts`' launches)."""
-    return {w.__name__: dict(w.by_device) for w in WRAPPERS}
+    t = tracing.totals("kernel.launches.")
+    return {name: {k.partition("@")[2]: v for k, v in t.items()
+                   if k.startswith(f"kernel.launches.{kid}@")}
+            for name, kid in KERNEL_ID.items()}
 
 
 # ----------------------------------------------------------------------

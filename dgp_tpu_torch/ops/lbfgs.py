@@ -22,8 +22,13 @@ The loop body never reads a value back to the host.
 NaN-robust: a non-finite candidate value fails the Armijo test and the step
 keeps backtracking; if no progress is possible, the best iterate seen is
 returned.
+
+Each evaluation is an ``lbfgs.eval`` span (`tracing`), counted in
+``lbfgs.evals``.
 """
 import torch
+
+from .. import tracing
 
 
 def _sel(mask, a, b):
@@ -101,7 +106,9 @@ def minimize(fun, x0, lb=None, ub=None, maxiter=100, maxfun=30, history=8,
         return d, t0
 
     def fn(x):
-        out = fun(x)
+        tracing.count("lbfgs.evals")
+        with tracing.span("lbfgs.eval"):
+            out = fun(x)
         return out if has_aux else (out[0], out[1], None)
 
     x = project(x0)

@@ -10,7 +10,7 @@ retry only the failed rows.
 """
 import torch
 
-from .. import config
+from .. import config, tracing
 
 
 def chol_small(A):
@@ -43,7 +43,7 @@ def safe_cholesky(A):
     L = attempt(jitters[0])
     for jit in jitters[1:]:
         bad = ~torch.isfinite(L).all(-1).all(-1)
-        if not bool(bad.any()):
+        if not bool(tracing.to_host(bad.any(), 'jitter_check')):
             break
         L = torch.where(bad[..., None, None], attempt(jit), L)
     return L

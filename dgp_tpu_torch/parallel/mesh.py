@@ -35,6 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from .. import tracing
+
 
 def device_mesh():
     """Every visible CUDA device; raises where there is no card."""
@@ -171,7 +173,8 @@ def map_shares(mesh, n, fn, chunk=1):
     """[fn(device, slice)] over the shares of n rows (of whole chunks of
     ``chunk`` rows), each called on its own host thread with its device
     current, in share order: host-driven code whose calls read back from
-    the device overlaps across cards."""
+    the device overlaps across cards.  Each thread's spans nest under the
+    caller's open span (`tracing.carry`)."""
     shares = shard_rows(n, mesh, chunk)
 
     def call(share):
@@ -182,4 +185,4 @@ def map_shares(mesh, n, fn, chunk=1):
     if len(shares) == 1:
         return [call(shares[0])]
     with ThreadPoolExecutor(max_workers=len(shares)) as pool:
-        return list(pool.map(call, shares))
+        return list(pool.map(tracing.carry(call), shares))

@@ -10,11 +10,13 @@ node's device (``node.device``; default: the card).  Every neighbour
 search takes the node's ``nn_method`` ('exact', or the IVF search 'approx'
 that `dgp` and `gp` switch on at n >= 50000), and the ordered search keeps
 the IVF centroids in ``node._ivf_cache`` to warm-start the next refresh.
+A prediction's neighbour search is a ``predict.nn_search`` span, and its
+reads to the host `tracing` reads.
 """
 import numpy as np
 import torch
 
-from .. import config, gp_core
+from .. import config, gp_core, tracing
 from ..ops import cuda_vecchia as cv
 from ..parallel import mesh as pmesh
 from . import core, nn as nnmod
@@ -60,13 +62,14 @@ def _with_jitter_retry(f, *args):
     mean, var = f(*args, 0.0)
     bad = ~(torch.isfinite(mean) & torch.isfinite(var))
     for extra in core.PRED_JITTER_RUNGS:
-        if not bool(bad.any()):
+        if not bool(tracing.to_host(bad.any(), 'jitter_check')):
             break
         m2, v2 = f(*args, extra)
         mean = torch.where(bad, m2, mean)
         var = torch.where(bad, v2, var)
         bad = ~(torch.isfinite(mean) & torch.isfinite(var))
-    return mean.cpu().numpy(), var.cpu().numpy()
+    return (tracing.to_host(mean, 'predict_out').numpy(),
+            tracing.to_host(var, 'predict_out').numpy())
 
 
 # ----------------------------------------------------------------------
@@ -121,11 +124,12 @@ def _pred_nn(node, key, query, train, rows):
         xt = torch.as_tensor(train() / node.length, device=node._dev())
         return xt, (nnmod._ivf_build(xt) if nnmod.is_approx(node.nn_method, xt.shape[0])
                     else None)
-    xt, index = node._op(('nn', key), make)
-    qt = torch.as_tensor(np.asarray(query / node.length), device=node._dev())
-    m = int(min(node.pred_m or 50, xt.shape[0]))
-    out = [nnmod.pred_nn_t(qt[c], xt, m, index) for c in rows]
-    return [nn[:, 1:] for nn in out] if node.loo_state else out
+    with tracing.span('predict.nn_search'):
+        xt, index = node._op(('nn', key), make)
+        qt = torch.as_tensor(np.asarray(query / node.length), device=node._dev())
+        m = int(min(node.pred_m or 50, xt.shape[0]))
+        out = [nnmod.pred_nn_t(qt[c], xt, m, index) for c in rows]
+        return [nn[:, 1:] for nn in out] if node.loo_state else out
 
 
 def _pred_common(node):

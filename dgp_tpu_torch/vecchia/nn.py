@@ -23,11 +23,15 @@ packages pick the same neighbour sets.  The k-means centroid sums go
 through `torch.segment_reduce`, which sums each cluster's members one after
 another in index order, as the JAX package's segment sum does on the CPU,
 and without atomics, so a build gives the same arrays on every run.
+
+An IVF index's k-means and lists are an ``nn.ivf_build`` span, a search
+through it an ``nn.ivf_query`` span (`tracing`); the reads to the host are
+`tracing` reads.
 """
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, tracing
 
 #: query rows per distance tile
 _BLOCK = 256
@@ -102,8 +106,8 @@ def nn(x, m, method='exact', cache=None, device=None):
     m = min(int(m), x.shape[0] - 1)
     xt = torch.as_tensor(x, device=config.resolve_device(device))
     if is_approx(method, x.shape[0]):
-        return nn_approx(xt, m, cache=cache)[0].cpu().numpy()
-    return _nn_ordered_impl(xt, m).cpu().numpy()
+        return tracing.to_host(nn_approx(xt, m, cache=cache)[0], 'nn_result').numpy()
+    return tracing.to_host(_nn_ordered_impl(xt, m), 'nn_result').numpy()
 
 
 def get_pred_nn(query, x, m=50, method='exact', device=None):
@@ -115,8 +119,8 @@ def get_pred_nn(query, x, m=50, method='exact', device=None):
     dev = config.resolve_device(device)
     qt, xt = torch.as_tensor(query, device=dev), torch.as_tensor(x, device=dev)
     if is_approx(method, x.shape[0]):
-        return _pred_nn_approx(qt, xt, m).cpu().numpy()
-    return _pred_nn_impl(qt, xt, m).cpu().numpy()
+        return tracing.to_host(_pred_nn_approx(qt, xt, m), 'nn_result').numpy()
+    return tracing.to_host(_pred_nn_impl(qt, xt, m), 'nn_result').numpy()
 
 
 # ----------------------------------------------------------------------
@@ -200,7 +204,7 @@ def _fit(x, cache=None):
     else:
         cent, assign = _kmeans_fit(x, K, KMEANS_ITERS)
     if cache is not None:
-        cache['cent'] = cent.cpu().numpy()
+        cache['cent'] = tracing.to_host(cent, 'nn_cache').numpy()
     return cent, assign
 
 
@@ -329,23 +333,26 @@ def nn_approx(x, m, impute=False, cache=None, batch=None):
     m = int(m)
     n = x.shape[0]
     K, Lc = _ivf_params(n)
-    cent, assign = _fit(x, cache)
-    Bq = _buckets(assign, K, _lq(n, K))
+    with tracing.span('nn.ivf_build'):
+        cent, assign = _fit(x, cache)
+        Bq = _buckets(assign, K, _lq(n, K))
     Bc = Bq[:, :Lc]
-    cl = torch.topk(-_sq_dists_block(cent, cent), N_PROBE, dim=1).indices
-    o_b, u_b = _bucketed_self(x, Bq, cl, Bc, m, impute, batch)
-    qflat = Bq.reshape(-1)
-    empty = torch.full((n + 1, m + 1), -1, dtype=torch.int64, device=x.device)
-    out = _scatter_rows(empty.clone(), qflat, o_b.reshape(-1, m + 1))
-    imp = _scatter_rows(empty.clone(), qflat, u_b.reshape(-1, m + 1)) if impute else None
-    cov = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
-    cov[torch.where(qflat >= 0, qflat, n)] = True
-    rows = torch.nonzero(~cov[:n]).reshape(-1)[:_fallback_cap(n)]
-    if rows.numel():
-        fo, fu = _query_rows(rows, x, cent, Bc, m, impute)
-        out[rows] = fo
-        if impute:
-            imp[rows] = fu
+    with tracing.span('nn.ivf_query'):
+        cl = torch.topk(-_sq_dists_block(cent, cent), N_PROBE, dim=1).indices
+        o_b, u_b = _bucketed_self(x, Bq, cl, Bc, m, impute, batch)
+        qflat = Bq.reshape(-1)
+        empty = torch.full((n + 1, m + 1), -1, dtype=torch.int64, device=x.device)
+        out = _scatter_rows(empty.clone(), qflat, o_b.reshape(-1, m + 1))
+        imp = _scatter_rows(empty.clone(), qflat, u_b.reshape(-1, m + 1)) if impute else None
+        cov = torch.zeros(n + 1, dtype=torch.bool, device=x.device)
+        cov[torch.where(qflat >= 0, qflat, n)] = True
+        with tracing.host_read('nn_fallback'):
+            rows = torch.nonzero(~cov[:n]).reshape(-1)[:_fallback_cap(n)]
+        if rows.numel():
+            fo, fu = _query_rows(rows, x, cent, Bc, m, impute)
+            out[rows] = fo
+            if impute:
+                imp[rows] = fu
     out = out[:n]
     # a row that no pass covered keeps itself, so no conditioning set is
     # empty
@@ -362,26 +369,28 @@ def _ivf_build(x):
     """A prediction index over x (a tensor): centroids and (K, Lmax)
     inverted lists from a cold k-means."""
     K, Lmax = _ivf_params(x.shape[0])
-    cent, assign = _kmeans_fit(x, K, KMEANS_ITERS)
-    return cent, _buckets(assign, K, Lmax)
+    with tracing.span('nn.ivf_build'):
+        cent, assign = _kmeans_fit(x, K, KMEANS_ITERS)
+        return cent, _buckets(assign, K, Lmax)
 
 
 def _ivf_query(q, x, cent, buckets, m):
     """Unordered cluster-restricted top-m: for each query row, the m
     nearest candidates of the `N_PROBE` buckets whose centroids lie
     nearest, nearest first; -1 where fewer than m candidates exist."""
-    big = torch.finfo(x.dtype).max / 8
-    step = _row_batch(N_PROBE * buckets.shape[1], x.shape[1], x.element_size())
-    outs = []
-    for s in range(0, q.shape[0], step):
-        Q = q[s:s + step]
-        cl = torch.topk(-_sq_dists_block(Q, cent), N_PROBE, dim=1).indices
-        cand = buckets[cl].reshape(Q.shape[0], -1)
-        ok = cand >= 0
-        safe = torch.where(ok, cand, 0)
-        (nd, ci), = _topk_segments(Q, x[safe], safe, [ok], m, big)
-        outs.append(_merge(nd, ci, m, big))
-    return torch.cat(outs)
+    with tracing.span('nn.ivf_query'):
+        big = torch.finfo(x.dtype).max / 8
+        step = _row_batch(N_PROBE * buckets.shape[1], x.shape[1], x.element_size())
+        outs = []
+        for s in range(0, q.shape[0], step):
+            Q = q[s:s + step]
+            cl = torch.topk(-_sq_dists_block(Q, cent), N_PROBE, dim=1).indices
+            cand = buckets[cl].reshape(Q.shape[0], -1)
+            ok = cand >= 0
+            safe = torch.where(ok, cand, 0)
+            (nd, ci), = _topk_segments(Q, x[safe], safe, [ok], m, big)
+            outs.append(_merge(nd, ci, m, big))
+        return torch.cat(outs)
 
 
 def _pred_nn_approx(query, x, m):

@@ -30,7 +30,7 @@ def test_block_loglik_multi_two_rows_matches_pallas(m1, name):
     ld_j, q_j = pv.block_loglik_multi_t(*(jnp.asarray(a) for a in args), name=name, dl=1)
     _close(ld_t, ld_j)
     _close(q_t, q_j)
-    assert cv.block_loglik_multi_t.launches == 0   # CPU tensors: plain version
+    assert cv.launch_counts()["block_loglik_multi_t"]["launches"] == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("m1,name", **ROWS)
@@ -43,7 +43,7 @@ def test_cond_weights_two_rows_matches_pallas(m1, name):
     assert w_t.shape == (m1 - 1, m1 + 40)
     _close(w_t, w_j)
     _close(s_t, s_j)
-    assert cv.cond_weights_t.launches == 0
+    assert cv.launch_counts()["cond_weights_t"]["launches"] == 0
 
 
 @pytest.mark.parametrize("m1,name", **ROWS)
@@ -63,4 +63,4 @@ def test_block_loglik_parts_two_rows_matches_pallas(m1, name):
     for c, r in enumerate(refs):
         _close(out[0][c], r[0])
         _close(out[1][c], r[1])
-    assert cv.block_loglik_parts_t.launches == 0
+    assert cv.launch_counts()["block_loglik_parts_t"]["launches"] == 0

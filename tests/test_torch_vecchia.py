@@ -209,7 +209,7 @@ def test_block_loglik_multi_plain_matches_pallas(name, dl, dg, m1, n, K):
                                         dl=dl)
     _close(ld_t, ld_j)
     _close(q_t, q_j)
-    assert cv.block_loglik_multi_t.launches == 0  # CPU tensors: plain version
+    assert cv.launch_counts()["block_loglik_multi_t"]["launches"] == 0  # CPU: plain version
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -343,7 +343,7 @@ def test_block_nllik_grad_plain_matches_pallas(name, n_length, nugget_est, shape
         _close(out_t[1][gi], out_j[1])                      # quad
         for a, b in zip(out_t[2:], out_j[2:]):              # gradients
             _close(a[gi], b, rtol=1e-7, atol=1e-10)
-    assert cv.block_nllik_grad_parts_t.launches == 0  # CPU tensors: plain version
+    assert cv.launch_counts()["block_nllik_grad_parts_t"]["launches"] == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("name", ["sexp", "matern2.5"])
@@ -367,7 +367,7 @@ def test_block_loglik_parts_plain_matches_pallas(name):
     for c, ref in enumerate(refs):
         _close(cand[0][c], ref[0])
         _close(cand[1][c], ref[1])
-    assert cv.block_loglik_parts_t.launches == 0
+    assert cv.launch_counts()["block_loglik_parts_t"]["launches"] == 0
 
 
 def _edge_blocks(n, m, d, seed, nugget=1e-3):
@@ -397,7 +397,7 @@ def test_cond_weights_plain_matches_pallas(name, n, m, d):
     assert w_t.shape == (m, n)
     _close(w_t, w_j)
     _close(s_t, s_j)
-    assert cv.cond_weights_t.launches == 0  # CPU tensors: plain version
+    assert cv.launch_counts()["cond_weights_t"]["launches"] == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("name", ["sexp", "matern2.5"])
@@ -418,7 +418,7 @@ def test_block_loglik_parts_plain_matches_pallas_at_edges(name, n, m, d):
     for c, r in enumerate(refs):
         _close(out[0][c], r[0])
         _close(out[1][c], r[1])
-    assert cv.block_loglik_parts_t.launches == 0  # CPU tensors: plain version
+    assert cv.launch_counts()["block_loglik_parts_t"]["launches"] == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("nugget_est", [True, False])

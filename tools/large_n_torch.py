@@ -16,8 +16,8 @@ launches per timed iteration, torch.cuda.max_memory_allocated and the RMSE.
 trained for 12 iterations, then one torch.profiler window of iterations
 13-16, whose last iteration ends with the NN refresh at 16: the window's
 wall and device-busy seconds, the refresh's share of the wall time, the
-kernel launches and the top operators (tools/profile_torch_serving.py's
-window line).
+kernel launches, the hand-written kernels' device ms and the program's
+spans (tools/trace_spans_torch.py's window line).
 
 Usage, from the repository root (each mode prints the card's name and power
 limit first):
@@ -89,7 +89,7 @@ def xlarge(dev):
 
 
 def profile(dev):
-    import profile_torch_serving as prof
+    import trace_spans_torch
     p = chip_smoke._data_json("large_n1e5.json")["protocol"]
     X, Y = chip_smoke.large_data(p)
     nb_seed(p["dgp_seed"])
@@ -98,8 +98,8 @@ def profile(dev):
     m.train(N=12, disable=True, chunk_size=p["dgp_chunk"])
     refresh_s, restore = chip_smoke.timed_refreshes()
     try:
-        win = prof.window("large_n_sem13_16", lambda: m.train(N=4, disable=True,
-                                                              chunk_size=p["dgp_chunk"]), None)
+        win = trace_spans_torch.window("large_n_sem13_16", lambda: m.train(
+            N=4, disable=True, chunk_size=p["dgp_chunk"]))
     finally:
         restore()
     print(json.dumps({"mode": "profile", "refresh_s": refresh_s,

@@ -19,9 +19,9 @@ cuda:0, the paths that the split over a mesh runs through:
   and with ``--model large25`` the same DGP at bench.py's m = 25, as
   `large_n` runs it; each of these models times SEM alone.  With
   ``--profile``, 4 more iterations of `train` then run in one window of
-  `tools/profile_torch_serving.py` (wall seconds, the device's busy share,
-  launches and device milliseconds of each hand-written kernel), reported
-  also per iteration;
+  `tools/trace_spans_torch.window` (wall seconds, the device's busy share,
+  launches and device milliseconds of each hand-written kernel, the
+  program's spans), reported also per iteration;
 - ``gp_wide`` (``--model wide``, and nothing else): the `gate` phase's
   12-input function (`chip_smoke.gate_gp_data`'s law and seed) drawn at
   n = 1e5, a Vecchia gp with 12 lengthscales at m = 25 (the IVF search,
@@ -67,10 +67,10 @@ def _load(name, path):
 
 def _profile(m, iters, kw):
     """``iters`` more SEM iterations of ``m`` in one window of
-    `profile_torch_serving.window`, with each hand-written kernel's device
-    ms and launches an iteration."""
-    pts = _load("profile_torch_serving", HERE / "tools" / "profile_torch_serving.py")
-    w = pts.window(f"sem{iters}", lambda: m.train(N=iters, disable=True, **kw), None)
+    `trace_spans_torch.window`, with each hand-written kernel's device ms
+    and launches an iteration."""
+    tst = _load("trace_spans_torch", HERE / "tools" / "trace_spans_torch.py")
+    w = tst.window(f"sem{iters}", lambda: m.train(N=iters, disable=True, **kw))
     w["per_iteration"] = {k: {"device_ms": w["kernel_device_ms"][k] / iters,
                               "launches": w["launches"][k] / iters} for k in w["launches"]}
     return w
@@ -98,8 +98,8 @@ def _wide(cs, dev, reps, profiled):
         launches.append(cs.launch_counts())
     out.update(train_s=ts, launches=launches, length=g.kernel.length.tolist())
     if profiled:
-        pts = _load("profile_torch_serving", HERE / "tools" / "profile_torch_serving.py")
-        out["profile"] = pts.window("gp_wide_train", g.train, None)
+        tst = _load("trace_spans_torch", HERE / "tools" / "trace_spans_torch.py")
+        out["profile"] = tst.window("gp_wide_train", g.train)
     return out
 
 
