@@ -12,7 +12,7 @@ Phases, each printing its results (and its seconds) as one JSON line:
             launch plan of all four kernels at m1 = 26, d = 2 (points per
             thread block, its shared bytes, blocks and warps per SM), and
             at two rows per lane (m1 = 41 and 64, d = 2) with the registers
-            and spills of those instantiations.
+            and spills of those instantiations; and K5's at D = 2.
   kernels   run each kernel and its plain PyTorch version on the card at the
             shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
             with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
@@ -56,6 +56,13 @@ Phases, each printing its results (and its seconds) as one JSON line:
             kernel at m1 = 41, 48, 63 and 64, K1 with 12 and 16 length
             lanes and the four n = 1e5 cases are also timed (kernel, plain
             version, library call, bound).
+  linked_dense
+            K5 (the dense linked moments) against its plain version, float64
+            and float32, sexp and matern2.5: M = 1 at n = 37, D = 1; M = 15
+            at n = 1999, D = 3 with row weights and a zero-variance dim; M =
+            250 at n = 2000, D = 2 (the lgp_n2000.predict cell's dense call)
+            without and with them; then timed at the cell's shape (kernel,
+            the plain version in its LINK_BUDGET batches, bound).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -348,6 +355,8 @@ SOURCES = {
                        "dgp_tpu/ops/pallas_vecchia.py:202"),
     "block_loglik_parts_t": ("dgp_tpu_torch/csrc/block_loglik_parts.cu",
                              "dgp_tpu/ops/pallas_vecchia.py:283"),
+    "linked_dense_t": ("dgp_tpu_torch/csrc/linked_dense.cu",
+                       "none: dgp_tpu's dense linked moments are plain JAX"),
 }
 
 
@@ -423,9 +432,16 @@ def gp_order(protocol):
 
 
 def launch_counts():
-    """Kernel launches per wrapper since the last reset."""
+    """Kernel launches per wrapper since the last reset (K1-K5)."""
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     return {k: c["launches"] for k, c in cv.launch_counts().items()}
+
+
+def _dense_checks(launches):
+    """A dense DGP's kernels: K5 for its linked layers, and no K1-K4."""
+    return {"dense_no_vecchia_kernels": not any(v for k, v in launches.items()
+                                                if k != "linked_dense_t"),
+            "dense_K5": launches["linked_dense_t"] > 0}
 
 
 # ----------------------------------------------------------------------
@@ -472,18 +488,21 @@ def _ptxas_entry(ptxas, kname, dtype_name, rows):
 
 def phase_build():
     import torch
+    from dgp_tpu_torch.ops import cuda_linked as cl
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     t0 = time.perf_counter()
     cv.build()
     plans = {f"{dt}/{k}": cv.launch_plan(k, getattr(torch, dt), M_TRAIN + 1, 2)
-             for dt in ("float64", "float32") for k in SOURCES}
+             for dt in ("float64", "float32") for k in cv.KERNEL_ID}
     two_rows = {f"{dt}/{k}/m1={m1}": {**cv.launch_plan(k, getattr(torch, dt), m1, 2),
                                       **(_ptxas_entry(cv.build_info["ptxas"], k, dt, 2) or {})}
-                for dt in ("float64", "float32") for k in SOURCES for m1 in (41, 64)}
+                for dt in ("float64", "float32") for k in cv.KERNEL_ID for m1 in (41, 64)}
+    linked = {f"{dt}/{name}": cl.launch_plan(getattr(torch, dt), name, 2)
+              for dt in ("float64", "float32") for name in ("sexp", "matern2.5")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cv.build_info["seconds"],
           "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans,
-          "launch_plans_two_rows_d2": two_rows})
+          "launch_plans_two_rows_d2": two_rows, "launch_plans_linked_dense_d2": linked})
 
 
 def _angle_views(f, nu, x, y, ordv, NN, length, dtype, device, nugget, cosv, sinv):
@@ -1017,7 +1036,7 @@ def phase_kernels(dev):
     from dgp_tpu_torch.ops import cuda_vecchia as cv
 
     t0 = time.perf_counter()
-    results = {k: {"max_abs_err": 0.0} for k in SOURCES}
+    results = {k: {"max_abs_err": 0.0} for k in cv.KERNEL_ID}
     failures = []
     well64, in64, in32 = ({**_slice_inputs(dt, dev, nug), **_large_inputs(dt, dev, nug)}
                           for dt, nug in ((torch.float64, NUGGET_WELL),
@@ -1118,6 +1137,122 @@ def phase_kernels(dev):
     if failures:
         raise SystemExit(f"kernel comparisons failed: {len(failures)}")
     return results
+
+
+# K5, the dense linked moments: the lgp_n2000.predict cell's dense call (M =
+# 250 queries, n = 2000, Dw = 2, sexp) and the same at matern2.5, timed; and
+# compared with the plain version also at n = 37 and 1999, D = 1 and 3, with
+# row weights and a zero-variance dim.  Float64 per value: |kernel - plain|
+# <= LINKED_RTOL64 * the sum of the terms' magnitudes (the plain version on
+# |Rinv| and |a|): up to 4e6 terms added in another order, and matern's
+# closed form, whose polynomial terms cancel, with fused multiply-adds.
+# Float32: the F32_FACTOR rule of K1-K4 against the float64 plain values.
+LINKED_SHAPE = (250, 2000, 2)
+LINKED_CASES = ((1, 37, 1, False), (15, 1999, 3, True), (250, 2000, 2, False),
+                (250, 2000, 2, True))
+LINKED_RTOL64 = 1e-11
+
+
+def _linked_dense_inputs(name, M, n, D, weights, dtype, dev, seed=0):
+    """K5's arguments (X, m, v, W, Rinv, a, length) for a dense node at n
+    points of [0, 1]^D (sexp GP statistics, nugget 1e-4) and M queries;
+    with ``weights`` row weights from a global input, and every other
+    query deterministic in dim 0."""
+    import torch
+    from dgp_tpu_torch import gp_core
+    from dgp_tpu_torch.ops import kernels
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(0, 1, (n, D + 1))
+    length = rs.uniform(0.3, 0.6, D + 1)
+    y = np.sin(4 * X.sum(1))
+    m = rs.uniform(0, 1, (M, D))
+    v = rs.uniform(0.001, 0.05, (M, D))
+    if weights:
+        v[::2, 0] = 0.0
+    z = rs.uniform(0, 1, (M, 1))
+    f64 = dict(dtype=torch.float64, device=dev)
+    cols = D + 1 if weights else D
+    Xt = torch.as_tensor(X[:, :cols], **f64)
+    lt = torch.as_tensor(length[:cols], **f64)
+    Rinv, a = gp_core.compute_stats(Xt, torch.as_tensor(y, **f64), lt, 1e-4, name="sexp")
+    W = (kernels.k_vec(Xt[:, D:], torch.as_tensor(z, **f64), lt[D:], name)
+         if weights else None)
+    out = (Xt[:, :D], torch.as_tensor(m, **f64), torch.as_tensor(v, **f64), W, Rinv, a,
+           lt[:D])
+    return tuple(None if t is None else t.to(dtype).contiguous() for t in out)
+
+
+def _linked_bound_ms(M, n, D, dtype_name):
+    """K5's least time (ms): the operations K5 needs over the type's peak,
+    or its bytes (inputs once, outputs once) over the memory rate.  Per
+    query: I over n points, and J, the trace and the quadratic form over
+    the n (n + 1) / 2 pairs of the upper triangle (J and Rinv being
+    symmetric), each pair costing what benchmark/counts/ops.py's
+    `linkgp_dense` counts for one of its n^2."""
+    ops = M * (n * (5 * D + 2) + n * (n + 1) // 2 * (8 * D + 2 + 4) + 4 * n)
+    size = 8 if dtype_name == "float64" else 4
+    nbytes = (2 * M * D + n * D + n * n + n + 3 * M) * size
+    t_ops, t_bytes = ops / PEAK_OPS_S[dtype_name] * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_linked_dense(dev):
+    """K5 against its plain version, and timed at the cell's shape; returns
+    the kernel summary's row (float64 sexp at the cell's shape)."""
+    import torch
+    from dgp_tpu_torch.ops import cuda_linked as cl
+
+    t0 = time.perf_counter()
+    rows, failures = [], []
+    for name in ("sexp", "matern2.5"):
+        for M, n, D, weights in LINKED_CASES:
+            args = _linked_dense_inputs(name, M, n, D, weights, torch.float64, dev,
+                                        seed=M + n + D)
+            ref = cl.linked_dense_t_plain(*args, name=name)
+            X, m, v, W, Rinv, a, length = args
+            mag = cl.linked_dense_t_plain(X, m, v, W, Rinv.abs(), a.abs(), length, name=name)
+            out = cl.linked_dense_t(*args, name=name)
+            args32 = tuple(None if t is None else t.float() for t in args)
+            out32 = cl.linked_dense_t(*args32, name=name)
+            ref32 = cl.linked_dense_t_plain(*args32, name=name)
+            torch.cuda.synchronize()
+            for k, (o, r, s, o32, r32) in enumerate(zip(out, ref, mag, out32, ref32)):
+                err = float((o - r).abs().max())
+                rel = float(((o - r).abs() / s).max())
+                err32 = float((o32.double() - r).abs().max())
+                band32 = float((r32.double() - r).abs().max())
+                row = {"phase": "linked_dense", "name": name, "M": M, "n": n, "D": D,
+                       "weights": weights, "output": ("mu", "tr", "quad")[k],
+                       "max_abs_err": err, "max_err_over_magnitude": rel,
+                       "float32_err": err32, "float32_plain_err": band32,
+                       "ok": bool(rel <= LINKED_RTOL64 and err32 <= F32_FACTOR * band32
+                                  + F32_FLOOR * float(s.max()))}
+                rows.append(row)
+                emit(row)
+                if not row["ok"]:
+                    failures.append(row)
+    M, n, D = LINKED_SHAPE
+    timing = {}
+    for dt in ("float64", "float32"):
+        for name in ("sexp", "matern2.5"):
+            args = _linked_dense_inputs(name, M, n, D, False, getattr(torch, dt), dev)
+            call = lambda: cl.linked_dense_t(*args, name=name)
+            bound, by = _linked_bound_ms(M, n, D, dt)
+            timing[f"{dt}/{name}"] = {
+                "ms": cuda_ms(call, reps=5, inner=3), "ms_one_call": cuda_ms(call, inner=1),
+                "plain_ms": cuda_ms(lambda: cl.linked_dense_t_plain(*args, name=name), reps=2,
+                                    warm=1, inner=1),
+                "bound_ms": bound, "bound_by": by, "shape": [M, n, D],
+                "plan": cl.launch_plan(getattr(torch, dt), name, D)}
+    launches = launch_counts()["linked_dense_t"]
+    emit({"phase": "linked_dense", "comparisons": len(rows), "failed": len(failures),
+          "timing_ms": timing, "launches": launches, "seconds": time.perf_counter() - t0})
+    if failures:
+        raise SystemExit(f"K5 comparisons failed: {len(failures)}")
+    row = timing["float64/sexp"]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows if r["name"] == "sexp"),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None}
 
 
 def _params_json():
@@ -1553,7 +1688,7 @@ def run_dense_dgp(_=None):
     rmse = float(np.sqrt(np.mean((mu.flatten() - truth.flatten()) ** 2)))
     launches = launch_counts()
     checks = {
-        "dense_no_kernels": not any(launches.values()),
+        **_dense_checks(launches),
         "iterations": m.N == TWOD_TRAIN
         and all(len(nd.para_path) == 1 + m.N for layer in m.all_layer for nd in layer),
         "finite": bool(np.isfinite(mu).all() and np.isfinite(var).all()
@@ -2137,7 +2272,7 @@ def phase_linked(dev):
                                            and np.isfinite(var_p[0]).all()))
         runs.append(run)
     counts = cv.launch_counts()
-    launches = {k: c["launches"] for k, c in counts.items()}
+    launches = launch_counts()
     median = float(np.median([r["rmse"] for r in runs]))
     gate = 2.0 * ref["lgp"]["rmse_median"]
     checks = {
@@ -2147,7 +2282,8 @@ def phase_linked(dev):
                                 for k in ("scale", "length", "nugget")),
         "gp_K1": trained["launches"]["block_nllik_grad_parts_t"] > 0,
         "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
-                                                  "block_loglik_multi_t", "cond_weights_t")),
+                                                  "block_loglik_multi_t", "cond_weights_t",
+                                                  "linked_dense_t")),
         "no_plain_calls": not any(c["plain_calls"] for c in counts.values()),
         "finite": all(r["finite"] for r in runs) and runs[0]["finite_predict"],
         "rmse_median": median <= gate,
@@ -2235,8 +2371,10 @@ def phase_lik_vecchia(dev):
              "test_nllik_median": jax_median + LIK_NLLIK_SLACK}
     gp_nodes = [nd for layer in m.all_layer for nd in layer if nd.type == "gp"]
     checks = {
+        # every node Vecchia: no dense linked layer, so no K5
         "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
-                                                  "block_loglik_multi_t", "cond_weights_t")),
+                                                  "block_loglik_multi_t", "cond_weights_t"))
+        and launches["linked_dense_t"] == 0,
         "exact_draws_vecchia": info["exact_draws_in_training"] > 0
         and engine.exact_draws["dense"] == 0
         and m.all_layer[1][0].imp_NNarray is not None,
@@ -2620,8 +2758,7 @@ def phase_host_bound():
         for r in mine:
             for k, v in r["launches"].items():
                 launches[k] += v
-    checks = {"dense_no_kernels": not any(launches.values()),
-              **{r["row"]: r["pass"] for r in rows}}
+    checks = {**_dense_checks(launches), **{r["row"]: r["pass"] for r in rows}}
     # "seconds": the pool's, dense_dgp's worker included
     emit({"phase": "lik_rows", "rows": rows, "runs": runs, "processes": len(tasks) + 1,
           "launches": launches, "checks": checks,
@@ -2642,6 +2779,7 @@ def main():
     phase_device()
     phase_build()
     results = phase_kernels(dev)
+    results["linked_dense_t"] = phase_linked_dense(dev)
     launches = {k: 0 for k in SOURCES}
     for phase in (phase_main, phase_design, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
                   phase_parallel, phase_linked, phase_lik_vecchia, phase_large_n):

@@ -10,7 +10,7 @@ would `vmap` it: `log_lik_fixed` over candidate inputs (K, n, d), and
 """
 import torch
 
-from .ops import kernels, linalg, moments
+from .ops import cuda_linked, kernels, linalg
 
 
 # ----------------------------------------------------------------------
@@ -179,11 +179,6 @@ def gp_predict(x, X, Rinv, Rinv_y, scale, length, nugget, *, name):
     return mean, var
 
 
-#: bytes of (n, n) second moments that one batch of linked queries may hold
-#: (the JAX package's budget for a chunk of its ensemble)
-LINK_BUDGET = int(1.5e9)
-
-
 def linkgp_predict(m, v, z, X, Zglobal, Rinv, Rinv_y, scale, length, nugget,
                    *, name):
     """Linked-GP prediction: Gaussian inputs (m, v) (M, Dw), optional
@@ -191,32 +186,15 @@ def linkgp_predict(m, v, z, X, Zglobal, Rinv, Rinv_y, scale, length, nugget,
 
     The lengthscale vector is broadcast to the full input dimension and
     split between the stochastic (first Dw) and deterministic (last Dz)
-    blocks, exactly as functions.link_gp does.  The queries go in batches
-    (the JAX package vmaps a one-query function) of as many as keep their
-    (n, n) second moments and two products of them within `LINK_BUDGET`."""
-    n = X.shape[0]
-    per_query = 3 * n * n * (torch.finfo(X.dtype).bits // 8)
-    batch = max(1, LINK_BUDGET // per_query)
-    if m.shape[0] > batch:
-        parts = [linkgp_predict(m[s:s + batch], v[s:s + batch],
-                                None if z is None else z[s:s + batch], X, Zglobal, Rinv,
-                                Rinv_y, scale, length, nugget, name=name)
-                 for s in range(0, m.shape[0], batch)]
-        return tuple(torch.cat(p) for p in zip(*parts))
+    blocks, exactly as functions.link_gp does.  The moments come from K5
+    (`cuda_linked.linked_dense_t`): on the card one fused reduction that
+    stores no (n, n) moments; on the CPU its plain version."""
     Dw = X.shape[1]
     Dz = 0 if z is None else z.shape[1]
     full_len = torch.broadcast_to(length, (Dw + Dz,))
     length_w, length_z = full_len[:Dw], full_len[Dw:]
-    I, J = moments.IJ(X, m, v, length_w, name)   # (M, n), (M, n, n)
-    if z is not None:
-        Iz = kernels.k_vec(Zglobal, z, length_z, name)
-        I = I * Iz
-        J = J * (Iz[:, :, None] * Iz[:, None, :])
-    tr = linalg.trace_prod(Rinv, J)
-    mu = I @ Rinv_y
-    # J's quadratic form as a product and a sum over contiguous rows: each
-    # query's value does not depend on how many queries the call holds
-    quad = torch.sum((J @ Rinv_y[:, None])[..., 0] * Rinv_y, dim=-1)
+    Iz = None if z is None else kernels.k_vec(Zglobal, z, length_z, name)
+    mu, tr, quad = cuda_linked.linked_dense_t(X, m, v, Iz, Rinv, Rinv_y, length_w, name=name)
     var = torch.abs(quad - mu**2 + scale * (1.0 + nugget - tr))
     return mu, var
 

@@ -185,6 +185,13 @@ def build():
         fn.restype = ci
     lib.dgp_vecchia_m1_max.argtypes = []
     lib.dgp_vecchia_m1_max.restype = ci
+    # K5 (csrc/linked_dense.cu; its wrapper is cuda_linked.linked_dense_t)
+    lib.dgp_linked_dense.argtypes = [ci, ci] + [vp] * 12 + [ci, ci, ci, vp]
+    lib.dgp_linked_dense.restype = ci
+    lib.dgp_linked_dense_tiles.argtypes = [ci]
+    lib.dgp_linked_dense_tiles.restype = ci
+    lib.dgp_linked_dense_plan.argtypes = [ci, ci, ci, vp]
+    lib.dgp_linked_dense_plan.restype = ci
     if lib.dgp_vecchia_m1_max() != M1_MAX:
         raise RuntimeError("kernel library was built with another block bound")
     build_info.clear()
@@ -568,6 +575,9 @@ WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
 #: the gate's id of each wrapper
 KERNEL_ID = {"block_nllik_grad_parts_t": "K1", "block_loglik_multi_t": "K2",
              "cond_weights_t": "K3", "block_loglik_parts_t": "K4"}
+#: the launch counts' id of each wrapper: the gated K1-K4 and K5
+#: (`cuda_linked.linked_dense_t`), which has no bound and so no plain calls
+LAUNCH_ID = {**KERNEL_ID, "linked_dense_t": "K5"}
 
 
 def reset_launch_counts():
@@ -581,7 +591,7 @@ def launch_counts():
     t = tracing.totals("kernel.")
     return {name: {"launches": t.get("kernel.launches." + kid, 0),
                    "plain_calls": t.get("kernel.plain_calls." + kid, 0)}
-            for name, kid in KERNEL_ID.items()}
+            for name, kid in LAUNCH_ID.items()}
 
 
 def launch_counts_by_device():
@@ -590,7 +600,7 @@ def launch_counts_by_device():
     t = tracing.totals("kernel.launches.")
     return {name: {k.partition("@")[2]: v for k, v in t.items()
                    if k.startswith(f"kernel.launches.{kid}@")}
-            for name, kid in KERNEL_ID.items()}
+            for name, kid in LAUNCH_ID.items()}
 
 
 # ----------------------------------------------------------------------

@@ -35,7 +35,7 @@ prediction's ``lgp.predict`` and ``emulator.predict`` (roots),
 ``predict.linked_moments`` (attr ``kind``: dense or vecchia); and
 ``host_read`` (attr ``cause``).  Counters: ``ess.rounds``,
 ``ess.candidates``, ``ess.transitions``, ``ess.moves``, ``lbfgs.evals``,
-``host_reads.<cause>``, ``kernel.launches.<K1-K4>`` (and
+``host_reads.<cause>``, ``kernel.launches.<K1-K5>`` (and
 ``...@<device>``), ``kernel.plain_calls.<K1-K4>``.
 """
 import bisect

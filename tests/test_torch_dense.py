@@ -31,6 +31,7 @@ from dgp_tpu_torch.interop import layers_from_numpy, layers_to_numpy
 from dgp_tpu_torch.models import ensemble as tens
 from dgp_tpu_torch.models import mstep as tmstep
 from dgp_tpu_torch.models.compiled import CompiledDGP, _Shares
+from dgp_tpu_torch.ops import cuda_linked
 from dgp_tpu_torch.ops import cuda_vecchia as cv
 
 torch.set_num_threads(1)
@@ -192,7 +193,7 @@ def test_dense_ensemble_predicts_carried_imputations(models, monkeypatch):
     """A JAX emulator's imputations of the dense structure (three hidden
     nodes, linked final layer with replicate weights), carried across:
     mean and variance at rtol 1e-8, and with the dense linked layer's
-    queries in batches bounded by `gp_core.LINK_BUDGET`."""
+    queries in batches bounded by `cuda_linked.LINK_BUDGET`."""
     mj = models["dense"][0]
     emu_j = dgp_tpu.emulator(mj.estimate(), N=3)
     z = np.linspace(0, 1, 60).reshape(-1, 1)
@@ -207,14 +208,14 @@ def test_dense_ensemble_predicts_carried_imputations(models, monkeypatch):
     # a budget of 7 queries' (n, n) moments: the linked layer's queries go
     # in batches of at most 7, and the predictions do not move
     batches = []
-    inner = dgp_tpu_torch.gp_core.linkgp_predict
+    inner = cuda_linked.linked_dense_t_plain
 
-    def spy(m, *a, **kw):
+    def spy(X, m, *a, **kw):
         batches.append(m.shape[0])
-        return inner(m, *a, **kw)
+        return inner(X, m, *a, **kw)
 
-    monkeypatch.setattr(dgp_tpu_torch.gp_core, "LINK_BUDGET", 7 * 3 * 24 ** 2 * 8)
-    monkeypatch.setattr(dgp_tpu_torch.gp_core, "linkgp_predict", spy)
+    monkeypatch.setattr(cuda_linked, "LINK_BUDGET", 7 * 3 * 24 ** 2 * 8)
+    monkeypatch.setattr(cuda_linked, "linked_dense_t_plain", spy)
     mu_b, var_b = emu_t.predict(z)
     assert batches and min(batches) <= 7 and 60 in batches
     np.testing.assert_allclose(mu_b, mu_j, rtol=1e-8, atol=1e-10)

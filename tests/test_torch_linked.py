@@ -26,6 +26,7 @@ from dgp_tpu.models import imputation as jimp
 import dgp_tpu_torch
 from dgp_tpu_torch.interop import lgp_from_numpy, node_from_numpy, node_to_numpy
 from dgp_tpu_torch.models import linkgp
+from dgp_tpu_torch.ops import cuda_linked
 
 torch.set_num_threads(1)
 
@@ -122,7 +123,7 @@ def test_linkgp_prediction_takes_queries_in_batches(monkeypatch):
     tnode.device = 'cpu'
     m, v, z = _queries(1, M=40)
     whole = tnode.linkgp_prediction(m, v, z)
-    monkeypatch.setattr(dgp_tpu_torch.gp_core, "LINK_BUDGET", 7 * 3 * 60 * 60 * 8)
+    monkeypatch.setattr(cuda_linked, "LINK_BUDGET", 7 * 3 * 60 * 60 * 8)
     parts = tnode.linkgp_prediction(m, v, z)
     _close(parts[0], whole[0])
     _close(parts[1], whole[1])

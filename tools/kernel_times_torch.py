@@ -9,7 +9,9 @@ dl=1, K3 (26, 1, 2000), K4 (26, 2, 2000) alone and with 9 candidates, and
 the gp path's K1 without a node axis and K4, both at (26, 1, 2000); then
 its VARIANT_TIMES, each kernel at m1 = 41, 48, 63 and 64 and K1 with 12
 and 16 length lanes, where the checkout's kernels take them; float64 and
-float32); the
+float32; and K5, the dense linked moments, at the lgp_n2000.predict
+cell's dense call, M = 250, n = 2000, Dw = 2, sexp and matern2.5, beside
+its plain version in gp_core's batches); the
 kernels are those of the checkout given.  For
 each case it measures CUDA-event time around 10 calls back to back and
 around one call alone (median of 20 each) and the host time per call (200
@@ -168,11 +170,37 @@ def main():
             "library_ms_one_call": cs.cuda_ms(library, inner=1),
             "library_host_ms": host_ms(library),
             "bound_ms": bound, "bound_by": by, "shape": shape, "inputs_contiguous": flat}
+    # K5, the dense linked moments, at the lgp_n2000.predict cell's shape
+    # (chip_smoke.LINKED_SHAPE), sexp and matern2.5, where the checkout has it
+    try:
+        from dgp_tpu_torch.ops import cuda_linked as cl
+    except ImportError:
+        cl = None
+    linked = {}
+    if cl is not None and not large and (only is None or "linked_dense_t" in only):
+        M, n, D = cs.LINKED_SHAPE
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).split(".")[1]
+            for name in ("sexp", "matern2.5"):
+                args = cs._linked_dense_inputs(name, M, n, D, False, dt, dev)
+                call = functools.partial(cl.linked_dense_t, *args, name=name)
+                bound, by = cs._linked_bound_ms(M, n, D, dname)
+                linked[f"{dname}/linked_dense_t/{name}"] = call
+                times[f"{dname}/linked_dense_t/{name}"] = {
+                    "plan": cl.launch_plan(dt, name, D), "out_sha256": outputs_sha256(call),
+                    "ms": cs.cuda_ms(call, reps=5, inner=3),
+                    "ms_one_call": cs.cuda_ms(call, inner=1), "host_ms": host_ms(call, reps=50),
+                    "plain_ms": cs.cuda_ms(functools.partial(cl.linked_dense_t_plain, *args,
+                                                             name=name),
+                                           reps=2, warm=1, inner=1),
+                    "bound_ms": bound, "bound_by": by, "shape": [M, n, D]}
     # profiled last: after a profiler session the calls timed in the same
     # process took about twice as long on the host
     for key, (kname, call, _, library, _, _, _) in calls.items():
         times[key].update(device_ms=device_ms(call, cs.KERNEL_SYMBOLS[kname]),
                           library_device_ms=device_ms(library))
+    for key, call in linked.items():
+        times[key].update(device_ms=device_ms(call, "linked_dense"), device_ms_all=device_ms(call))
     print(json.dumps({"checkout": label, "nvidia_smi": smi,
                       "ptxas": cv.build_info["ptxas"], "times": times}), flush=True)
     return 0

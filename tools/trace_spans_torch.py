@@ -9,7 +9,9 @@ sets up a benchmark cell (`benchmark/workloads/<cell>.json`) as
 ``trace_units`` units under the benchmark's profiler) and prints one JSON
 line: per span name its calls, host ms, own host ms, device busy and idle
 ms, kernel-launch calls and copies to the host, each also per unit of the
-window's work (SEM iteration or request); the program's counters over the
+window's work (SEM iteration or request), and again with the spans that
+carry a ``kind`` (`predict.linked_moments`, `predict.container`) split by
+it; the program's counters over the
 window; and the window's kernels, copies to the host and device
 synchronisations as the benchmark's `Trace` counts them.  With ``--syncs``
 one more unit then runs under `torch.cuda.set_sync_debug_mode('warn')`,
@@ -136,7 +138,10 @@ def main(argv=None):
            "busy_s": tr.busy_s, "trace_kernels": tr.n_kernels, "trace_dtoh": tr.n_dtoh,
            "trace_device_syncs": tr.n_device_syncs, "counters": rec.counters,
            "roots": sorted({s.name for s in rec.spans if s.parent is None}),
-           "spans": _per(tracing.idle_by_span(events, rec.spans), units)}
+           "spans": _per(tracing.idle_by_span(events, rec.spans), units),
+           "spans_by_kind": _per(tracing.idle_by_span(events, [
+               s._replace(name=f"{s.name}[kind={s.attrs['kind']}]") if "kind" in s.attrs
+               else s for s in rec.spans]), units)}
     if args.syncs:
         n = len(records)
         out["syncs_one_unit"] = _syncs(lambda: session.unit(n))
