@@ -437,6 +437,15 @@ def launch_counts():
     return {k: c["launches"] for k, c in cv.launch_counts().items()}
 
 
+def exact_draw_counts():
+    """Exact Hetero-mean draws by path since the process began: the
+    program's counters ``exact_draws.<path>``, which an engine's
+    ``exact_draws`` views."""
+    from dgp_tpu_torch import tracing
+    t = tracing.totals("exact_draws.")
+    return {k: t.get("exact_draws." + k, 0) for k in ("vecchia", "dense")}
+
+
 def _dense_checks(launches):
     """A dense DGP's kernels: K5 for its linked layers, and no K1-K4."""
     return {"dense_no_vecchia_kernels": not any(v for k, v in launches.items()
@@ -2324,15 +2333,15 @@ def phase_lik_vecchia(dev):
         torch.cuda.synchronize()
         info = {"dgp_construct_s": time.perf_counter() - t0}
         before = launch_counts()
-        draws_before = m.imp._engine().exact_draws["vecchia"]
+        draws_before = exact_draw_counts()
         t0 = time.perf_counter()
         m.train(N=p["train_N"], disable=True, chunk_size=p["chunk_size"])
         torch.cuda.synchronize()
         info["train_s"] = time.perf_counter() - t0
         info["launches_per_iteration"] = {k: (v - before[k]) / p["train_N"]
                                           for k, v in launch_counts().items()}
-        info["exact_draws_in_training"] = (m.imp._engine().exact_draws["vecchia"]
-                                           - draws_before)
+        info["exact_draws_in_training"] = {k: v - draws_before[k]
+                                           for k, v in exact_draw_counts().items()}
         est = m.estimate()
         nb_seed(seed)
         t0 = time.perf_counter()
@@ -2375,7 +2384,7 @@ def phase_lik_vecchia(dev):
         "launches": all(launches[k] > 0 for k in ("block_nllik_grad_parts_t",
                                                   "block_loglik_multi_t", "cond_weights_t"))
         and launches["linked_dense_t"] == 0,
-        "exact_draws_vecchia": info["exact_draws_in_training"] > 0
+        "exact_draws_vecchia": info["exact_draws_in_training"]["vecchia"] > 0
         and engine.exact_draws["dense"] == 0
         and m.all_layer[1][0].imp_NNarray is not None,
         "iterations": m.N == p["train_N"]
@@ -2396,7 +2405,8 @@ def phase_lik_vecchia(dev):
           "sem_it_per_s": p["train_N"] / info["train_s"], "predict_20000_s": t_pred,
           "predict_pts_per_s": N_PRED / t_pred, "nllik_2000_s": t_nll,
           "launches": launches,
-          "exact_draws_per_iteration": info["exact_draws_in_training"] / p["train_N"],
+          "exact_draws_per_iteration":
+              info["exact_draws_in_training"]["vecchia"] / p["train_N"],
           "rmse_mean": rmse_mean, "rmse_noise_variance": rmse_var,
           "test_nllik": float(nll), "oracle_nllik": oracle,
           "test_nllik_by_training_seed": nll_by_seed, "test_nllik_median": nll_median,

@@ -55,9 +55,14 @@ ancestral pass, ESS decisions, the L-BFGS state, likelihood nodes, dense
 nodes, R^2 and the NN refresh stay on the engine's device.
 
 Spans (`tracing`): ``sem.chunk`` (`train_chunk`), ``sem.istep``,
-``sem.prior_draw``, ``sem.ess`` (one transition of a layer, or of a node
-of a node-wise layer), ``sem.mstep`` and ``nn.refresh``; the state's
-reads back to the node objects are `tracing.to_host` reads.
+``sem.prior_draw``, ``sem.ess`` (one transition of a layer, attr ``route``
+'block', or of a node of a node-wise layer, ``route`` 'nodewise'),
+``sem.exact_draw`` (the exact draw of a Hetero mean; attrs ``layer`` and
+``kind``, 'vecchia' or 'dense'), ``sem.mstep`` and ``nn.refresh``; the
+state's reads back to the node objects are `tracing.to_host` reads.
+Counters: ``exact_draws.vecchia`` and ``exact_draws.dense`` (the engine's
+`exact_draws` reads them), ``lik.evals`` (calls of a likelihood node's
+log-likelihood) and ``lik.candidates`` (the states those calls evaluated).
 """
 import numpy as np
 import torch
@@ -155,9 +160,16 @@ class CompiledDGP:
         self.spec = [[NodeSpec(node, l, self.n_layer) for node in layer]
                      for l, layer in enumerate(all_layer)]
         self.dtype = config.default_dtype()
-        #: exact Hetero-mean draws made so far, by path
-        self.exact_draws = {'dense': 0, 'vecchia': 0}
+        self._draws0 = tracing.totals('exact_draws.')
         self._extract_data()
+
+    @property
+    def exact_draws(self):
+        """The exact Hetero-mean draws made since the engine was built, by
+        path: a view of the counters ``exact_draws.<path>``."""
+        t = tracing.totals('exact_draws.')
+        return {k: t.get('exact_draws.' + k, 0) - self._draws0.get('exact_draws.' + k, 0)
+                for k in ('dense', 'vecchia')}
 
     def _t(self, a, dtype=None):
         return torch.tensor(np.asarray(a), dtype=dtype or self.dtype,
@@ -404,6 +416,8 @@ class CompiledDGP:
         K candidates, (K, n, M), all evaluated in one call."""
         sp = self.spec[-1][k]
         f = latents[self.n_layer - 2]
+        tracing.count('lik.evals')
+        tracing.count('lik.candidates', int(np.prod(f.shape[:-2])))
         if sp.has_rep:
             f = f[..., self.rep, :]
         f = f[..., list(sp.input_dim)]
@@ -555,7 +569,7 @@ class CompiledDGP:
                 sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
                 return log_lik(c[:, None, None] * f + sn[:, None, None] * nu)
 
-            with tracing.span('sem.ess', layer=l):
+            with tracing.span('sem.ess', layer=l, route='block'):
                 f_new = ess_update(host_gen, f, nu, log_lik,
                                    log_lik_angles=log_lik_angles,
                                    spec=config.ess_spec(f.shape[0]))
@@ -568,7 +582,7 @@ class CompiledDGP:
                     else self._gather_latent_view(nd_, nu_i) for nd_ in p['nodes']]
                    for p, nu_i in zip(plan, shares.split.copies(nu))]
         ll = self._plan_ll(plan, l, latents, nu, A_lists, B_lists, shares)
-        with tracing.span('sem.ess', layer=l):
+        with tracing.span('sem.ess', layer=l, route='block'):
             f_new, (c_a, s_a) = ess_update(host_gen, f, nu, log_lik,
                                            log_lik_angles=ll,
                                            spec=config.ess_spec(f.shape[0]),
@@ -746,20 +760,21 @@ class CompiledDGP:
         Hetero node j: through the stacked Vecchia factor when the node
         carries its self-excluded neighbour sets, dense otherwise."""
         sp = self.spec[l][k]
-        p = params[l][k]
-        Xn = self._node_input(l, k, latents)
-        Gamma, y_eff = self._het_site_noise(latents[l][:, usp.input_dim[1]],
-                                            self.y_lik[j][:, 0], usp.has_rep)
         ns = nn_state[l][k]
-        if sp.vecch and ns is not None and 'impNN' in ns:
-            o = ns['ord']
-            self.exact_draws['vecchia'] += 1
-            return vcore.post_het_vecch(gen, Xn[o], ns['impNN'], Gamma[o], y_eff[o],
-                                        p['scale'], p['length'], p['nugget'],
-                                        sp.name)[ns['rev']]
-        v = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
-        self.exact_draws['dense'] += 1
-        return self._post_het(v, Gamma, y_eff, gen)
+        kind = 'vecchia' if sp.vecch and ns is not None and 'impNN' in ns else 'dense'
+        tracing.count('exact_draws.' + kind)
+        with tracing.span('sem.exact_draw', layer=l, kind=kind):
+            p = params[l][k]
+            Xn = self._node_input(l, k, latents)
+            Gamma, y_eff = self._het_site_noise(latents[l][:, usp.input_dim[1]],
+                                                self.y_lik[j][:, 0], usp.has_rep)
+            if kind == 'vecchia':
+                o = ns['ord']
+                return vcore.post_het_vecch(gen, Xn[o], ns['impNN'], Gamma[o], y_eff[o],
+                                            p['scale'], p['length'], p['nugget'],
+                                            sp.name)[ns['rev']]
+            v = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
+            return self._post_het(v, Gamma, y_eff, gen)
 
     def _nodewise_loglik(self, l, k, linked, F, latents, params, nn_state, shares=None):
         """Log-likelihood of the upper nodes ``linked`` to hidden node (l, k)
@@ -811,7 +826,7 @@ class CompiledDGP:
                 sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
                 return log_lik(c[:, None] * f + sn[:, None] * nu)
 
-            with tracing.span('sem.ess', layer=l):
+            with tracing.span('sem.ess', layer=l, route='nodewise'):
                 f_new = ess_update(host_gen, f, nu, log_lik,
                                    log_lik_angles=log_lik_angles,
                                    spec=config.ess_spec(f.shape[0]))

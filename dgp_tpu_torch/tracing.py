@@ -26,15 +26,18 @@ host's own time, the device's busy and idle time inside the spans, the
 kernel launches they made and their copies to the host.
 
 Names: SEM's ``sem.train`` (root), ``sem.chunk``, ``sem.istep``,
-``sem.prior_draw``, ``sem.ess`` (one transition; attr ``layer``),
-``sem.ess.round`` (one batch of candidates and its read), ``sem.mstep``,
-``lbfgs.eval``, ``nn.refresh``, ``nn.ivf_build``, ``nn.ivf_query``;
+``sem.prior_draw``, ``sem.ess`` (one transition; attrs ``layer`` and
+``route``, block or nodewise), ``sem.ess.round`` (one batch of candidates
+and its read), ``sem.exact_draw`` (attrs ``layer`` and ``kind``, vecchia or
+dense), ``sem.mstep``, ``lbfgs.eval``, ``nn.refresh``, ``nn.ivf_build``,
+``nn.ivf_query``;
 prediction's ``lgp.predict`` and ``emulator.predict`` (roots),
 ``predict.imputation``, ``predict.container`` (attrs ``kind``,
 ``layer``), ``predict.nn_search``, ``predict.kriging``,
 ``predict.linked_moments`` (attr ``kind``: dense or vecchia); and
 ``host_read`` (attr ``cause``).  Counters: ``ess.rounds``,
 ``ess.candidates``, ``ess.transitions``, ``ess.moves``, ``lbfgs.evals``,
+``exact_draws.<vecchia|dense>``, ``lik.evals``, ``lik.candidates``,
 ``host_reads.<cause>``, ``kernel.launches.<K1-K5>`` (and
 ``...@<device>``), ``kernel.plain_calls.<K1-K4>``.
 """

@@ -4,16 +4,20 @@
 
     python3 tools/trace_spans_torch.py --workload <cell> [--seed N] [--syncs]
 
+(for example ``--workload dgp3_hetero_n2000.sem``, whose table holds the
+likelihood layer's ``sem.exact_draw`` and the ``sem.ess`` spans by route)
+
 sets up a benchmark cell (`benchmark/workloads/<cell>.json`) as
 `benchmark/run.py` does, runs its traced window (the cell's
 ``trace_units`` units under the benchmark's profiler) and prints one JSON
 line: per span name its calls, host ms, own host ms, device busy and idle
 ms, kernel-launch calls and copies to the host, each also per unit of the
 window's work (SEM iteration or request), and again with the spans that
-carry a ``kind`` (`predict.linked_moments`, `predict.container`) split by
-it; the program's counters over the
-window; and the window's kernels, copies to the host and device
-synchronisations as the benchmark's `Trace` counts them.  With ``--syncs``
+carry a ``kind`` (`predict.linked_moments`, `predict.container`,
+`sem.exact_draw`) or a ``route`` (`sem.ess`: block or nodewise) split by
+it; the program's counters over the window; and the window's kernels,
+copies to the host and device synchronisations as the benchmark's `Trace`
+counts them.  With ``--syncs``
 one more unit then runs under `torch.cuda.set_sync_debug_mode('warn')`,
 and every synchronising call is counted by the innermost frame of
 `dgp_tpu_torch` on its stack: the program's reads that do not go through
@@ -40,6 +44,14 @@ if str(ROOT) not in sys.path:
 def _per(table, units):
     return {name: {**row, "per_unit": {k: v / units for k, v in row.items() if k != "calls"}}
             for name, row in sorted(table.items(), key=lambda kv: -kv[1]["ms"])}
+
+
+def _split(span):
+    """The span under its name with its ``kind`` or ``route`` appended."""
+    for key in ("kind", "route"):
+        if key in span.attrs:
+            return span._replace(name=f"{span.name}[{key}={span.attrs[key]}]")
+    return span
 
 
 def window(name, fn):
@@ -140,8 +152,7 @@ def main(argv=None):
            "roots": sorted({s.name for s in rec.spans if s.parent is None}),
            "spans": _per(tracing.idle_by_span(events, rec.spans), units),
            "spans_by_kind": _per(tracing.idle_by_span(events, [
-               s._replace(name=f"{s.name}[kind={s.attrs['kind']}]") if "kind" in s.attrs
-               else s for s in rec.spans]), units)}
+               _split(s) for s in rec.spans]), units)}
     if args.syncs:
         n = len(records)
         out["syncs_one_unit"] = _syncs(lambda: session.unit(n))
