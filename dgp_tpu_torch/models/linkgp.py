@@ -13,8 +13,9 @@ imputations at once (`dgp_tpu/models/linked_ensemble.py`, one jitted
 program per query chunk); in eager PyTorch that pass measured no faster
 than this loop on the card, so it is not ported (PERF.md, PR 7).
 A 'mean_var' prediction takes the test rows in chunks of
-`ensemble._CHUNK`, each GP node's training-side operands on the device
-once per call (`kernel.prediction_operands`); ``predict(sharded=True)``
+`ensemble._CHUNK`; each GP node's training-side operands go to the device
+once and stay there from request to request, remade only for a node
+attribute replaced since (`kernel.prediction_operands`); ``predict(sharded=True)``
 and `ppredict` split the chunks over the devices of lgp's mesh
 (`parallel/mesh.py`): each share's chunks go through the same loop on
 copies of the system whose nodes compute on the share's device, one host
@@ -239,8 +240,9 @@ class lgp:
         chunk of rows by chunk; with ``sharded`` the chunks split over
         lgp's mesh, each share on copies of the imputations whose GP nodes
         compute on its device, on its own host thread.  Each GP node's
-        training-side operands go to the device once per call
-        (`kernel.prediction_operands`)."""
+        training-side operands stay on the device between calls
+        (`kernel.prediction_operands`); the shares' copies make their own
+        for the call."""
         def gp_nodes(systems):
             nodes = {id(node): node for one in systems for layer in one for cont in layer
                      for node in _gp_nodes(cont.structure)}

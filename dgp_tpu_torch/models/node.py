@@ -12,13 +12,21 @@ state (models/compiled.py, models/ensemble.py).  The linked predictions
 (`linkgp_prediction`, `linkgp_prediction_full`) serve `lgp`'s host loop
 (models/linkgp.py).  `gp_prediction` takes its test rows in chunks of a
 given size, all launched before one read back; within
-`prediction_operands` the predictions upload their training-side operands
-(inputs, Rinv, the neighbour search's index) to the device once, not on
-every call, as `lgp.predict` calls them once per chunk of test rows.
+`prediction_operands` the predictions reuse the training-side operands
+(inputs, Rinv, the neighbour search's index) that an earlier call, of this
+or an earlier block, put on the device, for as long as the node attributes
+each was made from stay the same objects: `lgp.predict` calls them once
+per chunk of test rows and imputation, request after request.  The kept
+operands live outside the node (`_KEPT`, weak on it), so no copy or pickle
+of a node carries a tensor.  Counters: ``pred_ops.made``,
+``pred_ops.kept`` and ``pred_ops.upload_bytes`` (of operands made on a
+CUDA device).
 A prediction is a ``predict.kriging`` span, a linked one a
 ``predict.linked_moments`` span (`tracing`), and its reads of the results
 are `tracing` reads.
 """
+import threading
+import weakref
 from contextlib import contextmanager
 
 import numpy as np
@@ -28,6 +36,29 @@ from .. import config, gp_core, tracing
 from ..ops import kernels as kops
 from ..ops import lbfgs
 from ..parallel import mesh as pmesh
+
+#: node -> `_Kept`: the device operands a node's predictions made within
+#: `prediction_operands`, kept between its blocks and freed with the node
+_KEPT = weakref.WeakKeyDictionary()
+_KEPT_LOCK = threading.Lock()
+
+
+class _Kept:
+    """A node's kept operands, key -> (operand, (device, dtype), the source
+    attributes' objects), and its open `prediction_operands` blocks."""
+    __slots__ = ('ops', 'open')
+
+    def __init__(self):
+        self.ops, self.open = {}, 0
+
+
+def _nbytes(op):
+    """Bytes of the tensors in an operand (a tensor, or tuples of them)."""
+    if isinstance(op, torch.Tensor):
+        return op.numel() * op.element_size()
+    if isinstance(op, tuple):
+        return sum(_nbytes(o) for o in op)
+    return 0
 
 
 class kernel:
@@ -118,23 +149,44 @@ class kernel:
 
     @contextmanager
     def prediction_operands(self):
-        """Within: the prediction methods keep the device operands they
-        make (`_op`) instead of making them on every call."""
-        self._pred_ops = {}
+        """Within: the prediction methods reuse the device operands (`_op`)
+        made in this or an earlier block while the attributes each was made
+        from are the same objects, on the same device and dtype."""
+        with _KEPT_LOCK:
+            kept = _KEPT.get(self)
+            if kept is None:
+                kept = _KEPT[self] = _Kept()
+            kept.open += 1
         try:
             yield self
         finally:
-            del self._pred_ops
+            with _KEPT_LOCK:
+                kept.open -= 1
 
-    def _op(self, key, make):
-        """The device operand ``key``: ``make()``, kept within
-        `prediction_operands`."""
-        ops = getattr(self, '_pred_ops', None)
-        if ops is None:
-            return make()
-        if key not in ops:
-            ops[key] = make()
-        return ops[key]
+    def _op(self, key, make, *sources):
+        """The device operand ``key``: ``make()``, which reads the node's
+        attributes named ``sources``; within `prediction_operands` the one
+        kept under ``key`` if those attributes are the objects it was made
+        from and the device and dtype are its own."""
+        kept = _KEPT.get(self)
+        if kept is None or not kept.open:
+            return self._made(make())
+        where = (self._dev(), config.default_dtype())
+        objs = tuple(getattr(self, a) for a in sources)
+        old = kept.ops.get(key)
+        if old is not None and old[1] == where and all(a is b for a, b in zip(old[2], objs)):
+            tracing.count('pred_ops.kept')
+            return old[0]
+        op = self._made(make())
+        kept.ops[key] = (op, where, objs)
+        return op
+
+    def _made(self, op):
+        """``op``, counted as made (its bytes too, made on a card)."""
+        tracing.count('pred_ops.made')
+        if self._dev().type == 'cuda':
+            tracing.count('pred_ops.upload_bytes', _nbytes(op))
+        return op
 
     def _nugget_diag(self):
         """Per-point nugget multipliers: the replicate weights, or ones."""
@@ -326,20 +378,21 @@ class kernel:
                 x = np.concatenate((x, z), axis=1)
             if self.Rinv is None:
                 self.compute_stats()
-            xt, ops = self._t(x), self._dense_ops(self._X)
-            length = self._op('length', lambda: self._t(self.length))
+            xt, ops = self._t(x), self._dense_ops(self._X, 'X', 'input', 'global_input')
+            length = self._op('length', lambda: self._t(self.length), 'length')
             parts = [gp_core.gp_predict(xt[c], *ops, float(self.scale[0]), length,
                                         float(self.nugget[0]), name=self.name)
                      for c in pmesh.row_chunks(len(x), chunk)]
             return tuple(tracing.to_host(torch.stack([torch.cat(p) for p in zip(*parts)]),
                                          'predict_out').numpy())
 
-    def _dense_ops(self, train, key='X'):
-        """(training inputs ``train()``, Rinv, Rinv_y) on the device, kept
-        within `prediction_operands` (the inputs under ``key``)."""
-        return (self._op(key, lambda: self._t(train())),
-                self._op('Rinv', lambda: self._t(self.Rinv)),
-                self._op('Rinv_y', lambda: self._t(self.Rinv_y)))
+    def _dense_ops(self, train, key, *sources):
+        """(training inputs ``train()``, made from the attributes
+        ``sources``, Rinv, Rinv_y) on the device (`_op`; the inputs under
+        ``key``)."""
+        return (self._op(key, lambda: self._t(train()), *sources),
+                self._op('Rinv', lambda: self._t(self.Rinv), 'Rinv'),
+                self._op('Rinv_y', lambda: self._t(self.Rinv_y), 'Rinv_y'))
 
     def linkgp_prediction(self, m, v, z):
         """Linked-GP prediction under Gaussian inputs (mean m, variance v,
@@ -352,13 +405,14 @@ class kernel:
                 return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
             if self.Rinv is None:
                 self.compute_stats()
-            W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input')
+            W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input', 'input')
             mu, var = gp_core.linkgp_predict(
                 self._t(m), self._t(v), None if z is None else self._t(z), W,
                 None if z is None else self._op('global_input',
-                                                lambda: self._t(self.global_input)),
+                                                lambda: self._t(self.global_input),
+                                                'global_input'),
                 Rinv, Rinv_y, float(self.scale[0]),
-                self._op('length', lambda: self._t(self.length)),
+                self._op('length', lambda: self._t(self.length), 'length'),
                 float(self.nugget[0]), name=self.name)
             return (tracing.to_host(mu, 'predict_out').numpy(),
                     tracing.to_host(var, 'predict_out').numpy())
@@ -377,13 +431,13 @@ class kernel:
                 self.compute_stats()
             W, Rinv, Rinv_y = self._dense_ops(
                 lambda: np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1),
-                ('input', n_mz))
+                ('input', n_mz), 'input', 'global_input')
             mu, var = gp_core.linkgp_predict(
                 self._t(m_full), self._t(v_full), None if z is None else self._t(z), W,
                 None if z is None else self._op(('global_input', n_mz), lambda: self._t(
-                    self.global_input[:, n_mz:])),
+                    self.global_input[:, n_mz:]), 'global_input'),
                 Rinv, Rinv_y, float(self.scale[0]),
-                self._op('length', lambda: self._t(self.length)),
+                self._op('length', lambda: self._t(self.length), 'length'),
                 float(self.nugget[0]), name=self.name)
             return (tracing.to_host(mu, 'predict_out').numpy(),
                     tracing.to_host(var, 'predict_out').numpy())

@@ -39,7 +39,10 @@ prediction's ``lgp.predict`` and ``emulator.predict`` (roots),
 ``ess.candidates``, ``ess.transitions``, ``ess.moves``, ``lbfgs.evals``,
 ``exact_draws.<vecchia|dense>``, ``lik.evals``, ``lik.candidates``,
 ``host_reads.<cause>``, ``kernel.launches.<K1-K5>`` (and
-``...@<device>``), ``kernel.plain_calls.<K1-K4>``.
+``...@<device>``), ``kernel.plain_calls.<K1-K4>``; a prediction's
+training-side device operands (`kernel._op`): ``pred_ops.made``,
+``pred_ops.kept`` (reused from an earlier call), ``pred_ops.upload_bytes``
+(the bytes of those made on a CUDA device).
 """
 import bisect
 import itertools

@@ -118,14 +118,15 @@ def _pred_nn(node, key, query, train, rows):
     row, both length-scaled, with the node's search, as a device int
     tensor (without the first, the query itself, in the LOO state).  The
     scaled training points and the IVF index of the approximate search are
-    made once a call, or kept under ``key`` within
-    `kernel.prediction_operands`."""
+    the node's operand ``('nn', key)`` (`kernel._op`): made on every call,
+    or kept from an earlier one within `kernel.prediction_operands`."""
     def make():
         xt = torch.as_tensor(train() / node.length, device=node._dev())
         return xt, (nnmod._ivf_build(xt) if nnmod.is_approx(node.nn_method, xt.shape[0])
                     else None)
     with tracing.span('predict.nn_search'):
-        xt, index = node._op(('nn', key), make)
+        xt, index = node._op(('nn', key), make, 'input', 'global_input', 'length',
+                             'nn_method')
         qt = torch.as_tensor(np.asarray(query / node.length), device=node._dev())
         m = int(min(node.pred_m or 50, xt.shape[0]))
         out = [nnmod.pred_nn_t(qt[c], xt, m, index) for c in rows]
@@ -134,10 +135,11 @@ def _pred_nn(node, key, query, train, rows):
 
 def _pred_common(node):
     """The node's targets, length-scales and nugget multipliers on the
-    device, kept within `kernel.prediction_operands`."""
-    return (node._op('y', lambda: node._t(node.output[:, 0])),
-            node._op('length', lambda: node._t(node.length)),
-            node._op('nd', node._nugget_diag))
+    device (`kernel._op`: kept from an earlier call within
+    `kernel.prediction_operands`)."""
+    return (node._op('y', lambda: node._t(node.output[:, 0]), 'output'),
+            node._op('length', lambda: node._t(node.length), 'length'),
+            node._op('nd', node._nugget_diag, 'output', 'W_diag'))
 
 
 def gp_prediction_vecch(node, x, z, chunk=None):
@@ -150,7 +152,7 @@ def gp_prediction_vecch(node, x, z, chunk=None):
         x = np.concatenate((x, z), axis=1)
     rows = pmesh.row_chunks(len(x), chunk)
     nns = _pred_nn(node, 'X', x, node._X, rows)
-    xt, w = node._t(x), node._op('X', lambda: node._t(node._X()))
+    xt, w = node._t(x), node._op('X', lambda: node._t(node._X()), 'input', 'global_input')
     y, length, nd = _pred_common(node)
 
     def pred(extra):
@@ -175,8 +177,9 @@ def linkgp_prediction_vecch(node, m, v, z):
     y, length, nd = _pred_common(node)
     return _with_jitter_retry(
         core.link_gp_vecch, node._t(m), node._t(v), None if z is None else node._t(z),
-        node._op('input', lambda: node._t(node.input)),
-        None if z is None else node._op('global_input', lambda: node._t(node.global_input)),
+        node._op('input', lambda: node._t(node.input), 'input'),
+        None if z is None else node._op('global_input', lambda: node._t(node.global_input),
+                                        'global_input'),
         NNarray, y, float(node.scale[0]), length,
         float(node.nugget[0]), nd, node.name)
 
