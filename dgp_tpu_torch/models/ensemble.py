@@ -18,10 +18,11 @@ Likelihood nodes may sit in the final layer: the ensemble propagates the GP
 nodes only, and the emulator applies the likelihood's closed-form moments
 on the host.
 
-A Vecchia node whose ``nn_method`` is 'approx' (at more than 4 * 256
-training points) searches its prediction neighbours through an IVF index
-built once per ensemble, as the JAX package's ensemble does: one index over
-layer 0's shared inputs, one per imputation deeper.
+A Vecchia node searches its prediction neighbours with the node path's
+search (`vecchia.nn.pred_nn_t`); one whose ``nn_method`` is 'approx' (at
+more than 4 * 256 training points) through an IVF index built once per
+ensemble, as the JAX package's ensemble does: one index over layer 0's
+shared inputs, one per imputation deeper.
 
 The query chunks go in shares over a mesh (`parallel.mesh.Split`): one
 share on the ensemble's device, or with a mesh of several devices
@@ -35,7 +36,9 @@ the one-device results bit for bit.
 Within a chunk, a neighbour search is a ``predict.nn_search`` span, a
 prediction at fixed inputs a ``predict.kriging`` span and a linked one a
 ``predict.linked_moments`` span (`tracing`); the one read of the outputs
-is a `tracing` read.
+of all chunks is a `tracing` read, and the jitter retry keeps each entry's
+finite value, as `dgp_tpu/models/ensemble.py` does (a node's own
+predictions retry by row, `models.node.read_out`).
 """
 import copy
 
@@ -203,15 +206,8 @@ class CompiledEnsemble:
         (N, Mc, width) tensor over the layer's GP nodes (width 0 for a layer
         of likelihood nodes alone)."""
         def nn_search(q, w, m_eff, ivf):
-            # with an IVF index, the cluster-restricted search of
-            # `vecchia.nn.get_pred_nn(method='approx')`, -1 (too few
-            # candidates) set to 0
             with tracing.span('predict.nn_search'):
-                if ivf is None:
-                    nn = vnn._pred_nn_impl(q, w, m_eff)
-                else:
-                    nn = vnn._ivf_query(q, w, ivf[0], ivf[1], m_eff)
-                    nn = torch.where(nn >= 0, nn, 0)
+                nn = vnn.pred_nn_t(q, w, m_eff, ivf)
                 return nn[:, 1:] if loo else nn
 
         in_mean = in_var = None

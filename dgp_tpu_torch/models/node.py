@@ -22,8 +22,10 @@ of a node carries a tensor.  Counters: ``pred_ops.made``,
 ``pred_ops.kept`` and ``pred_ops.upload_bytes`` (of operands made on a
 CUDA device).
 A prediction is a ``predict.kriging`` span, a linked one a
-``predict.linked_moments`` span (`tracing`), and its reads of the results
-are `tracing` reads.
+``predict.linked_moments`` span (`tracing`).  Every node-level prediction,
+these and the Vecchia ones of `vecchia.api`, reads its mean and variance
+back in one `tracing` read through `read_out`, which also makes a Vecchia
+prediction's jitter retry on the host, one more read per rung used.
 """
 import threading
 import weakref
@@ -383,8 +385,7 @@ class kernel:
             parts = [gp_core.gp_predict(xt[c], *ops, float(self.scale[0]), length,
                                         float(self.nugget[0]), name=self.name)
                      for c in pmesh.row_chunks(len(x), chunk)]
-            return tuple(tracing.to_host(torch.stack([torch.cat(p) for p in zip(*parts)]),
-                                         'predict_out').numpy())
+            return read_out(lambda extra: tuple(torch.cat(p) for p in zip(*parts)))
 
     def _dense_ops(self, train, key, *sources):
         """(training inputs ``train()``, made from the attributes
@@ -403,44 +404,33 @@ class kernel:
             if self.vecch:
                 from ..vecchia import api as vecchia_api
                 return vecchia_api.linkgp_prediction_vecch(self, m, v, z)
-            if self.Rinv is None:
-                self.compute_stats()
-            W, Rinv, Rinv_y = self._dense_ops(lambda: self.input, 'input', 'input')
-            mu, var = gp_core.linkgp_predict(
-                self._t(m), self._t(v), None if z is None else self._t(z), W,
-                None if z is None else self._op('global_input',
-                                                lambda: self._t(self.global_input),
-                                                'global_input'),
-                Rinv, Rinv_y, float(self.scale[0]),
-                self._op('length', lambda: self._t(self.length), 'length'),
-                float(self.nugget[0]), name=self.name)
-            return (tracing.to_host(mu, 'predict_out').numpy(),
-                    tracing.to_host(var, 'predict_out').numpy())
+            return self._linked_dense(m, v, z, 0)
 
     def linkgp_prediction_full(self, m, v, m_z, v_z, z):
         """Linked prediction when the first m_z.shape[1] global dims are
         themselves Gaussian (mean m_z, variance v_z) and the rest are z or
-        absent (kernel_class.py:672): those dims fold into the Gaussian block,
-        the training inputs re-ordered to match; dense whatever ``vecch``
-        says, as the reference computes it."""
+        absent (kernel_class.py:672); dense whatever ``vecch`` says, as the
+        reference computes it."""
         with tracing.span('predict.linked_moments', kind='dense'):
-            m_full = np.concatenate((m, m_z), axis=1)
-            v_full = np.concatenate((v, v_z), axis=1)
-            n_mz = m_z.shape[1]
-            if self.Rinv is None:
-                self.compute_stats()
-            W, Rinv, Rinv_y = self._dense_ops(
-                lambda: np.concatenate((self.input, self.global_input[:, :n_mz]), axis=1),
-                ('input', n_mz), 'input', 'global_input')
-            mu, var = gp_core.linkgp_predict(
-                self._t(m_full), self._t(v_full), None if z is None else self._t(z), W,
-                None if z is None else self._op(('global_input', n_mz), lambda: self._t(
-                    self.global_input[:, n_mz:]), 'global_input'),
-                Rinv, Rinv_y, float(self.scale[0]),
-                self._op('length', lambda: self._t(self.length), 'length'),
-                float(self.nugget[0]), name=self.name)
-            return (tracing.to_host(mu, 'predict_out').numpy(),
-                    tracing.to_host(var, 'predict_out').numpy())
+            return self._linked_dense(np.concatenate((m, m_z), axis=1),
+                                      np.concatenate((v, v_z), axis=1), z, m_z.shape[1])
+
+    def _linked_dense(self, m, v, z, n_mz):
+        """The dense linked moments of both linked predictions: the first
+        ``n_mz`` global dims are Gaussian, in (m, v) and in the training
+        inputs' block; the others pair with z."""
+        if self.Rinv is None:
+            self.compute_stats()
+        W, Rinv, Rinv_y = self._dense_ops(
+            lambda: self._X()[:, :self.input.shape[1] + n_mz], ('input', n_mz),
+            'input', 'global_input')
+        Z = None if z is None else self._op(
+            ('global_input', n_mz), lambda: self._t(self.global_input[:, n_mz:]),
+            'global_input')
+        length = self._op('length', lambda: self._t(self.length), 'length')
+        return read_out(lambda extra: gp_core.linkgp_predict(
+            self._t(m), self._t(v), None if z is None else self._t(z), W, Z, Rinv, Rinv_y,
+            float(self.scale[0]), length, float(self.nugget[0]), name=self.name))
 
     def ord_nn(self, ord=None, NNarray=None, pointer=False, device=None):
         """Vecchia ordering and neighbours (kernel_class.py:245), with
@@ -451,6 +441,26 @@ class kernel:
                            device=device)
         # invalidates the engines' cached device copies
         self.nn_version = getattr(self, 'nn_version', 0) + 1
+
+
+def read_out(pred, rungs=()):
+    """(mean, var) of a node's prediction ``pred(extra)``, which returns
+    both as device tensors at the extra diagonal ``extra``, as numpy
+    arrays: computed at 0 and read to the host in one copy (cause
+    ``predict_out``); a row whose mean or variance is not finite is taken
+    again from the next rung of ``rungs`` (a Vecchia prediction's
+    `vecchia.core.PRED_JITTER_RUNGS`), one read per rung used, as
+    `dgp_tpu/vecchia/api.py`'s host-level retry."""
+    def read(extra):
+        return tracing.to_host(torch.stack(pred(extra)), 'predict_out').numpy()
+    mean, var = read(0.0)
+    for extra in rungs:
+        bad = ~(np.isfinite(mean) & np.isfinite(var))
+        if not bad.any():
+            break
+        m2, v2 = read(extra)
+        mean, var = np.where(bad, m2, mean), np.where(bad, v2, var)
+    return mean, var
 
 
 def combine(*layers):

@@ -10,13 +10,18 @@ node's device (``node.device``; default: the card).  Every neighbour
 search takes the node's ``nn_method`` ('exact', or the IVF search 'approx'
 that `dgp` and `gp` switch on at n >= 50000), and the ordered search keeps
 the IVF centroids in ``node._ivf_cache`` to warm-start the next refresh.
-A prediction's neighbour search is a ``predict.nn_search`` span, and its
-reads to the host `tracing` reads.
+A prediction's neighbour search is a ``predict.nn_search`` span
+(`nn.pred_nn_t`); a prediction reads its mean and variance back once,
+retrying the non-finite rows at the rungs of `core.PRED_JITTER_RUNGS` on
+the host (`models.node.read_out`).
 """
+from functools import partial
+
 import numpy as np
 import torch
 
 from .. import config, gp_core, tracing
+from ..models.node import read_out
 from ..ops import cuda_vecchia as cv
 from ..parallel import mesh as pmesh
 from . import core, nn as nnmod
@@ -53,23 +58,6 @@ def ord_nn(node, ord=None, NNarray=None, pointer=False, device=None):
 
 def _scaled_input(node):
     return node._X() / node.length
-
-
-def _with_jitter_retry(f, *args):
-    """Run a (mean, var) prediction ``f(*args, extra_jit)``, again with the
-    larger diagonals of `core.PRED_JITTER_RUNGS` for the rows that come out
-    non-finite; returns numpy arrays."""
-    mean, var = f(*args, 0.0)
-    bad = ~(torch.isfinite(mean) & torch.isfinite(var))
-    for extra in core.PRED_JITTER_RUNGS:
-        if not bool(tracing.to_host(bad.any(), 'jitter_check')):
-            break
-        m2, v2 = f(*args, extra)
-        mean = torch.where(bad, m2, mean)
-        var = torch.where(bad, v2, var)
-        bad = ~(torch.isfinite(mean) & torch.isfinite(var))
-    return (tracing.to_host(mean, 'predict_out').numpy(),
-            tracing.to_host(var, 'predict_out').numpy())
 
 
 # ----------------------------------------------------------------------
@@ -146,8 +134,7 @@ def gp_prediction_vecch(node, x, z, chunk=None):
     """Vecchia GP prediction at x (M, d) with global input z: the m
     nearest training points of each query (``node.pred_m``, default 50;
     one fewer, the query itself, in the LOO state); the rows in chunks of
-    ``chunk`` (default: one), all launched before the jitter retry's
-    check."""
+    ``chunk`` (default: one), all launched before one read back."""
     if z is not None:
         x = np.concatenate((x, z), axis=1)
     rows = pmesh.row_chunks(len(x), chunk)
@@ -160,7 +147,7 @@ def gp_prediction_vecch(node, x, z, chunk=None):
                                float(node.nugget[0]), nd, node.name, extra)
                  for c, nn in zip(rows, nns)]
         return tuple(torch.cat(p) for p in zip(*parts))
-    return _with_jitter_retry(pred)
+    return read_out(pred, core.PRED_JITTER_RUNGS)
 
 
 def linkgp_prediction_vecch(node, m, v, z):
@@ -175,13 +162,13 @@ def linkgp_prediction_vecch(node, m, v, z):
     else:
         NNarray, = _pred_nn(node, 'input', m, lambda: node.input, rows)
     y, length, nd = _pred_common(node)
-    return _with_jitter_retry(
+    return read_out(partial(
         core.link_gp_vecch, node._t(m), node._t(v), None if z is None else node._t(z),
         node._op('input', lambda: node._t(node.input), 'input'),
         None if z is None else node._op('global_input', lambda: node._t(node.global_input),
                                         'global_input'),
         NNarray, y, float(node.scale[0]), length,
-        float(node.nugget[0]), nd, node.name)
+        float(node.nugget[0]), nd, node.name), core.PRED_JITTER_RUNGS)
 
 
 def loo_gp(gp_model, m):
@@ -191,8 +178,8 @@ def loo_gp(gp_model, m):
     X_scale = X / node.length
     NNarray = nnmod.get_pred_nn(X_scale, X_scale, m + 1, method=node.nn_method,
                                 device=node._dev())
-    mean, var = _with_jitter_retry(
+    mean, var = read_out(partial(
         core.loo_gp_vecch, node._t(X), node._t(NNarray, torch.int64),
         node._t(node.output[:, 0]), float(node.scale[0]), node._t(node.length),
-        float(node.nugget[0]), node._nugget_diag(), node.name)
+        float(node.nugget[0]), node._nugget_diag(), node.name), core.PRED_JITTER_RUNGS)
     return mean.reshape(-1, 1), var.reshape(-1, 1)
