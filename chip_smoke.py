@@ -12,7 +12,8 @@ Phases, each printing its results (and its seconds) as one JSON line:
             launch plan of all four kernels at m1 = 26, d = 2 (points per
             thread block, its shared bytes, blocks and warps per SM), and
             at two rows per lane (m1 = 41 and 64, d = 2) with the registers
-            and spills of those instantiations; and K5's at D = 2.
+            and spills of those instantiations; K5's at D = 2; and K6's
+            at d = 1 (kriging m1 = 51, linked 50).
   kernels   run each kernel and its plain PyTorch version on the card at the
             shapes of the main path -- K1 at the M-step's (G=2, 26, 2, 2000)
             with 2 length lanes and the nugget lane; K2 at (26, 2, 2000) with
@@ -63,6 +64,17 @@ Phases, each printing its results (and its seconds) as one JSON line:
             250 at n = 2000, D = 2 (the lgp_n2000.predict cell's dense call)
             without and with them; then timed at the cell's shape (kernel,
             the plain version in its LINK_BUDGET batches, bound).
+  vecchia_pred
+            K6 (a Vecchia node's prediction in one launch) against its plain
+            versions, float64 and float32: kriging (matern2.5, k = 50, so
+            m1 = 51) and linked (sexp, k = 50, Dw = 1), each at M = 250 on n
+            = 2000 training points (the lgp_n2000.predict cell's calls) and
+            at M = 8000 on n = 1e5, also with -1 lanes and a global input;
+            the gate's shared bytes against the launch plan; then each timed
+            (CUDA events over calls back to back and one call alone, the
+            kernel's device time under torch.profiler, host per call, the
+            plain version's the same, and the least time from
+            benchmark/counts/ops.py's counts).
   main      the port's serving path at the configuration of bench.py: a
             2-layer Vecchia DGP, n=2000, m=25, hyper-parameters from
             dgp_tpu_torch/data/vecchia_si_n2000.json; dgp(...), then
@@ -130,7 +142,8 @@ Phases, each printing its results (and its seconds) as one JSON line:
             route of vecchia.core (the JAX package's XLA branch):
             construction, 4 SEM iterations, emulator(N=2) and predict on
             1000 points, with route calls for K1, K3 and K4, no kernel
-            launched and no plain version run, and the upper log-likelihood
+            launched but K6 (the prediction's blocks at m = 50 are inside
+            its bound) and no plain version run, and the upper log-likelihood
             of the trained state within rtol 1e-9 of a CPU engine carrying
             the same state; a wrapper called directly at m1 = 65 must still
             raise NotImplementedError on the card; the route's log-likelihood,
@@ -357,6 +370,8 @@ SOURCES = {
                              "dgp_tpu/ops/pallas_vecchia.py:283"),
     "linked_dense_t": ("dgp_tpu_torch/csrc/linked_dense.cu",
                        "none: dgp_tpu's dense linked moments are plain JAX"),
+    "vecchia_pred_t": ("dgp_tpu_torch/csrc/vecchia_pred.cu",
+                       "none: dgp_tpu's Vecchia predictions are plain JAX"),
 }
 
 
@@ -498,6 +513,7 @@ def _ptxas_entry(ptxas, kname, dtype_name, rows):
 def phase_build():
     import torch
     from dgp_tpu_torch.ops import cuda_linked as cl
+    from dgp_tpu_torch.ops import cuda_pred as cp
     from dgp_tpu_torch.ops import cuda_vecchia as cv
     t0 = time.perf_counter()
     cv.build()
@@ -508,10 +524,14 @@ def phase_build():
                 for dt in ("float64", "float32") for k in cv.KERNEL_ID for m1 in (41, 64)}
     linked = {f"{dt}/{name}": cl.launch_plan(getattr(torch, dt), name, 2)
               for dt in ("float64", "float32") for name in ("sexp", "matern2.5")}
+    pred = {f"{dt}/{'linked' if lk else 'kriging'}": cp.launch_plan(getattr(torch, dt), lk,
+                                                                    m1, 1)
+            for dt in ("float64", "float32") for lk, m1 in ((False, 51), (True, 50))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cv.build_info["seconds"],
           "ptxas": cv.build_info["ptxas"], "launch_plans_m1_26_d2": plans,
-          "launch_plans_two_rows_d2": two_rows, "launch_plans_linked_dense_d2": linked})
+          "launch_plans_two_rows_d2": two_rows, "launch_plans_linked_dense_d2": linked,
+          "launch_plans_vecchia_pred_d1": pred})
 
 
 def _angle_views(f, nu, x, y, ordv, NN, length, dtype, device, nugget, cosv, sinv):
@@ -1264,6 +1284,176 @@ def phase_linked_dense(dev):
             "bound_by": row["bound_by"], "library_ms": None}
 
 
+# K6, a Vecchia node's prediction: the lgp_n2000.predict cell's kriging
+# (matern2.5, k = 50 neighbours, m1 = 51) and linked (sexp, k = 50, Dw = 1)
+# calls at M = 250 on n = 2000, and the ensemble's scale, M = 8000 on n =
+# 1e5; each also with -1 lanes (a third of the rows lose 16 lanes) and a
+# global input.  Float64: the mean, and kriging's variance, within
+# VPRED_RTOL64 of the largest plain value; the linked variance within
+# VPRED_VAR_RTOL64 of the terms it is the sum of, scale (1 + nugget) + mu^2
+# a query (the closed form cancels them, and tr(K^-1 J) adds k^2 products of
+# K^-1's entries, up to 1 / nugget, with J's, in another order).  Float32:
+# the F32_FACTOR rule of K1-K4.
+VPRED_CASES = (("kriging", "matern2.5"), ("linked", "sexp"))
+VPRED_SHAPES = ((2000, 250), (100_000, 8000))
+VPRED_K = 50
+VPRED_RTOL64, VPRED_VAR_RTOL64 = 1e-9, 1e-8
+
+
+def _vecchia_pred_inputs(kind, name, n, M, dtype, dev, holes=False, Dz=0, seed=0):
+    """An entry point's arguments: n training points and M queries on [0,
+    1]^(1 + Dz), each query's VPRED_K nearest (length-scaled, nearest
+    last), scale 1.3, nugget 1e-3 times multipliers in [0.5, 2]; linked
+    queries with variances in [0.001, 0.05]."""
+    import torch
+    rs = np.random.RandomState(seed)
+    D = 1 + Dz
+    X = rs.uniform(0, 1, (n, D))
+    y = np.sin(4 * X.sum(1)) + 0.1 * rs.randn(n)
+    length = rs.uniform(0.2, 0.6, D)
+    nd = rs.uniform(0.5, 2.0, n)
+    q = rs.uniform(0, 1, (M, D))
+    qs = torch.as_tensor(q / length, device=dev)
+    xs = torch.as_tensor(X / length, device=dev)
+    NN = torch.cat([torch.topk(((qs[s:s + 1000, None] - xs[None]) ** 2).sum(-1), VPRED_K,
+                               dim=1, largest=False).indices.flip(1)
+                    for s in range(0, M, 1000)])
+    if holes:
+        NN[::3, :VPRED_K // 3] = -1
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    if kind == "kriging":
+        return (t(q), t(X), NN, t(y), 1.3, t(length), 1e-3, t(nd), name)
+    v = rs.uniform(0.001, 0.05, (M, 1))
+    return (t(q[:, :1]), t(v), t(q[:, 1:]) if Dz else None, t(X[:, :1]),
+            t(X[:, 1:]) if Dz else None, NN, t(y), 1.3, t(length), 1e-3, t(nd), name)
+
+
+def _device_ms(call, symbol, calls=20):
+    """The kernels' device ms per call under torch.profiler whose names hold
+    ``symbol``: all of them where ``symbol`` is None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = e.cuda_time_total
+        if symbol is None or symbol in e.key:
+            total += dev_us
+    return total / 1e3 / calls
+
+
+def _host_ms(call, calls=20):
+    """Host ms to queue one call, the card's queue not full."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_vecchia_pred(dev):
+    """K6 against its plain versions, and timed; returns the kernel
+    summary's row (float64 linked sexp at the cell's shape)."""
+    import torch
+    from benchmark.counts import ops as counts
+    from dgp_tpu_torch.ops import cuda_pred as cp
+    from dgp_tpu_torch.ops import cuda_vecchia as cv
+    from dgp_tpu_torch.vecchia import core as vcore
+
+    t0 = time.perf_counter()
+    entry = {"kriging": (vcore.gp_vecch, vcore.gp_vecch_plain, counts.gp_vecch),
+             "linked": (vcore.link_gp_vecch, vcore.link_gp_vecch_plain,
+                        counts.link_gp_vecch)}
+    peaks = json.loads((Path(__file__).resolve().parent / "benchmark" / "counts"
+                        / "peaks.json").read_text())
+    rows, failures = [], []
+    for kind, name in VPRED_CASES:
+        ent, plain, _ = entry[kind]
+        for n, M in VPRED_SHAPES:
+            for holes, Dz in ((False, 0), (True, 1)):
+                args = _vecchia_pred_inputs(kind, name, n, M, torch.float64, dev, holes, Dz,
+                                            seed=n + M + Dz)
+                before = launch_counts()["vecchia_pred_t"]
+                out = ent(*args)
+                torch.cuda.synchronize()
+                launched = launch_counts()["vecchia_pred_t"] - before
+                ref = plain(*args)
+                args32 = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                               else a for a in args)
+                out32, ref32 = ent(*args32), plain(*args32)
+                err = float((out[0] - ref[0]).abs().max() / ref[0].abs().max())
+                if kind == "kriging":
+                    err_v = float((out[1] - ref[1]).abs().max() / ref[1].abs().max())
+                    tol_v = VPRED_RTOL64
+                else:
+                    terms = 1.3 * (1 + 1e-3) + ref[0] ** 2
+                    err_v = float(((out[1] - ref[1]).abs() / terms).max())
+                    tol_v = VPRED_VAR_RTOL64
+                ok32 = all(float((o.double() - r).abs().max())
+                           <= F32_FACTOR * float((p.double() - r).abs().max())
+                           + F32_FLOOR * float(r.abs().max())
+                           for o, p, r in zip(out32, ref32, ref))
+                row = {"phase": "vecchia_pred", "kind": kind, "name": name, "n": n, "M": M,
+                       "k": VPRED_K, "holes": holes, "Dz": Dz, "launches": launched,
+                       "mean_err_rel": err, "var_err": err_v,
+                       "float32_err": [float((o.double() - r).abs().max())
+                                       for o, r in zip(out32, ref)],
+                       "float32_plain_err": [float((p.double() - r).abs().max())
+                                             for p, r in zip(ref32, ref)],
+                       "ok": bool(launched == 1 and err <= VPRED_RTOL64
+                                  and err_v <= tol_v and ok32
+                                  and all(torch.isfinite(o).all() for o in out))}
+                rows.append(row)
+                emit(row)
+                if not row["ok"]:
+                    failures.append(row)
+    plans = []
+    for linked, m1 in ((False, VPRED_K + 1), (True, VPRED_K)):
+        for dt in (torch.float64, torch.float32):
+            plan = cp.launch_plan(dt, linked, m1, 1)
+            plans.append({"linked": linked, "dtype": str(dt), "m1": m1, **plan,
+                          "gate_bytes": cv.shared_bytes("K6", m1, 1, dt)})
+            if plan["shared_bytes"] != cv.shared_bytes("K6", m1, 1, dt):
+                failures.append(plans[-1])
+    timing = {}
+    for dt in ("float64", "float32"):
+        for kind, name in VPRED_CASES:
+            ent, plain, count = entry[kind]
+            symbol = "kriging_kernel" if kind == "kriging" else "linked_vecch_kernel"
+            for n, M in VPRED_SHAPES:
+                args = _vecchia_pred_inputs(kind, name, n, M, getattr(torch, dt), dev)
+                ops, nbytes = count(args, {})
+                call, pcall = (lambda: ent(*args)), (lambda: plain(*args))
+                timing[f"{dt}/{kind}/{name}/M={M}"] = {
+                    "ms": cuda_ms(call, reps=10), "ms_one_call": cuda_ms(call, inner=1),
+                    "device_ms": _device_ms(call, symbol), "host_ms": _host_ms(call),
+                    "plain_ms": cuda_ms(pcall, reps=5, inner=3),
+                    "plain_device_ms": _device_ms(pcall, None, calls=5),
+                    "plain_host_ms": _host_ms(pcall, calls=5),
+                    "bound_ms": counts.least_seconds(ops, nbytes, peaks) * 1e3,
+                    "ops": ops, "bytes": nbytes, "shape": [n, M, VPRED_K]}
+    emit({"phase": "vecchia_pred", "comparisons": len(rows), "failed": len(failures),
+          "plans": plans, "timing_ms": timing, "launches": launch_counts()["vecchia_pred_t"],
+          "seconds": time.perf_counter() - t0})
+    if failures:
+        raise SystemExit(f"K6 comparisons failed: {len(failures)}")
+    row = timing[f"float64/linked/sexp/M={VPRED_SHAPES[0][1]}"]
+    return {"max_abs_err": max(r["mean_err_rel"] for r in rows), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "operations", "library_ms": None}
+
+
 def _params_json():
     return _data_json("vecchia_si_n2000.json")
 
@@ -1858,7 +2048,8 @@ def phase_gate(dev):
     X, Y = bench_data()
     z = np.linspace(-1, 1, 1000).reshape(-1, 1)
     # outside the bound (m1 = 65): the large-block route of vecchia.core, as
-    # dgp_tpu's XLA branch; no kernel launched and no plain version run
+    # dgp_tpu's XLA branch; no kernel launched and no plain version run but
+    # K6, whose prediction blocks at m = 50 are inside its bound
     nb_seed(123)
     cv.reset_launch_counts()
     vcore.reset_route_counts()
@@ -1939,7 +2130,8 @@ def phase_gate(dev):
         "outside_route": not any(outside["use_kernel"].values())
         and all(routes_o[k] > 0 for k in ("K1", "K3", "K4")),
         "outside_no_kernel_no_plain": all(c == {"launches": 0, "plain_calls": 0}
-                                          for c in counts_o.values()),
+                                          for k, c in counts_o.items()
+                                          if k != "vecchia_pred_t"),
         "outside_loglik_card_vs_cpu": bool(np.isclose(lls_o[0], lls_o[1], rtol=GATE_RTOL,
                                                       atol=0.0)),
         "outside_finite": outside["finite"],
@@ -2790,6 +2982,7 @@ def main():
     phase_build()
     results = phase_kernels(dev)
     results["linked_dense_t"] = phase_linked_dense(dev)
+    results["vecchia_pred_t"] = phase_vecchia_pred(dev)
     launches = {k: 0 for k in SOURCES}
     for phase in (phase_main, phase_design, phase_train, phase_nodewise, phase_gp, phase_ref, phase_gate,
                   phase_parallel, phase_linked, phase_lik_vecchia, phase_large_n):

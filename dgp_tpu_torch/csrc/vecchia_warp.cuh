@@ -1,7 +1,8 @@
 // Warp-level device code of the Vecchia block kernels K1
-// (block_nllik_grad.cu), K2 (block_loglik_multi.cu), K3 (cond_weights.cu)
-// and K4 (block_loglik_parts.cu): one warp factors one block of m1 <=
-// M1_MAX = 64 rows.  Each lane owns R rows, R = rows_per_lane(m1): lane i
+// (block_nllik_grad.cu), K2 (block_loglik_multi.cu), K3 (cond_weights.cu),
+// K4 (block_loglik_parts.cu) and K6 (vecchia_pred.cu, which gathers its
+// own blocks, `MaskedCoords`): one warp factors one block of m1 <= M1_MAX
+// = 64 rows.  Each lane owns R rows, R = rows_per_lane(m1): lane i
 // owns row i (R = 1, m1 <= 32), or rows i and i + 32 (R = 2, 32 < m1 <= 64).
 // Every kernel is instantiated for both and its launcher picks R from m1,
 // so blocks of up to 32 rows run the one-row code alone.  What a lane
@@ -126,6 +127,31 @@ struct TileCoordsT {
   __device__ __forceinline__ T operator()(int i, int t) const { return x[t * m1 + i]; }
 };
 
+// The same from a tile with a flag per row, 1 for a neighbour and 0 for
+// an invalid lane (K6 gathers its own neighbour sets): an invalid row is
+// coupled to no other row, so its correlations are 0 (`coupled`) and a unit
+// diagonal decouples it exactly, as the plain versions' masks do.
+template <typename T>
+struct MaskedCoords {
+  const T* x;
+  const T* ok;
+  int d;
+  __device__ __forceinline__ T operator()(int i, int t) const { return x[i * d + t]; }
+};
+
+// Whether block rows i and k are coupled: always, but for a MaskedCoords
+// tile (and RowShift of one, below).  A constant for the other tiles, so
+// their kernels compile as they would without it.
+template <typename Coords>
+__device__ __forceinline__ bool coupled(const Coords&, int, int) {
+  return true;
+}
+
+template <typename T>
+__device__ __forceinline__ bool coupled(const MaskedCoords<T>& x, int i, int k) {
+  return x.ok[i] != T(0) && x.ok[k] != T(0);
+}
+
 // What a caller reads of the factorisation besides lii and b: nothing (K2,
 // K4), L (K3), or L and K's correlations (K1).
 constexpr int KEEP_NONE = 0, KEEP_L = 1, KEEP_LK = 2;
@@ -216,7 +242,7 @@ template <typename T, int KN, typename Coords>
 __device__ __forceinline__ T pair_corr(const Coords& x, int i, int k, int d, int split) {
   T v = corr<T, KN>(x, i, k, 0, split);
   if (split < d) v *= corr<T, KN>(x, i, k, split, d);
-  return v;
+  return coupled(x, i, k) ? v : T(0);
 }
 
 // Writes the warp's block of m1 <= 32 rows (R = 1) into its shared (m1,
@@ -237,6 +263,7 @@ __device__ __forceinline__ void warp_build(const Coords& x, const T (&dg)[R], T*
     }
     T v = corr<T, KN>(x, i, k, 0, split);
     if (split < d) v *= corr<T, KN>(x, i, k, split, d);
+    if (!coupled(x, i, k)) v = T(0);
     ls[k * S + i] = v;
     ls[i * S + k] = v;
     k += WARP;
@@ -419,6 +446,11 @@ struct RowShift {
   __device__ __forceinline__ auto operator()(int i, int t) const { return x(i + off, t); }
 };
 
+template <typename Coords>
+__device__ __forceinline__ bool coupled(const RowShift<Coords>& x, int i, int k) {
+  return coupled(x.x, i + x.off, k + x.off);
+}
+
 // Builds and factors the warp's block of 32 < m1 <= 64 rows (R = 2) in two
 // panels, rows 0 .. p1-1 and p1 .. m1-1 with p1 = m1 - 32 (see the top of
 // this file), with the forward substitution of one right-hand side: the
@@ -595,6 +627,43 @@ __device__ __forceinline__ void warp_backward(const T* ls, const T* invd, T (&ac
           z[1][q] = zk;
         else if (WARP + lane < k)
           acc[1][q] -= panel_l(ls, p1, k, WARP + lane) * zk;
+      }
+    }
+  }
+}
+
+// Forward substitution L_m z = r for NR right-hand sides at once, L_m and
+// the lane's rows as in warp_backward (R = 1 reads L[i][k] at (i, k) of the
+// (m1, LDS) array and 1 / L[k][k] in invd; R = 2 the panels).  r is 0 in
+// rows below ``start``, and so is z.  Rows >= m are left as they are.
+template <typename T, int NR, int R>
+__device__ __forceinline__ void warp_forward(const T* ls, const T* invd, T (&acc)[R][NR],
+                                             T (&z)[R][NR], int m, int m1, int start,
+                                             int lane) {
+  const int p1 = m1 - WARP;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < NR; ++q) z[r][q] = T(0);
+  for (int k = start; k < m; ++k) {
+    const T dk = R == 1 ? invd[k] : panel_l(ls, p1, k, k);
+    T lk[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = lane + r * WARP;
+      lk[r] = row > k && row < m ? (R == 1 ? ls[k * LDS + row] : panel_l(ls, p1, row, k))
+                                 : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const T zk = __shfl_sync(FULL_MASK, k < WARP ? acc[0][q] : acc[R - 1][q], k) * dk;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = lane + r * WARP;
+        if (row == k)
+          z[r][q] = zk;
+        else
+          acc[r][q] -= lk[r] * zk;
       }
     }
   }

@@ -185,6 +185,13 @@ def build():
         fn.restype = ci
     lib.dgp_vecchia_m1_max.argtypes = []
     lib.dgp_vecchia_m1_max.restype = ci
+    # K6 (csrc/vecchia_pred.cu; its wrappers are in cuda_pred)
+    lib.dgp_vecchia_pred.argtypes = [ci, ci, ci, vp, vp, vp, vp, ctypes.c_double,
+                                     ctypes.c_double, ctypes.c_double, ctypes.c_double, vp,
+                                     ci, ci, ci, ci, ci, vp]
+    lib.dgp_vecchia_pred.restype = ci
+    lib.dgp_vecchia_pred_plan.argtypes = [ci, ci, ci, ci, vp]
+    lib.dgp_vecchia_pred_plan.restype = ci
     # K5 (csrc/linked_dense.cu; its wrapper is cuda_linked.linked_dense_t)
     lib.dgp_linked_dense.argtypes = [ci, ci] + [vp] * 12 + [ci, ci, ci, vp]
     lib.dgp_linked_dense.restype = ci
@@ -219,11 +226,13 @@ def _block_scratch(m1, keep):
 
 def _per_point(kid, m1, d):
     """Values one point keeps in shared memory: `grad_per_point`,
-    `multi_per_point`, `condw_per_point` and `parts_per_point` of the
-    sources, at the rows per lane (R) the launchers pick for m1.  K1's are
-    its X tile, y, diag and dnug, the block with a copy of its
-    correlations, and (one row per lane) 1 / L[j][j] and z; a = K^-1 y goes
-    over the staged diag, which the kernel reads once."""
+    `multi_per_point`, `condw_per_point`, `parts_per_point` and
+    `pred_per_point` of the sources, at the rows per lane (R) the launchers
+    pick for m1.  K1's are its X tile, y, diag and dnug, the block with a
+    copy of its correlations, and (one row per lane) 1 / L[j][j] and z; a =
+    K^-1 y goes over the staged diag, which the kernel reads once.  K6's
+    (one query, d = all its dims) its scaled and raw tiles, the rows' flags,
+    a and weights, the query's constants and the block with L kept."""
     one = m1 <= _WARP                                       # rows_per_lane(m1) == 1
     if kid == "K1":
         return m1 * d + 3 * m1 + _block_scratch(m1, 2) + (2 * _WARP if one else 0)
@@ -233,6 +242,8 @@ def _per_point(kid, m1, d):
         return m1 * d + m1 + (m1 - 1) + _block_scratch(m1, 1) + (_WARP if one else 0)
     if kid == "K4":
         return m1 * d + 2 * m1 + _block_scratch(m1, 0)
+    if kid == "K6":
+        return m1 * (2 * d + 3) + 3 * d + _block_scratch(m1, 1) + (_WARP if one else 0)
     raise ValueError(f"unknown kernel id: {kid}")
 
 
@@ -248,7 +259,7 @@ def shared_bytes(kid, m1, d, dtype):
 
 
 def use_kernel(kid, m1, d, dtype=torch.float64):
-    """The gate: whether the hand kernel ``kid`` ("K1" .. "K4") takes blocks
+    """The gate: whether the hand kernel ``kid`` ("K1" .. "K4", "K6") takes blocks
     of m1 rows and d dims in ``dtype``.  Decided from these alone, so it
     reads the same on every device.  K1 takes any number of length lanes
     up to d (the wrapper refuses more as an invalid call), so they do not
@@ -275,6 +286,19 @@ def _runs_plain(wrapper, kid, t, m1, d):
             f" {SMEM_MAX} bytes of shared memory), and the plain version does not run"
             f" in its place on {t.device.type}: use m <= {M1_MAX - 1} or device='cpu'")
     return False
+
+
+def launches(kid, t, m1, d):
+    """Whether a call on tensor ``t`` launches the hand kernel ``kid``, for
+    an entry point that sends every other call to its plain version (K6): a
+    tensor off the CPU inside the gate does.  A CPU call outside the gate
+    counts in ``kernel.plain_calls.<kid>``."""
+    inside = use_kernel(kid, m1, d, t.dtype)
+    if t.device.type == "cpu":
+        if not inside:
+            tracing.count("kernel.plain_calls." + kid)
+        return False
+    return inside
 
 
 def launch_plan(kname, dtype, m1, d):
@@ -575,9 +599,11 @@ WRAPPERS = (block_nllik_grad_parts_t, block_loglik_multi_t, cond_weights_t,
 #: the gate's id of each wrapper
 KERNEL_ID = {"block_nllik_grad_parts_t": "K1", "block_loglik_multi_t": "K2",
              "cond_weights_t": "K3", "block_loglik_parts_t": "K4"}
-#: the launch counts' id of each wrapper: the gated K1-K4 and K5
-#: (`cuda_linked.linked_dense_t`), which has no bound and so no plain calls
-LAUNCH_ID = {**KERNEL_ID, "linked_dense_t": "K5"}
+#: the launch counts' id of each wrapper: the gated K1-K4, K5
+#: (`cuda_linked.linked_dense_t`), which has no bound and so no plain calls,
+#: and K6 (`cuda_pred.gp_vecch_t` and `link_gp_vecch_t`, one count), whose
+#: plain calls are `vecchia.core`'s outside its bound
+LAUNCH_ID = {**KERNEL_ID, "linked_dense_t": "K5", "vecchia_pred_t": "K6"}
 
 
 def reset_launch_counts():

@@ -30,14 +30,18 @@ the route's) for a range of the points, so that a split over several
 devices (`models/compiled.py`) can compute each share on its own device;
 `llik_total` and `join_weights` reduce and join them as one call would.
 
-Prediction (`gp_vecch`, `link_gp_vecch`) is batched torch.linalg, and so
-are the closed-form LOO (`loo_gp_vecch`) and the exact draw of the Hetero
-mean (`post_het_vecch`).
+Prediction (`gp_vecch`, `link_gp_vecch`) is one K6 launch a call on the
+card (`ops.cuda_pred`), by the same gate: the plain versions
+(`gp_vecch_plain`, `link_gp_vecch_plain`, batched torch.linalg) run on the
+CPU and, for blocks above K6's bound, on the card.  The closed-form LOO
+(`loo_gp_vecch`) and the exact draw of the Hetero mean (`post_het_vecch`)
+are batched torch.linalg.
 """
 import numpy as np
 import torch
 
 from .. import gp_core
+from ..ops import cuda_pred as cpred
 from ..ops import cuda_vecchia as cv
 from ..ops import kernels as kops
 from ..ops import linalg
@@ -560,7 +564,20 @@ def _pred_blocks(x, w_train, NNarray, y, length, nugget, nugget_diag, name):
 def gp_vecch(x, w_train, NNarray, y, scale, length, nugget, nugget_diag, name,
              extra_jit=0.0):
     """Batched Vecchia GP prediction (reference gp_vecch).  ``extra_jit`` is
-    an additional diagonal for the callers' jitter-escalation retry."""
+    an additional diagonal for the callers' jitter-escalation retry.  On the
+    card inside K6's bound (blocks of k + 1 <= 64 rows) one K6 launch
+    (`cuda_pred.gp_vecch_t`); else `gp_vecch_plain`, on the CPU and as the
+    large-block route."""
+    if cv.launches("K6", x, NNarray.shape[1] + 1, x.shape[1]):
+        return cpred.gp_vecch_t(x, w_train, NNarray, y, scale, length, nugget, nugget_diag,
+                                name, extra_jit, jitter=_f32_jitter(x.dtype))
+    return gp_vecch_plain(x, w_train, NNarray, y, scale, length, nugget, nugget_diag, name,
+                          extra_jit)
+
+
+def gp_vecch_plain(x, w_train, NNarray, y, scale, length, nugget, nugget_diag, name,
+                   extra_jit=0.0):
+    """Plain version of K6's kriging: `gp_vecch` in batched torch.linalg."""
     K, yi = _pred_blocks(x, w_train, NNarray, y, length, nugget, nugget_diag, name)
     K = K + extra_jit * _eye_like(K)
     L = linalg.chol_small(K)
@@ -596,9 +613,23 @@ def loo_gp_vecch(x, NNarray, y, scale, length, nugget, nugget_diag, name,
 def link_gp_vecch(m, v, z, w1, global_w1, NNarray, y, scale, length, nugget,
                   nugget_diag, name, extra_jit=0.0):
     """Batched linked-GP prediction under Vecchia (reference link_gp_vecch):
-    per test point, closed-form I/J moments over its conditioning set.  The
-    JAX package vmaps a one-point function; here the points are a batch
-    axis."""
+    per test point, closed-form I/J moments over its conditioning set.  On
+    the card inside K6's bound (k <= 64 neighbours) one K6 launch
+    (`cuda_pred.link_gp_vecch_t`); else `link_gp_vecch_plain`, on the CPU
+    and as the large-block route."""
+    if cv.launches("K6", m, NNarray.shape[1], m.shape[1] + (0 if z is None else z.shape[1])):
+        return cpred.link_gp_vecch_t(m, v, z, w1, global_w1, NNarray, y, scale, length,
+                                     nugget, nugget_diag, name, extra_jit,
+                                     jitter=_f32_jitter(m.dtype))
+    return link_gp_vecch_plain(m, v, z, w1, global_w1, NNarray, y, scale, length, nugget,
+                               nugget_diag, name, extra_jit)
+
+
+def link_gp_vecch_plain(m, v, z, w1, global_w1, NNarray, y, scale, length, nugget,
+                        nugget_diag, name, extra_jit=0.0):
+    """Plain version of K6's linked instantiation: `link_gp_vecch` in
+    batched torch.  The JAX package vmaps a one-point function; here the
+    points are a batch axis."""
     from ..ops import moments
 
     Dw = w1.shape[1]
