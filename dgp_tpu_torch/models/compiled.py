@@ -58,11 +58,19 @@ Spans (`tracing`): ``sem.chunk`` (`train_chunk`), ``sem.istep``,
 ``sem.prior_draw``, ``sem.ess`` (one transition of a layer, attr ``route``
 'block', or of a node of a node-wise layer, ``route`` 'nodewise'),
 ``sem.exact_draw`` (the exact draw of a Hetero mean; attrs ``layer`` and
-``kind``, 'vecchia' or 'dense'), ``sem.mstep`` and ``nn.refresh``; the
-state's reads back to the node objects are `tracing.to_host` reads.
+``kind``, 'vecchia' or 'dense'), ``sem.lik`` (one evaluation of a
+likelihood node's log-likelihood, `_lik_loglik`; attrs ``name``, the
+node's, and ``candidates``, the states it evaluated), ``sem.mstep`` and
+``nn.refresh``; a block ``sem.ess`` span also carries ``cols``, the
+latent columns the transition moves.  The state's reads back to the node
+objects are `tracing.to_host` reads.
 Counters: ``exact_draws.vecchia`` and ``exact_draws.dense`` (the engine's
 `exact_draws` reads them), ``lik.evals`` (calls of a likelihood node's
-log-likelihood) and ``lik.candidates`` (the states those calls evaluated).
+log-likelihood) and ``lik.candidates`` (the states those calls evaluated);
+``prior.passes`` (the ancestral passes of the Vecchia prior draws, one a
+draw of one node, batched over sweeps or not) and ``prior.columns`` (the
+node columns the prior draws gave, dense or Vecchia: S for a batch of S
+sweeps' draws).
 """
 import numpy as np
 import torch
@@ -416,17 +424,19 @@ class CompiledDGP:
         K candidates, (K, n, M), all evaluated in one call."""
         sp = self.spec[-1][k]
         f = latents[self.n_layer - 2]
+        cands = int(np.prod(f.shape[:-2]))
         tracing.count('lik.evals')
-        tracing.count('lik.candidates', int(np.prod(f.shape[:-2])))
-        if sp.has_rep:
-            f = f[..., self.rep, :]
-        f = f[..., list(sp.input_dim)]
-        if sp.name == 'Categorical':
-            fn = likelihoods.llik_fn(sp.name, num_classes=sp.num_classes,
-                                     link=sp.link, robustmax_eps=sp.robustmax_eps)
-        else:
-            fn = likelihoods.llik_fn(sp.name)
-        return fn(f, self.y_lik[k])
+        tracing.count('lik.candidates', cands)
+        with tracing.span('sem.lik', name=sp.name, candidates=cands):
+            if sp.has_rep:
+                f = f[..., self.rep, :]
+            f = f[..., list(sp.input_dim)]
+            if sp.name == 'Categorical':
+                fn = likelihoods.llik_fn(sp.name, num_classes=sp.num_classes,
+                                         link=sp.link, robustmax_eps=sp.robustmax_eps)
+            else:
+                fn = likelihoods.llik_fn(sp.name)
+            return fn(f, self.y_lik[k])
 
     def _upper_loglik(self, l, latents, params, nn_state, shares=None):
         shares = shares or _Shares(self, nn_state)
@@ -482,9 +492,11 @@ class CompiledDGP:
             sp = self.spec[l][k]
             p = params[l][k]
             Xn = self._node_input(l, k, latents)
+            tracing.count('prior.columns')
             if not sp.vecch:
                 K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
                 return linalg.mvn_sample(gen, linalg.safe_cholesky(K))
+            tracing.count('prior.passes')
             ns = nn_state[l][k]
             Xo = Xn[ns['ord']]
             parts = self._cond_parts(l, k, Xo, p, shares or _Shares(self, nn_state), False)
@@ -524,12 +536,14 @@ class CompiledDGP:
             p = params[l][k]
             Xn = self._node_input(l, k, latents)
             n = Xn.shape[0]
+            tracing.count('prior.columns', S)
             if not sp.vecch:
                 K = p['scale'] * kops.k_matrix(Xn, p['length'], p['nugget'], sp.name)
                 L = linalg.safe_cholesky(K)
                 eps = torch.randn((n, S), generator=gen, dtype=self.dtype,
                                   device=self.device)
                 return (L @ eps).T
+            tracing.count('prior.passes')
             ns = nn_state[l][k]
             parts = self._cond_parts(l, k, Xn[ns['ord']], p, shares or _Shares(self, nn_state),
                                      l == 0)
@@ -569,7 +583,7 @@ class CompiledDGP:
                 sn = torch.as_tensor(sinv, dtype=self.dtype, device=self.device)
                 return log_lik(c[:, None, None] * f + sn[:, None, None] * nu)
 
-            with tracing.span('sem.ess', layer=l, route='block'):
+            with tracing.span('sem.ess', layer=l, route='block', cols=f.shape[1]):
                 f_new = ess_update(host_gen, f, nu, log_lik,
                                    log_lik_angles=log_lik_angles,
                                    spec=config.ess_spec(f.shape[0]))
@@ -582,7 +596,7 @@ class CompiledDGP:
                     else self._gather_latent_view(nd_, nu_i) for nd_ in p['nodes']]
                    for p, nu_i in zip(plan, shares.split.copies(nu))]
         ll = self._plan_ll(plan, l, latents, nu, A_lists, B_lists, shares)
-        with tracing.span('sem.ess', layer=l, route='block'):
+        with tracing.span('sem.ess', layer=l, route='block', cols=f.shape[1]):
             f_new, (c_a, s_a) = ess_update(host_gen, f, nu, log_lik,
                                            log_lik_angles=ll,
                                            spec=config.ess_spec(f.shape[0]),

@@ -6,8 +6,10 @@ API mirror of reference `dgpsi/linkgp.py`: `container` wraps a trained GP
 a layered system of containers with N imputations of every DGP container and
 propagates means and variances (or samples) through it.  A DGP container's
 imputations are drawn on its device, by the ESS engine whose Vecchia sweeps
-run K3 and K2 (models/compiled.py).  ``predict`` loops over the imputations
-and, within one, over the system's containers; every node's prediction
+run K3 and K2 (models/compiled.py).  A GP container has no imputations, so
+the imputations share one copy of it.  ``predict`` loops over the
+imputations and, within one, over the system's containers, and predicts a
+shared first-layer container once a call; every node's prediction
 computes on lgp's device.  The JAX package also has a device pass over all
 imputations at once (`dgp_tpu/models/linked_ensemble.py`, one jitted
 program per query chunk); in eager PyTorch that pass measured no faster
@@ -145,6 +147,7 @@ class lgp:
         if not any(cont.type == 'dgp' for layer in all_layer for cont in layer):
             N = 1
         self.all_layer_set = []
+        gp_copies = {}
         for _ in range(N):
             one_imputation = []
             for l in range(self.L):
@@ -156,7 +159,11 @@ class lgp:
                         cont.imp.sample()
                         if not cont.vecch:
                             cont.imp.key_stats()
-                    one = copy.deepcopy(cont)
+                        one = copy.deepcopy(cont)
+                    elif id(cont) in gp_copies:     # no imputations: one copy for all
+                        one = gp_copies[id(cont)]
+                    else:
+                        one = gp_copies[id(cont)] = copy.deepcopy(cont)
                     one.device = self.device
                     for node in _gp_nodes(one.structure):
                         node.device = self.device
@@ -210,8 +217,9 @@ class lgp:
             if method == 'mean_var':
                 results = self._predict_rows(x, full_layer, m, dt, sharded)
             else:
+                first = {}
                 results = [self._predict_one(one_imputed, x, method, full_layer, sample_size,
-                                             m, dt) for one_imputed in self.all_layer_set]
+                                             m, dt, first) for one_imputed in self.all_layer_set]
             for res in results:
                 if method == 'mean_var':
                     mean_pred.append(res[0])
@@ -260,8 +268,9 @@ class lgp:
                 for c in pmesh.chunks(sl, ensemble._CHUNK):
                     xs = [np.asarray(x[0])[c]] + [[None if e is None else np.asarray(e)[c]
                                                    for e in layer] for layer in x[1:]]
+                    first = {}
                     parts.append([self._predict_one(one, xs, 'mean_var', full_layer, 1, m,
-                                                    dt) for one in systems])
+                                                    dt, first) for one in systems])
             return [_cat_rows([p[i] for p in parts]) for i in range(len(systems))]
 
         n = len(x[0])
@@ -269,13 +278,23 @@ class lgp:
             return rows(self.all_layer_set, slice(0, n))
 
         def share(dev, sl):
-            return rows([[[_on_device(c, dev) for c in layer] for layer in one]
+            copies = {}     # a container shared by the imputations stays shared
+
+            def on(c):
+                if id(c) not in copies:
+                    copies[id(c)] = _on_device(c, dev)
+                return copies[id(c)]
+            return rows([[[on(c) for c in layer] for layer in one]
                          for one in self.all_layer_set], sl)
         parts = pmesh.map_shares(pmesh.model_mesh(self.device), n, share, ensemble._CHUNK)
         return [_cat_rows([p[i] for p in parts]) for i in range(len(self.all_layer_set))]
 
-    def _predict_one(self, one_imputed, x, method, full_layer, sample_size, m, dt):
-        """One imputation's pass through the system, container by container."""
+    def _predict_one(self, one_imputed, x, method, full_layer, sample_size, m, dt, first):
+        """One imputation's pass through the system, container by container.
+        A first-layer container's prediction depends on ``x`` alone, so
+        ``first`` (id of the container -> its mean and variance), shared
+        by the imputations of one call, predicts a container that they
+        share (every GP container) once."""
         with tracing.span('predict.imputation'):
             mean_layers, var_layers, sample_layers = [], [], []
             m_l_next, v_l_next = [], []
@@ -289,9 +308,11 @@ class lgp:
                             if isinstance(model.local_input_idx, list):
                                 raise Exception('First-layer local_input_idx must be a 1d-array.')
                             input_lk = np.asarray(x[0], dt)[:, model.local_input_idx]
-                            if model.type == 'gp':
-                                m_lk, v_lk = self.gp_pred(input_lk, None, None, None,
-                                                          model.structure, m)
+                            if id(model) in first:
+                                m_lk, v_lk = first[id(model)]
+                            elif model.type == 'gp':
+                                m_lk, v_lk = first[id(model)] = self.gp_pred(
+                                    input_lk, None, None, None, model.structure, m)
                             else:
                                 _, _, m_lk, v_lk = self.dgp_pred(input_lk, None, None, None,
                                                                  model.structure, m)

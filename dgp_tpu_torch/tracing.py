@@ -27,10 +27,12 @@ kernel launches they made and their copies to the host.
 
 Names: SEM's ``sem.train`` (root), ``sem.chunk``, ``sem.istep``,
 ``sem.prior_draw``, ``sem.ess`` (one transition; attrs ``layer`` and
-``route``, block or nodewise), ``sem.ess.round`` (one batch of candidates
-and its read), ``sem.exact_draw`` (attrs ``layer`` and ``kind``, vecchia or
-dense), ``sem.mstep``, ``lbfgs.eval``, ``nn.refresh``, ``nn.ivf_build``,
-``nn.ivf_query``;
+``route``, block or nodewise, and for a block ``cols``, the latent columns
+it moves), ``sem.ess.round`` (one batch of candidates and its read),
+``sem.exact_draw`` (attrs ``layer`` and ``kind``, vecchia or dense),
+``sem.lik`` (a likelihood node's log-likelihood; attrs ``name`` and
+``candidates``), ``sem.mstep``, ``lbfgs.eval``, ``nn.refresh``,
+``nn.ivf_build``, ``nn.ivf_query``;
 prediction's ``lgp.predict`` and ``emulator.predict`` (roots),
 ``predict.imputation``, ``predict.container`` (attrs ``kind``,
 ``layer``), ``predict.nn_search``, ``predict.kriging``,
@@ -38,6 +40,8 @@ prediction's ``lgp.predict`` and ``emulator.predict`` (roots),
 ``host_read`` (attr ``cause``).  Counters: ``ess.rounds``,
 ``ess.candidates``, ``ess.transitions``, ``ess.moves``, ``lbfgs.evals``,
 ``exact_draws.<vecchia|dense>``, ``lik.evals``, ``lik.candidates``,
+``prior.passes`` (ancestral passes of Vecchia prior draws),
+``prior.columns`` (node columns the prior draws gave),
 ``host_reads.<cause>``, ``kernel.launches.<K1-K5>`` (and
 ``...@<device>``), ``kernel.plain_calls.<K1-K4>``; a prediction's
 training-side device operands (`kernel._op`): ``pred_ops.made``,
@@ -145,7 +149,7 @@ class _NoSpan:
 _NOOP = _NoSpan()
 
 
-def span(name, **attrs):
+def span(name, /, **attrs):
     """A span of ``name`` around the ``with`` block, recorded while a
     recording is on (a shared no-op otherwise)."""
     if _forced is None and not _prof._is_profiler_enabled:

@@ -3,7 +3,8 @@ device from one `lgp.predict` call to the next (`kernel.prediction_operands`,
 `kernel._op`): the same results bit for bit, nothing made again on a
 repeat, exactly the operands whose node attributes were replaced made
 again, no tensor in a copy or a pickle of the system, and the operands
-freed with it.  The system is the benchmark cell's at a small size: a
+freed with it.  The imputations share one copy of a GP container, which a
+call predicts once, with the results of a copy for each imputation.  The system is the benchmark cell's at a small size: a
 Vecchia gp feeding a Vecchia DGP whose second layer is wired to the global
 input, which the linked prediction treats as Gaussian (the dense
 `linkgp_prediction_full`)."""
@@ -46,8 +47,10 @@ def _system():
 
 
 def _nodes(system):
-    return [node for one in system.all_layer_set for layer in one for cont in layer
-            for node in linkgp._gp_nodes(cont.structure)]
+    """The system's GP nodes, each once: the imputations share a GP
+    container's."""
+    return list({id(node): node for one in system.all_layer_set for layer in one
+                 for cont in layer for node in linkgp._gp_nodes(cont.structure)}.values())
 
 
 def _kept(system):
@@ -166,6 +169,25 @@ def test_switching_vecchia_off_and_on_matches_a_fresh_copy():
     _same(back, _predict(copy.deepcopy(system))[0])
     assert not _remade(before, _kept(system)) and "pred_ops.made" not in counts
     _same(back, first)
+
+
+@pytest.mark.parametrize("method", ["mean_var", "sampling"])
+def test_the_imputations_share_one_gp_container_predicted_once(method):
+    system = _system()
+    conts = [one[0][0] for one in system.all_layer_set]
+    assert all(c is conts[0] for c in conts) and conts[0] is not system.all_layer[0][0]
+    apart = copy.copy(system)           # a copy of the GP container for each imputation
+    apart.all_layer_set = [[[copy.deepcopy(c) if c.type == 'gp' else c for c in layer]
+                            for layer in one] for one in system.all_layer_set]
+    outs, krigings = [], []
+    for s in (system, apart):
+        np.random.seed(7)
+        with tracing.recording() as rec:
+            outs.append(s.predict(X_TEST, m=15, method=method, sample_size=4))
+        krigings.append(sum(sp.name == "predict.kriging" for sp in rec.spans))
+    assert krigings == [1, len(conts)]
+    for a, b in zip(*[o if method == 'mean_var' else (o,) for o in outs]):
+        np.testing.assert_array_equal(a[0], b[0])
 
 
 def _tensors(obj):

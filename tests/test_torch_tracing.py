@@ -7,7 +7,9 @@
 3. a small Vecchia DGP's `train` and an `lgp.predict` give the same
    outputs and random states, bit for bit, with recording on and off, and
    their spans have one root each, as an `emulator.predict` has;
-4. the ESS and L-BFGS counters equal counts taken around the evaluators;
+4. the ESS and L-BFGS counters equal counts taken around the evaluators,
+   and ``prior.passes`` the ancestral passes of the prior draws of a
+   Gaussian and a Hetero Vecchia DGP;
 5. under torch.profiler a `record_function` inside a span lies inside it
    on the profiler's clock;
 6. `idle_by_span` on made-up events.
@@ -238,6 +240,37 @@ def test_ess_and_lbfgs_counters_match_counts_taken_around_the_evaluators(monkeyp
     assert c["lbfgs.evals"] == taken["fg"] > 0
 
 
+
+def _hetero_model():
+    X, Y = _data(60)
+    k = dgp_tpu_torch.kernel
+    layers = dgp_tpu_torch.combine(
+        [k(length=np.array([0.5]), name='sexp')],
+        [k(length=np.array([0.2]), name='sexp', scale_est=True, connect=np.arange(1))
+         for _ in range(2)],
+        [dgp_tpu_torch.Hetero()])
+    dgp_tpu_torch.nb_seed(0)
+    return dgp_tpu_torch.dgp(X, Y, layers, vecchia=True, m=8, device='cpu')
+
+
+@pytest.mark.parametrize("model,per_sweep", [(_model, 0), (_hetero_model, 1)],
+                         ids=["gaussian", "hetero"])
+def test_prior_passes_an_iteration(model, per_sweep):
+    """train(N=2, ess_burn=2): prior.passes counts 1 + per_sweep (ess_burn
+    + 1) ancestral passes an iteration, one a sem.prior_draw span: the
+    layer-0 node's one batched draw for every sweep, and in the Hetero DGP
+    its log-variance node's draw a sweep (the mean's is exact).  At
+    ess_burn 10 these are the 1 and 12 of the benchmark's vsi_n1e5.sem and
+    dgp3_hetero_n2000.sem; prior.columns counts a node's column a sweep."""
+    N, burn = 2, 2
+    m = model()
+    with tracing.recording() as rec:
+        m.train(N=N, chunk_size=N, ess_burn=burn, disable=True)
+    sweeps = burn + 1
+    assert rec.counters["prior.passes"] == N * (1 + per_sweep * sweeps)
+    assert len(_by_name(rec, "sem.prior_draw")) == rec.counters["prior.passes"]
+    assert rec.counters["prior.columns"] == N * sweeps * (1 + per_sweep)
+
 def _lgp_system():
     rs = np.random.RandomState(1)
     X1 = rs.uniform(-1, 1, (80, 1))
@@ -271,13 +304,14 @@ def test_lgp_predict_is_the_same_with_recording_on_and_off():
     assert len(_by_name(rec, "predict.imputation")) == 3
     kinds = sorted((s.attrs["kind"], s.attrs["layer"]) for s in _by_name(rec, "predict.container"))
     assert kinds == [("dgp", 1)] * 3 + [("gp", 0)] * 3
-    # per imputation: model 1's kriging, model 2's Vecchia layer 1 and its
-    # dense layer 2 (wired to model 1's output)
-    assert len(_by_name(rec, "predict.kriging")) == 3
+    # model 1's kriging once (the imputations share its container), and per
+    # imputation model 2's Vecchia layer 1 and its dense layer 2 (wired to
+    # model 1's output)
+    assert len(_by_name(rec, "predict.kriging")) == 1
     assert sorted(s.attrs["kind"] for s in _by_name(rec, "predict.linked_moments")) == \
         ["dense"] * 3 + ["vecchia"] * 3
     # one read of mean and variance per node call (`node.read_out`)
-    assert rec.counters["host_reads.predict_out"] == 3 * 3
+    assert rec.counters["host_reads.predict_out"] == 1 + 3 * 2
     assert len(_by_name(rec, "host_read")) == sum(
         v for k, v in rec.counters.items() if k.startswith("host_reads."))
 

@@ -23,7 +23,7 @@ The tests marked ``card`` hold K6 to the plain versions on an NVIDIA card
 same bit for bit whatever call it comes in, that a block that is not
 positive definite comes back NaN and the callers' retry then matches the
 plain path, that blocks above the gate take the plain route, and that one
-`lgp.predict` request of the lgp_n2000.predict cell's system makes 20 K6
+`lgp.predict` request of the lgp_n2000.predict cell's system makes 11 K6
 launches.  This file imports no JAX; on the card:
 ``python -m pytest tests/test_torch_vecch_pred.py -m card --noconftest``.
 """
@@ -505,9 +505,10 @@ def test_blocks_above_the_gate_take_the_plain_route_on_the_card(cuda, kind):
 @pytest.mark.card
 def test_one_request_of_the_cell_system_makes_20_launches(cuda):
     """The lgp_n2000.predict cell's system at its configuration's sizes and
-    hyper-parameters (model 1 untrained): a 250-point request runs 10
-    kriging calls (model 1, once an imputation) and 10 Vecchia linked
-    calls (model 2's layer 1), each one K6 launch."""
+    hyper-parameters (model 1 untrained): a 250-point request runs one
+    kriging call (model 1, whose container the imputations share) and 10
+    Vecchia linked calls (model 2's layer 1, once an imputation), each one
+    K6 launch: 11 launches."""
     rs = np.random.RandomState(0)
     X1 = rs.uniform(-1, 1, (2000, 1))
     X2 = rs.uniform(0, 1, (2000, 1))
@@ -531,5 +532,5 @@ def test_one_request_of_the_cell_system_makes_20_launches(cuda):
     tracing.reset("kernel.")
     mu, var = system.predict(x, m=50)
     assert np.isfinite(mu[0]).all() and np.isfinite(var[0]).all()
-    assert tracing.totals("kernel.launches.K6") == {"kernel.launches.K6": 20,
-                                                    f"kernel.launches.K6@{cuda}": 20}
+    assert tracing.totals("kernel.launches.K6") == {"kernel.launches.K6": 11,
+                                                    f"kernel.launches.K6@{cuda}": 11}

@@ -5,7 +5,10 @@
     python3 tools/trace_spans_torch.py --workload <cell> [--seed N] [--syncs]
 
 (for example ``--workload dgp3_hetero_n2000.sem``, whose table holds the
-likelihood layer's ``sem.exact_draw`` and the ``sem.ess`` spans by route)
+likelihood layer's ``sem.exact_draw`` and the ``sem.ess`` spans by route,
+or ``--workload dgp3_cat_n5000.sem``, whose table holds the block
+``sem.ess`` spans of both layers and the ``sem.lik`` spans of the
+Categorical density)
 
 sets up a benchmark cell (`benchmark/workloads/<cell>.json`) as
 `benchmark/run.py` does, runs its traced window (the cell's
@@ -14,8 +17,11 @@ line: per span name its calls, host ms, own host ms, device busy and idle
 ms, kernel-launch calls and copies to the host, each also per unit of the
 window's work (SEM iteration or request), and again with the spans that
 carry a ``kind`` (`predict.linked_moments`, `predict.container`,
-`sem.exact_draw`) or a ``route`` (`sem.ess`: block or nodewise) split by
-it; the program's counters over the window; and the window's kernels,
+`sem.exact_draw`), a ``route`` (`sem.ess`: block or nodewise), a
+``layer`` (`sem.ess`, `sem.exact_draw`, `predict.container`) or a
+``name`` (`sem.lik`: the likelihood node's) split by them; the program's
+counters over the window (``prior.passes`` and ``prior.columns`` among
+them); and the window's kernels,
 copies to the host and device synchronisations as the benchmark's `Trace`
 counts them.  With ``--syncs``
 one more unit then runs under `torch.cuda.set_sync_debug_mode('warn')`,
@@ -47,11 +53,11 @@ def _per(table, units):
 
 
 def _split(span):
-    """The span under its name with its ``kind`` or ``route`` appended."""
-    for key in ("kind", "route"):
-        if key in span.attrs:
-            return span._replace(name=f"{span.name}[{key}={span.attrs[key]}]")
-    return span
+    """The span under its name with its ``kind``, ``route``, ``layer`` and
+    ``name`` attrs appended, those it carries."""
+    attrs = [f"{key}={span.attrs[key]}" for key in ("kind", "route", "layer", "name")
+             if key in span.attrs]
+    return span._replace(name=f"{span.name}[{','.join(attrs)}]") if attrs else span
 
 
 def window(name, fn):
